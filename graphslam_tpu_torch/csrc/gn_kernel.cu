@@ -1,0 +1,731 @@
+// Fused SE(2) Gauss-Newton for Hopper (sm_90a): the CUDA port of the Pallas
+// kernel graphslam_tpu/ops/gn_kernel.py::_gn_kernel.
+//
+// One GN iteration is a fixed sequence of small launches on the caller's
+// stream, with no host synchronization:
+//
+//   k_linearize    one thread per chain/loop edge: whitened residual and
+//                  Jacobians, then Aii, Aij, Ajj, gi, gj (Aij kept for H@v)
+//   k_assemble     one thread per node: D and g from its chain neighbours,
+//                  its prior and its incident loop edges (a CSR in edge
+//                  order, so the sums have a fixed order and no atomics)
+//   k_pcr_factor   one launch per PCR level (truncated at K levels)
+//   CG, cg_iters times:
+//     k_hvp          H@p with the partial sums of p.Ap per block
+//     k_cg_update    alpha from the partials (same order in every block),
+//                    x += alpha p, r -= alpha Ap
+//     k_pcr_apply    one launch per level; the last applies Dinv and adds
+//                    the partial sums of r.z
+//     k_cg_direction beta, p = z + beta p, rz kept on the device
+//   k_retract      x <- x * Exp(dx)
+//
+// At m3500 size the arrays are a few MB and sit in the 50 MB L2; what bounds
+// the kernel is launch latency (about 190 launches per GN iteration at K=4,
+// cg 25), not bytes or FLOPs. Folding them into a persistent kernel or a CUDA
+// graph is left to later work; this version is the simple, correct one.
+//
+// Numerics follow the TPU kernel, not the XLA solver: floor-based angle
+// wrap, PCR ridge eps/3*|tr| + 1e-8 with the adjugate inverse (no 1e-8*I),
+// zero-filled PCR shifts at both ends, and the Krylov-exhaustion guard
+// (alpha = beta = 0 once pAp or rz <= 1e-30). Every reduction has a fixed
+// order, so two runs on one card give bitwise equal poses.
+//
+// Line references "gn_kernel.py:N" are to graphslam_tpu/ops/gn_kernel.py.
+//
+// Plain C interface for ctypes: every function takes a GnProblem* whose
+// pointers are device pointers, launches on problem->stream and returns
+// cudaGetLastError() (0 = success).
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+extern "C" {
+
+struct GnProblem {
+  float* poses;        // (N, 3) in/out
+  const float* cz;     // (c, 3) chain measurements, masked rows zero
+  const float* cR;     // (c, 9) chain sqrt-information
+  const float* pz;     // (N, 3) per-node prior measurement
+  const float* pR;     // (N, 9) per-node prior sqrt-information (zero: none)
+  const int* li;       // (El,) loop edge endpoints
+  const int* lj;
+  const float* lz;     // (El, 3)
+  const float* lR;     // (El, 9)
+  const int* csr_ptr;  // (N+1,)
+  const int* csr_ent;  // (2 El,) 2*l + side, ascending l per node
+  float* D;            // (N, 9) assembled diagonal blocks
+  float* U;            // (N, 9) chain blocks, U[n] couples n and n+1
+  float* b;            // (N, 3) right-hand side -g
+  float* x;            // (N, 3) CG solution (and warm-start seed)
+  float* ws;           // workspace of gn_ws_floats(...) floats
+  void* stream;        // cudaStream_t
+  int N, c, El, K, cg_max;
+  float eps, huber_delta;
+};
+
+}  // extern "C"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr float kPi = 3.14159265358979f;
+constexpr float kTwoPi = 6.28318530717959f;
+constexpr float kTiny = 1e-30f;
+
+__host__ __device__ inline int n_blocks(long long n) {
+  return (int)((n + kThreads - 1) / kThreads);
+}
+
+// Workspace carve-up (floats).
+struct Ws {
+  float* Aij;       // (c+El, 9)
+  float* blk;       // (c+El, 24): Aii 9, Ajj 9, gi 3, gj 3
+  float* PD[2];     // PCR working blocks, ping-pong (N, 9)
+  float* PU[2];
+  float* PL[2];
+  float* A;         // (K, N, 9) PCR coefficients alpha
+  float* G;         // (K, N, 9) PCR coefficients gamma
+  float* DinvF;     // (N, 9)
+  float* r;         // (N, 3) CG vectors
+  float* z;
+  float* p;
+  float* Ap;
+  float* t[2];      // PCR apply ping-pong
+  float* part_a;    // (n_blocks(N),) partial sums of p.Ap
+  float* part_b;    // (n_blocks(N),) partial sums of r.z
+  float* rz;        // (cg_max + 1,) r.z per CG iteration
+  long long total;
+};
+
+Ws layout(int N, int c, int El, int K, int cg_max, float* base) {
+  Ws w;
+  long long off = 0;
+  auto take = [&](long long n) {
+    float* ptr = base ? base + off : nullptr;
+    off += n;
+    return ptr;
+  };
+  const long long E = (long long)c + El;
+  const long long N9 = 9LL * N, N3 = 3LL * N;
+  w.Aij = take(9 * E);
+  w.blk = take(24 * E);
+  for (int i = 0; i < 2; ++i) {
+    w.PD[i] = take(N9);
+    w.PU[i] = take(N9);
+    w.PL[i] = take(N9);
+  }
+  w.A = take(N9 * K);
+  w.G = take(N9 * K);
+  w.DinvF = take(N9);
+  w.r = take(N3);
+  w.z = take(N3);
+  w.p = take(N3);
+  w.Ap = take(N3);
+  w.t[0] = take(N3);
+  w.t[1] = take(N3);
+  w.part_a = take(n_blocks(N));
+  w.part_b = take(n_blocks(N));
+  w.rz = take(cg_max + 1);
+  w.total = off;
+  return w;
+}
+
+// ---------------------------------------------------------------------------
+// 3-vectors and row-major 3x3 blocks in registers
+// ---------------------------------------------------------------------------
+
+struct V3 { float v[3]; };
+struct M3 { float m[9]; };
+
+__device__ __forceinline__ V3 ld3(const float* a, long long i) {
+  return V3{{a[3 * i], a[3 * i + 1], a[3 * i + 2]}};
+}
+__device__ __forceinline__ void st3(float* a, long long i, const V3& x) {
+  a[3 * i] = x.v[0]; a[3 * i + 1] = x.v[1]; a[3 * i + 2] = x.v[2];
+}
+__device__ __forceinline__ M3 ld9(const float* a, long long i) {
+  M3 r;
+#pragma unroll
+  for (int e = 0; e < 9; ++e) r.m[e] = a[9 * i + e];
+  return r;
+}
+__device__ __forceinline__ void st9(float* a, long long i, const M3& x) {
+#pragma unroll
+  for (int e = 0; e < 9; ++e) a[9 * i + e] = x.m[e];
+}
+__device__ __forceinline__ V3 v3zero() { return V3{{0.f, 0.f, 0.f}}; }
+__device__ __forceinline__ M3 m3zero() {
+  M3 r;
+#pragma unroll
+  for (int e = 0; e < 9; ++e) r.m[e] = 0.f;
+  return r;
+}
+__device__ __forceinline__ M3 mmul(const M3& A, const M3& B) {
+  M3 r;
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      r.m[3 * a + c] = A.m[3 * a] * B.m[c] + A.m[3 * a + 1] * B.m[3 + c] +
+                       A.m[3 * a + 2] * B.m[6 + c];
+  return r;
+}
+__device__ __forceinline__ M3 mT(const M3& A) {
+  return M3{{A.m[0], A.m[3], A.m[6], A.m[1], A.m[4], A.m[7], A.m[2], A.m[5], A.m[8]}};
+}
+__device__ __forceinline__ V3 mvec(const M3& A, const V3& x) {
+  V3 r;
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    r.v[a] = A.m[3 * a] * x.v[0] + A.m[3 * a + 1] * x.v[1] + A.m[3 * a + 2] * x.v[2];
+  return r;
+}
+__device__ __forceinline__ V3 mTvec(const M3& A, const V3& x) {
+  V3 r;
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    r.v[a] = A.m[a] * x.v[0] + A.m[3 + a] * x.v[1] + A.m[6 + a] * x.v[2];
+  return r;
+}
+__device__ __forceinline__ void madd(M3& A, const M3& B) {
+#pragma unroll
+  for (int e = 0; e < 9; ++e) A.m[e] += B.m[e];
+}
+__device__ __forceinline__ void vadd(V3& a, const V3& b) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) a.v[i] += b.v[i];
+}
+__device__ __forceinline__ float vdot(const V3& a, const V3& b) {
+  return a.v[0] * b.v[0] + a.v[1] * b.v[1] + a.v[2] * b.v[2];
+}
+
+// ---------------------------------------------------------------------------
+// SE(2) in the TPU kernel's form (gn_kernel.py:72-185)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float wrapf(float x) {
+  return x - kTwoPi * floorf((x + kPi) / kTwoPi);
+}
+
+__device__ V3 se2_between(const V3& a, const V3& b) {
+  const float c = cosf(a.v[2]), s = sinf(a.v[2]);
+  const float dx = b.v[0] - a.v[0], dy = b.v[1] - a.v[1];
+  return V3{{c * dx + s * dy, -s * dx + c * dy, wrapf(b.v[2] - a.v[2])}};
+}
+
+__device__ V3 se2_log(const V3& p) {
+  const float w = wrapf(p.v[2]);
+  const bool small = fabsf(w) < 1e-6f;
+  const float halfs = (small ? 1.f : w) / 2.f;
+  const float A = small ? 1.f - w * w / 12.f : halfs * cosf(halfs) / sinf(halfs);
+  const float half = w / 2.f;
+  return V3{{A * p.v[0] + half * p.v[1], -half * p.v[0] + A * p.v[1], w}};
+}
+
+__device__ V3 se2_exp(const V3& v) {
+  const float w = v.v[2];
+  const bool small = fabsf(w) < 1e-6f;
+  const float ws = small ? 1.f : w;
+  const float half = ws / 2.f;
+  const float sh = sinf(half);
+  const float a = small ? 1.f - w * w / 6.f : sinf(ws) / ws;
+  const float b = small ? w / 2.f - w * w * w / 24.f : 2.f * sh * sh / ws;
+  return V3{{a * v.v[0] - b * v.v[1], b * v.v[0] + a * v.v[1], wrapf(w)}};
+}
+
+__device__ V3 se2_compose(const V3& a, const V3& b) {
+  const float c = cosf(a.v[2]), s = sinf(a.v[2]);
+  return V3{{a.v[0] + c * b.v[0] - s * b.v[1], a.v[1] + s * b.v[0] + c * b.v[1],
+             wrapf(a.v[2] + b.v[2])}};
+}
+
+// Inverse left Jacobian at (vx, vy, w); the right one is Jl^{-1}(-xi).
+__device__ M3 se2_jl_inv(float vx, float vy, float w) {
+  const bool small = fabsf(w) < 1e-4f;
+  const float ws = small ? 1.f : w;
+  const float half = ws / 2.f;
+  const float sw = sinf(ws), cw = cosf(ws), sh = sinf(half);
+  const float a = small ? 1.f - w * w / 6.f : sw / ws;
+  const float b = small ? w / 2.f - w * w * w / 24.f : 2.f * sh * sh / ws;
+  const float da = small ? -w / 3.f + w * w * w / 30.f : (ws * cw - sw) / (ws * ws);
+  const float db = small ? 0.5f - w * w / 8.f : (ws * sw - 2.f * sh * sh) / (ws * ws);
+  const float Vv_x = a * vx - b * vy, Vv_y = b * vx + a * vy;
+  const float dVv_x = da * vx - db * vy, dVv_y = db * vx + da * vy;
+  const float D_x = dVv_x + Vv_y, D_y = dVv_y - Vv_x;
+  const float A = small ? 1.f - w * w / 12.f : half * cosf(half) / sinf(half);
+  const float B = w / 2.f;
+  const float E_x = -(A * D_x + B * D_y);
+  const float E_y = -(-B * D_x + A * D_y);
+  return M3{{A, B, E_x, -B, A, E_y, 0.f, 0.f, 1.f}};
+}
+
+__device__ __forceinline__ M3 se2_jr_inv(const V3& r) {
+  return se2_jl_inv(-r.v[0], -r.v[1], -r.v[2]);
+}
+
+__device__ M3 se2_adjoint(const V3& p) {
+  const float c = cosf(p.v[2]), s = sinf(p.v[2]);
+  return M3{{c, -s, p.v[1], s, c, -p.v[0], 0.f, 0.f, 1.f}};
+}
+
+__device__ V3 se2_inverse(const V3& p) {
+  const float c = cosf(p.v[2]), s = sinf(p.v[2]);
+  return V3{{-(c * p.v[0] + s * p.v[1]), -(-s * p.v[0] + c * p.v[1]), -p.v[2]}};
+}
+
+// Whitened between factor (gn_kernel.py:187-214): rw, Jiw, Jjw.
+__device__ void linearize_edge(const V3& xi, const V3& xj, const V3& z, const M3& R,
+                               float huber_delta, V3& rw, M3& Jiw, M3& Jjw) {
+  const V3 h = se2_between(xi, xj);
+  const V3 r = se2_log(se2_between(z, h));
+  const M3 Jr_inv = se2_jr_inv(r);
+  M3 Ji = mmul(Jr_inv, se2_adjoint(se2_inverse(h)));
+#pragma unroll
+  for (int e = 0; e < 9; ++e) Ji.m[e] = -Ji.m[e];
+  rw = mvec(R, r);
+  Jiw = mmul(R, Ji);
+  Jjw = mmul(R, Jr_inv);
+  if (huber_delta > 0.f) {
+    const float n = sqrtf(fmaxf(vdot(rw, rw), 1e-24f));
+    const float sw = sqrtf(fminf(1.f, huber_delta / n));
+#pragma unroll
+    for (int i = 0; i < 3; ++i) rw.v[i] *= sw;
+#pragma unroll
+    for (int e = 0; e < 9; ++e) {
+      Jiw.m[e] *= sw;
+      Jjw.m[e] *= sw;
+    }
+  }
+}
+
+// PCR ridge and inverse of the TPU kernel (gn_kernel.py:282-300).
+__device__ __forceinline__ M3 ridge(M3 D, float eps3) {
+  const float r = eps3 * fabsf(D.m[0] + D.m[4] + D.m[8]) + 1e-8f;
+  D.m[0] += r;
+  D.m[4] += r;
+  D.m[8] += r;
+  return D;
+}
+
+// Row a of the inverse is adj row a times 1/det_a, det_a = sum_s M[a,s]
+// adj[a,s] (s = a, a+1, a+2), with |det| clamped to 1e-20 as on the TPU.
+__device__ M3 binv(const M3& M) {
+  M3 adj;
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const int s1 = (s + 1) % 3, s2 = (s + 2) % 3;
+      const int a1 = (a + 1) % 3, a2 = (a + 2) % 3;
+      adj.m[3 * a + s] = M.m[3 * s1 + a1] * M.m[3 * s2 + a2] - M.m[3 * s1 + a2] * M.m[3 * s2 + a1];
+    }
+  M3 inv;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float det = 0.f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const int s = (a + d) % 3;
+      det += M.m[3 * a + s] * adj.m[3 * a + s];
+    }
+    const float id = 1.f / (fabsf(det) < 1e-20f ? 1e-20f : det);
+#pragma unroll
+    for (int s = 0; s < 3; ++s) inv.m[3 * a + s] = adj.m[3 * a + s] * id;
+  }
+  return inv;
+}
+
+// ---------------------------------------------------------------------------
+// Deterministic reductions: a fixed shared-memory tree per block, then every
+// block sums the per-block partials in index order.
+// ---------------------------------------------------------------------------
+
+__device__ void block_sum_to(float val, float* part) {
+  __shared__ float s[kThreads];
+  const int t = threadIdx.x;
+  s[t] = val;
+  __syncthreads();
+  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
+    if (t < stride) s[t] += s[t + stride];
+    __syncthreads();
+  }
+  if (t == 0) part[blockIdx.x] = s[0];
+}
+
+__device__ float sum_partials(const float* part, int n) {
+  __shared__ float total;
+  if (threadIdx.x == 0) {
+    float acc = 0.f;
+    for (int i = 0; i < n; ++i) acc += part[i];
+    total = acc;
+  }
+  __syncthreads();
+  return total;
+}
+
+// ---------------------------------------------------------------------------
+// Kernels
+// ---------------------------------------------------------------------------
+
+__global__ void k_linearize(GnProblem p, Ws w) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= p.c + p.El) return;
+  V3 xi, xj, z;
+  M3 R;
+  float huber = -1.f;
+  if (e < p.c) {
+    xi = ld3(p.poses, e);
+    xj = ld3(p.poses, e + 1);
+    z = ld3(p.cz, e);
+    R = ld9(p.cR, e);
+  } else {
+    const int l = e - p.c;
+    xi = ld3(p.poses, p.li[l]);
+    xj = ld3(p.poses, p.lj[l]);
+    z = ld3(p.lz, l);
+    R = ld9(p.lR, l);
+    huber = p.huber_delta;
+  }
+  V3 rw;
+  M3 Jiw, Jjw;
+  linearize_edge(xi, xj, z, R, huber, rw, Jiw, Jjw);
+  const M3 JiT = mT(Jiw);
+  st9(w.Aij, e, mmul(JiT, Jjw));
+  float* out = w.blk + 24LL * e;
+  st9(out, 0, mmul(JiT, Jiw));
+  st9(out + 9, 0, mmul(mT(Jjw), Jjw));
+  st3(out + 18, 0, mTvec(Jiw, rw));
+  st3(out + 21, 0, mTvec(Jjw, rw));
+}
+
+__global__ void k_assemble(GnProblem p, Ws w) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  M3 D = m3zero();
+  V3 g = v3zero();
+  if (n < p.c) {  // chain edge n = (n, n+1): node n is its i end
+    const float* e = w.blk + 24LL * n;
+    madd(D, ld9(e, 0));
+    vadd(g, ld3(e + 18, 0));
+  }
+  if (n >= 1 && n - 1 < p.c) {  // chain edge n-1: node n is its j end
+    const float* e = w.blk + 24LL * (n - 1);
+    madd(D, ld9(e + 9, 0));
+    vadd(g, ld3(e + 21, 0));
+  }
+  {  // prior: r = Log(z^-1 x), J = Jr^{-1}(r), zero sqrt-info = no prior
+    const V3 rp = se2_log(se2_between(ld3(p.pz, n), ld3(p.poses, n)));
+    const M3 pR = ld9(p.pR, n);
+    const M3 Jpw = mmul(pR, se2_jr_inv(rp));
+    const V3 rpw = mvec(pR, rp);
+    madd(D, mmul(mT(Jpw), Jpw));
+    vadd(g, mTvec(Jpw, rpw));
+  }
+  for (int q = p.csr_ptr[n]; q < p.csr_ptr[n + 1]; ++q) {
+    const int ent = p.csr_ent[q];
+    const float* e = w.blk + 24LL * (p.c + (ent >> 1));
+    if (ent & 1) {
+      madd(D, ld9(e + 9, 0));
+      vadd(g, ld3(e + 21, 0));
+    } else {
+      madd(D, ld9(e, 0));
+      vadd(g, ld3(e + 18, 0));
+    }
+  }
+  st9(p.D, n, D);  // GN mode: no Marquardt damping (lam = 0 on the TPU)
+  st3(p.b, n, V3{{-g.v[0], -g.v[1], -g.v[2]}});
+  st9(p.U, n, n < p.c ? ld9(w.Aij, n) : m3zero());
+}
+
+// Chain sub-diagonal L[m] = U[m-1]^T at level 0; the level's own L after.
+__device__ __forceinline__ M3 load_L(const float* Ls, const float* U0, int m) {
+  if (Ls) return ld9(Ls, m);
+  return m >= 1 ? mT(ld9(U0, m - 1)) : m3zero();
+}
+
+// One PCR level (gn_kernel.py:340-368): with h = 2^k,
+//   alpha = L[n] Dinv[n-h], gamma = U[n] Dinv[n+h]   (zero off the ends)
+//   D' = D - alpha U[n-h] - gamma L[n+h], L' = -alpha L[n-h], U' = -gamma U[n+h]
+// where D is the ridged block. Each thread inverts its neighbours' blocks
+// itself, so one launch per level suffices. The last level writes the
+// final inverse instead of D', L', U'.
+__global__ void k_pcr_factor(GnProblem p, Ws w, int k, const float* Ds, const float* Us,
+                             const float* Ls, float* Dd, float* Ud, float* Ld, int last) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  const int h = 1 << k;
+  const float eps3 = p.eps / 3.f;
+  const bool has_m = n - h >= 0, has_p = n + h < p.N;
+  const M3 Dn = ridge(ld9(Ds, n), eps3);
+  const M3 Ln = load_L(Ls, p.U, n);
+  const M3 Un = ld9(Us, n);
+  const M3 alpha = has_m ? mmul(Ln, binv(ridge(ld9(Ds, n - h), eps3))) : m3zero();
+  const M3 gamma = has_p ? mmul(Un, binv(ridge(ld9(Ds, n + h), eps3))) : m3zero();
+  const long long kn = (long long)k * p.N + n;
+  st9(w.A, kn, alpha);
+  st9(w.G, kn, gamma);
+  const M3 aU = has_m ? mmul(alpha, ld9(Us, n - h)) : m3zero();
+  const M3 gL = has_p ? mmul(gamma, load_L(Ls, p.U, n + h)) : m3zero();
+  M3 Dnew;
+#pragma unroll
+  for (int e = 0; e < 9; ++e) Dnew.m[e] = (Dn.m[e] - aU.m[e]) - gL.m[e];
+  if (last) {
+    st9(w.DinvF, n, binv(ridge(Dnew, eps3)));
+    return;
+  }
+  M3 Lnew = has_m ? mmul(alpha, load_L(Ls, p.U, n - h)) : m3zero();
+  M3 Unew = has_p ? mmul(gamma, ld9(Us, n + h)) : m3zero();
+#pragma unroll
+  for (int e = 0; e < 9; ++e) {
+    Lnew.m[e] = -Lnew.m[e];
+    Unew.m[e] = -Unew.m[e];
+  }
+  st9(Dd, n, Dnew);
+  st9(Ld, n, Lnew);
+  st9(Ud, n, Unew);
+}
+
+// One PCR apply level (gn_kernel.py:371-389): b' = b - A[k] b[n-h] - G[k]
+// b[n+h]; the last level also applies Dinv and, with rdot, adds the
+// partial sums of rdot.out per block to part.
+__global__ void k_pcr_apply(GnProblem p, Ws w, int k, const float* in, float* out, int last,
+                            const float* rdot, float* part) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  float val = 0.f;
+  if (n < p.N) {
+    const int h = 1 << k;
+    const long long kn = (long long)k * p.N + n;
+    const V3 bn = ld3(in, n);
+    const V3 am = n - h >= 0 ? mvec(ld9(w.A, kn), ld3(in, n - h)) : v3zero();
+    const V3 gp = n + h < p.N ? mvec(ld9(w.G, kn), ld3(in, n + h)) : v3zero();
+    V3 o;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) o.v[a] = (bn.v[a] - am.v[a]) - gp.v[a];
+    if (last) o = mvec(ld9(w.DinvF, n), o);
+    st3(out, n, o);
+    if (rdot) val = vdot(ld3(rdot, n), o);
+  }
+  if (part) block_sum_to(val, part);
+}
+
+// out = H v (gn_kernel.py:788-824): diagonal blocks, chain U and L = U^T of
+// the previous node, then the node's loop edges in CSR order. With part,
+// adds the partial sums of v.out per block.
+__global__ void k_hvp(GnProblem p, Ws w, const float* v, float* out, float* part) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  float val = 0.f;
+  if (n < p.N) {
+    const V3 vn = ld3(v, n);
+    V3 o = mvec(ld9(p.D, n), vn);
+    if (n + 1 < p.N) vadd(o, mvec(ld9(p.U, n), ld3(v, n + 1)));
+    if (n >= 1) vadd(o, mTvec(ld9(p.U, n - 1), ld3(v, n - 1)));
+    for (int q = p.csr_ptr[n]; q < p.csr_ptr[n + 1]; ++q) {
+      const int ent = p.csr_ent[q];
+      const int l = ent >> 1;
+      const M3 A = ld9(w.Aij, (long long)p.c + l);
+      if (ent & 1) vadd(o, mTvec(A, ld3(v, p.li[l])));  // node is j: A^T v_i
+      else vadd(o, mvec(A, ld3(v, p.lj[l])));           // node is i: A v_j
+    }
+    st3(out, n, o);
+    if (part) val = vdot(vn, o);
+  }
+  if (part) block_sum_to(val, part);
+}
+
+// Start of CG: cold x = 0, r = b; warm r = b - H x (Ap holds H x).
+__global__ void k_cg_init(GnProblem p, Ws w, int warm) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  V3 r = ld3(p.b, n);
+  if (warm) {
+    const V3 hx = ld3(w.Ap, n);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) r.v[a] -= hx.v[a];
+  } else {
+    st3(p.x, n, v3zero());
+  }
+  st3(w.r, n, r);
+}
+
+// alpha = rz / pAp, guarded; x += alpha p; r -= alpha Ap.
+__global__ void k_cg_update(GnProblem p, Ws w, int it) {
+  const float pAp = sum_partials(w.part_a, n_blocks(p.N));
+  const float rz = w.rz[it];
+  const float alpha = pAp > kTiny ? rz / fmaxf(pAp, kTiny) : 0.f;
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  V3 x = ld3(p.x, n), r = ld3(w.r, n);
+  const V3 pv = ld3(w.p, n), ap = ld3(w.Ap, n);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    x.v[a] += alpha * pv.v[a];
+    r.v[a] -= alpha * ap.v[a];
+  }
+  st3(p.x, n, x);
+  st3(w.r, n, r);
+}
+
+// rz_new from the partials; p = z (init) or z + beta p; rz[it+1] = rz_new.
+__global__ void k_cg_direction(GnProblem p, Ws w, int it, int init) {
+  const float rz_new = sum_partials(w.part_b, n_blocks(p.N));
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  float beta = 0.f;
+  if (!init) {
+    const float rz = w.rz[it];
+    beta = rz > kTiny ? rz_new / fmaxf(rz, kTiny) : 0.f;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) w.rz[init ? 0 : it + 1] = rz_new;
+  if (n >= p.N) return;
+  const V3 z = ld3(w.z, n);
+  if (init) {
+    st3(w.p, n, z);
+    return;
+  }
+  V3 pv = ld3(w.p, n);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) pv.v[a] = z.v[a] + beta * pv.v[a];
+  st3(w.p, n, pv);
+}
+
+__global__ void k_retract(GnProblem p) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  st3(p.poses, n, se2_compose(ld3(p.poses, n), se2_exp(ld3(p.x, n))));
+}
+
+// ---------------------------------------------------------------------------
+// Host side: launch sequences
+// ---------------------------------------------------------------------------
+
+#define GN_CHECK()                                  \
+  do {                                              \
+    const cudaError_t err_ = cudaGetLastError();    \
+    if (err_ != cudaSuccess) return (int)err_;      \
+  } while (0)
+
+#define GN_TRY(expr)              \
+  do {                            \
+    const int rc_ = (expr);       \
+    if (rc_ != 0) return rc_;     \
+  } while (0)
+
+Ws ws_of(const GnProblem& p) { return layout(p.N, p.c, p.El, p.K, p.cg_max, p.ws); }
+
+int run_system(const GnProblem& p, const Ws& w, cudaStream_t s) {
+  const int E = p.c + p.El;
+  if (E > 0) {
+    k_linearize<<<n_blocks(E), kThreads, 0, s>>>(p, w);
+    GN_CHECK();
+  }
+  k_assemble<<<n_blocks(p.N), kThreads, 0, s>>>(p, w);
+  GN_CHECK();
+  return 0;
+}
+
+int run_factor(const GnProblem& p, const Ws& w, cudaStream_t s) {
+  for (int k = 0; k < p.K; ++k) {
+    const int src = (k - 1) & 1, dst = k & 1;
+    const float* Ds = k == 0 ? p.D : w.PD[src];
+    const float* Us = k == 0 ? p.U : w.PU[src];
+    const float* Ls = k == 0 ? nullptr : w.PL[src];
+    k_pcr_factor<<<n_blocks(p.N), kThreads, 0, s>>>(p, w, k, Ds, Us, Ls, w.PD[dst], w.PU[dst],
+                                                   w.PL[dst], k == p.K - 1);
+    GN_CHECK();
+  }
+  return 0;
+}
+
+int run_precond(const GnProblem& p, const Ws& w, const float* in, float* out,
+                const float* rdot, float* part, cudaStream_t s) {
+  const float* src = in;
+  for (int k = 0; k < p.K; ++k) {
+    const bool last = k == p.K - 1;
+    float* dst = last ? out : w.t[k & 1];
+    k_pcr_apply<<<n_blocks(p.N), kThreads, 0, s>>>(p, w, k, src, dst, last,
+                                                  last ? rdot : nullptr, last ? part : nullptr);
+    GN_CHECK();
+    src = dst;
+  }
+  return 0;
+}
+
+int run_cg(const GnProblem& p, const Ws& w, int cg_iters, int warm, cudaStream_t s) {
+  const int nb = n_blocks(p.N);
+  if (warm) {
+    k_hvp<<<nb, kThreads, 0, s>>>(p, w, p.x, w.Ap, nullptr);
+    GN_CHECK();
+  }
+  k_cg_init<<<nb, kThreads, 0, s>>>(p, w, warm);
+  GN_CHECK();
+  GN_TRY(run_precond(p, w, w.r, w.z, w.r, w.part_b, s));
+  k_cg_direction<<<nb, kThreads, 0, s>>>(p, w, 0, 1);
+  GN_CHECK();
+  for (int it = 0; it < cg_iters; ++it) {
+    k_hvp<<<nb, kThreads, 0, s>>>(p, w, w.p, w.Ap, w.part_a);
+    GN_CHECK();
+    k_cg_update<<<nb, kThreads, 0, s>>>(p, w, it);
+    GN_CHECK();
+    GN_TRY(run_precond(p, w, w.r, w.z, w.r, w.part_b, s));
+    k_cg_direction<<<nb, kThreads, 0, s>>>(p, w, it, 0);
+    GN_CHECK();
+  }
+  return 0;
+}
+
+int run_retract(const GnProblem& p, cudaStream_t s) {
+  k_retract<<<n_blocks(p.N), kThreads, 0, s>>>(p);
+  GN_CHECK();
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+long long gn_ws_floats(int N, int c, int El, int K, int cg_max) {
+  return layout(N, c, El, K, cg_max, nullptr).total;
+}
+
+const char* gn_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+int gn_system(const GnProblem* p) {
+  return run_system(*p, ws_of(*p), (cudaStream_t)p->stream);
+}
+
+int gn_factor(const GnProblem* p) {
+  return run_factor(*p, ws_of(*p), (cudaStream_t)p->stream);
+}
+
+int gn_precond(const GnProblem* p, const float* in, float* out) {
+  return run_precond(*p, ws_of(*p), in, out, nullptr, nullptr, (cudaStream_t)p->stream);
+}
+
+int gn_cg(const GnProblem* p, int cg_iters, int warm) {
+  if (cg_iters > p->cg_max) return (int)cudaErrorInvalidValue;
+  return run_cg(*p, ws_of(*p), cg_iters, warm, (cudaStream_t)p->stream);
+}
+
+int gn_retract(const GnProblem* p) { return run_retract(*p, (cudaStream_t)p->stream); }
+
+// Whole solve: phases of (iterations, cg_iters); x starts at zero and, with
+// warm, seeds each CG from the previous GN step's dx.
+int gn_solve(const GnProblem* pp, int n_phases, const int* phase_iters, const int* phase_cg,
+             int warm) {
+  const GnProblem& p = *pp;
+  const Ws w = ws_of(p);
+  const cudaStream_t s = (cudaStream_t)p.stream;
+  if (cudaMemsetAsync(p.x, 0, sizeof(float) * 3 * (size_t)p.N, s) != cudaSuccess)
+    return (int)cudaGetLastError();
+  for (int ph = 0; ph < n_phases; ++ph) {
+    if (phase_cg[ph] > p.cg_max) return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < phase_iters[ph]; ++i) {
+      GN_TRY(run_system(p, w, s));
+      GN_TRY(run_factor(p, w, s));
+      GN_TRY(run_cg(p, w, phase_cg[ph], warm, s));
+      GN_TRY(run_retract(p, s));
+    }
+  }
+  return 0;
+}
+
+}  // extern "C"

@@ -1,0 +1,23 @@
+"""Helpers shared by the tests of the PyTorch port (tests/test_torch_*.py)."""
+
+import math
+
+import numpy as np
+
+from graphslam_tpu_torch.factors import FactorGraph, from_numpy
+
+FIELDS = ("edges", "measurements", "sqrt_info", "edge_mask", "is_loop",
+          "prior_idx", "prior_meas", "prior_sqrt_info", "prior_mask")
+
+
+def carry(jgraph) -> FactorGraph:
+    """The port's FactorGraph holding a JAX FactorGraph's arrays."""
+    return from_numpy({f: np.asarray(getattr(jgraph, f)) for f in FIELDS},
+                      jgraph.chain_prefix)
+
+
+def wrapped_max(a, b) -> float:
+    """Max |a - b| over (N, 3) poses, the angle column taken modulo 2*pi."""
+    d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+    d[:, 2] = (d[:, 2] + math.pi) % (2 * math.pi) - math.pi
+    return float(np.abs(d).max())
