@@ -3,26 +3,56 @@
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
-It builds csrc/gn_kernel.cu with nvcc, holds the fused GN kernel against its
-plain torch twin stage by stage, drives the m3500 Gauss-Newton solve through
-graphslam_tpu_torch.solver.lm._gn_loop(mode="gn_fused") as bench.py drives
-the JAX one, and times the kernel path and the plain path on the card.
-Phases, each failing with a traceback and a nonzero exit:
+It builds csrc/gn_kernel.cu and csrc/icp_kernel.cu with nvcc (in parallel),
+holds every kernel against its plain torch twin, drives the two slices of
+the port through the entry points a user calls, and times the kernel paths
+and the plain paths on the card. Phases, each failing with a traceback and
+a nonzero exit:
 
-  1. device info: card name and power limit (nvidia-smi), CUDA, nvcc, triton
-  2. build the kernel from the checkout's sources
-  3. kernel against plain twin on manhattan(260): assembled D and b after one
-     linearization (rel 1e-5), one PCR apply (rel 1e-4), one CG solve
-     (rel 1e-3), and 5 whole GN iterations (wrapped atol 2e-3) in the plain,
-     exact-PCR, chain-only, masked, Huber and warm-start variants
+  1. device info: card name and power limit (nvidia-smi), CUDA, nvcc,
+     triton; float32 matmuls at "highest" precision, TF32 off
+  2. build both kernels from the checkout's sources
+  3. fused GN kernel (K1) against its plain twin on manhattan(260):
+     assembled D and b after one linearization (rel 1e-5), one PCR apply
+     (rel 1e-4), one CG solve (rel 1e-3), and 5 whole GN iterations (wrapped
+     atol 2e-3) in the plain, exact-PCR, chain-only, masked, Huber and
+     warm-start variants
   4. m3500 main path on cuda: ATE gate (< 0.35 m and < half the initial
      ATE), the kernel's launch count above 0, two runs bitwise equal, and
      5 iterations within wrapped atol 2e-3 of the plain twin
   5. m3500 GN it/s for the kernel path and the plain path on the card,
      median of 3 reps of back-to-back solves
+  6. frontend kernels against their twins on simulated scans: one GICP IRLS
+     iteration (K2; H, g rtol 1e-4 atol 1e-3, stats rtol 1e-4 atol 1e-2)
+     and the nearest valid target (K8; indices equal, distances rtol 1e-6)
+     at full width (1152 points) and unaligned, and gicp_match through the
+     kernel against the plain path on scan pairs of the tour (delta atol
+     5e-3)
+  7. the online pipeline's main path on cuda: the closed-loop replay of
+     scripts/bench_all.py's frontend config (1024-keyframe capacity, 4 warm
+     GN iterations at cg 12 in mode gn_fused, 1081 beams in 1152 points)
+     over the first min(300, T) scans of simulate_trajectory(step_len=0.25,
+     seed=1), made with the port's raycaster. Gate from the JAX package's
+     replay of the same config (scripts/replay_gate_jax.py on the CPU):
+     keyframes within 3, loops at least 2 fewer, replay ATE at most 0.02 m
+     above it and below half the dead-reckoned ATE. The launch counts of K1
+     and K2 above 0, and two replays bitwise equal. K1 against its twin at
+     the replay's solve (the bucket of the final map, every pose with a
+     prior, 1024 loop slots mostly masked, warm CG at cg 12, exact PCR;
+     wrapped atol 2e-3), and each step up to 20 scans past the first loop
+     commit through the kernels and through the plain twins on the card
+     from the same state: decisions and factor counts equal, keyframe
+     poses wrapped atol 2e-3.
+  8. timing: replay frames/s through the kernels (median of 3), the plain
+     path on the card over the first 60 scans, K2 and K8 per launch against
+     their twins and K8 against torch.cdist, and one profiled replay
+     (device busy share, kernels and host synchronizations per scan)
 
-Before the last line it prints one JSON object describing the kernel; the
-last line is {"ok": true, "device": {...}}. Without a CUDA device, or
+Before the last line it prints one JSON object describing the kernels
+(max_abs_err: gn_kernel the larger of its m3500 and replay-solve pose
+errors, icp_kernel gicp_match's delta through the kernel against the plain
+path, nn_kernel the distances at full width); the last line is
+{"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, it exits nonzero and prints no result.
 """
 
@@ -43,6 +73,18 @@ TOL_PCR_REL = 1e-4        # K=4 levels of 3x3 products and inverses
 TOL_CG_REL = 1e-3         # 25 CG iterations amplify roundoff
 TOL_POSES_WRAPPED = 2e-3  # the repo's kernel-vs-XLA pose tolerance (GN)
 ATE_GATE_M = 0.35         # bench.py's gate
+TOL_K2 = ((1e-4, 1e-3), (1e-4, 1e-3), (1e-4, 1e-2))  # (rtol, atol) of H, g, stats
+TOL_K8_D2_REL = 1e-6      # both sides round each product and the sum alike
+TOL_MATCH_DELTA = 5e-3    # the repo's fused-vs-XLA gicp_match tolerance
+
+# The JAX package's replay of the phase-7 config on the CPU
+# (scripts/replay_gate_jax.py, jax 0.9.0): 278 scans.
+JAX_REPLAY = {"keyframes": 110, "loops": 29, "ate": 0.060562863945961,
+              "ate_dead_reckoned": 0.5801027417182922}
+
+# H100 SXM peaks (HBM3 bandwidth, dense FP32 rate), for the bounds.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 
 def log(*a):
@@ -85,6 +127,12 @@ def phase_info(torch, utils):
         log(f"triton {triton.__version__} imports")
     except ImportError as e:
         log(f"triton does not import: {e}")
+    prec = torch.get_float32_matmul_precision()
+    log(f"float32 matmul precision {prec!r}, TF32 matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN {torch.backends.cudnn.allow_tf32}")
+    if prec != "highest" or torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        fail("float32 products must run in full precision (no TF32)")
     return card
 
 
@@ -93,16 +141,18 @@ def phase_build():
     from graphslam_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    lib, ptxas = _build.build("gn_kernel")
-    log(f"built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+    built = _build.build_all(["gn_kernel", "icp_kernel"])
+    log(f"built {len(built)} kernel libraries in parallel in {time.perf_counter() - t0:.2f} s")
+    for lib, ptxas in built.values():
+        log(f"  {lib.relative_to(ROOT)}")
+        for line in ptxas.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log("  ptxas:", line.strip())
 
 
-def _solve_pair(torch, gk, p0, g, **kw):
-    out = gk.fused_gn_solve(p0, g, iterations=5, cg_iters=25, **kw)
-    ref = gk.fused_gn_solve_reference(p0, g, iterations=5, cg_iters=25, **kw)
+def _solve_pair(torch, gk, p0, g, iterations=5, cg_iters=25, **kw):
+    out = gk.fused_gn_solve(p0, g, iterations=iterations, cg_iters=cg_iters, **kw)
+    ref = gk.fused_gn_solve_reference(p0, g, iterations=iterations, cg_iters=cg_iters, **kw)
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
         fail(f"kernel produced non-finite poses ({kw})")
@@ -249,6 +299,449 @@ def phase_timing(torch, gk, cfg, card, p0, g):
     return ms_k, ms_p
 
 
+def _event_us(torch, fn, reps: int, warmup: int = 3) -> float:
+    """Microseconds per call of fn, by CUDA events around `reps` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return 1e3 * a.elapsed_time(b) / reps
+
+
+def _bound(nbytes: float, flops: float):
+    """(least ms, what bounds it): bytes read and written once over the
+    card's memory rate, or float32 operations over its peak rate."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def gn_cost(N: int, c: int, El: int, K: int, iters: int, cg: int):
+    """Bytes (inputs read once, poses written once) and float32 operations
+    of one fused GN solve, counted from the kernel's stages."""
+    nbytes = 12 * N + 48 * c + 48 + 56 * El + 12 * N
+    per_cg = N * (54 + 36 * K + 18 + 10) + 72 * El  # H@p, K-level PCR apply, Dinv, dots
+    per_gn = (250 * (c + El) + 60 * N      # linearize + assemble
+              + 400 * K * N                # PCR factor
+              + (cg + 1) * per_cg          # CG, with its initial residual
+              + 40 * N)                    # retract
+    return nbytes, iters * per_gn
+
+
+def gn_cg_stream_bytes(N: int, El: int, K: int) -> int:
+    """Bytes one CG iteration touches if its working set came from device
+    memory: D, U, the K PCR levels and Dinv, five vectors read and written,
+    the loop blocks with their indices and the CSR."""
+    return 72 * N + 72 * N + 72 * K * N + 36 * N + 5 * 24 * N + 44 * El + 8 * El + 4 * N
+
+
+def icp_iteration_cost(P: int, Q: int):
+    """One K2 iteration: moved, jtheta, mask, rotated covs in; targets,
+    validity, covs in; 13 sums out. Five operations per distance, ~60 per
+    matched point."""
+    return P * (8 + 8 + 1 + 12) + Q * (8 + 1 + 12) + 13 * 4, 5 * P * Q + 60 * P
+
+
+def nn_cost(P: int, Q: int):
+    return P * 8 + Q * 9 + P * 8, 5 * P * Q
+
+
+def _random_k2_inputs(torch, dev, P: int, Q: int, seed: int):
+    """tests/test_icp_kernel.py::make_inputs, drawn with numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    A = (rng.normal(size=(Q, 2, 2)) * 0.3).astype(f)
+    arrs = (
+        rng.normal(size=(P, 2)).astype(f), rng.normal(size=(P, 2)).astype(f),
+        rng.random(P) < 0.9, rng.normal(size=(Q, 2)).astype(f), rng.random(Q) < 0.85,
+        (np.einsum("qij,qkj->qik", A, A) + 0.1 * np.eye(2)).astype(f),
+        (np.abs(rng.normal(size=(P, 3))) * np.array([1.0, 0.1, 1.0])).astype(f),
+    )
+    return [torch.from_numpy(a).to(dev) for a in arrs]
+
+
+def _k2_full_width(torch, icp, ik, tour, t: int):
+    """K2's inputs at the main path's shapes: scan t+1 against scan t at the
+    odometry guess."""
+    src, sm, tgt, tm = tour["pts"][t + 1], tour["masks"][t + 1], tour["pts"][t], tour["masks"][t]
+    init = tour["odom"][t + 1]
+    moved, jtheta = ik._round_inputs(src, init)
+    Cs, Ct = icp.surfel_covs(src, sm, 4, 1e-3), icp.surfel_covs(tgt, tm, 4, 1e-3)
+    return [moved, jtheta, sm, tgt, tm, Ct, ik.rotated_covs(ik._packed(Cs), init[2])]
+
+
+def phase_frontend_kernels(torch, tour):
+    log("== phase 6: frontend kernels against their plain twins")
+    from graphslam_tpu_torch.frontend import icp
+    from graphslam_tpu_torch.ops import correspondence as cc
+    from graphslam_tpu_torch.ops import icp_kernel as ik
+
+    dev = torch.device("cuda")
+    k2_cases = [(f"full width, scan {t + 1} on scan {t}", _k2_full_width(torch, icp, ik, tour, t), 1.0)
+                for t in (0, 100, 200)]
+    k2_cases.append(("unaligned P=200 Q=256", _random_k2_inputs(torch, dev, 200, 256, 1), 1.0))
+    no_valid = _random_k2_inputs(torch, dev, 256, 384, 2)
+    no_valid[4] = torch.zeros_like(no_valid[4])
+    k2_cases.append(("no valid target", no_valid, 1.0))
+    k2_ratio = 0.0
+    for name, args, mc2 in k2_cases:
+        ours = ik.fused_icp_iteration(*args, max_corr2=mc2, eps=1e-6)
+        ref = ik.fused_icp_iteration_reference(*args, max_corr2=mc2, eps=1e-6)
+        torch.cuda.synchronize()
+        worst = []
+        for label, a, b, (rtol, atol) in zip(("H", "g", "stats"), ours, ref, TOL_K2):
+            # |a - b| over its limit atol + rtol |b|: at most 1 passes
+            ratio = float(((a - b).abs() / (atol + rtol * b.abs())).max())
+            err = float((a - b).abs().max())
+            worst.append(f"{label} {err:.3e} ({ratio:.3f} of the limit)")
+            if not ratio <= 1.0:
+                fail(f"K2 {name}: {label} differs from the twin by {err} (rtol {rtol}, atol {atol})")
+            k2_ratio = max(k2_ratio, ratio)
+        log(f"  K2 {name}: max abs err {', '.join(worst)}; (rtol, atol) {TOL_K2}")
+
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    full = k2_cases[0][1]
+    k8_cases = [("full width", full[0], full[3], full[4])]
+    for name, P, Q in (("unaligned P=200 Q=300", 200, 300), ("ties", 200, 300),
+                       ("no valid target", 200, 300)):
+        s_, t_ = rng.normal(size=(P, 2)).astype(np.float32), rng.normal(size=(Q, 2)).astype(np.float32)
+        v_ = rng.random(Q) < 0.8
+        if name == "ties":
+            s_, t_ = np.round(s_ * 2) / 2, np.round(t_ * 2) / 2
+        if name == "no valid target":
+            v_[:] = False
+        k8_cases.append((name, *(torch.from_numpy(a).to(dev) for a in (s_, t_, v_))))
+    k8_err = 0.0
+    for name, src, tgt, valid in k8_cases:
+        idx, d2 = cc.nearest_neighbors(src, tgt, valid)
+        ridx, rd2 = cc.nearest_neighbors_reference(src, tgt, valid)
+        torch.cuda.synchronize()
+        same = torch.isinf(rd2) & torch.isinf(d2)
+        rel = float(torch.where(same, 0.0, (d2 - rd2).abs() / rd2.abs().clamp_min(1e-30)).max())
+        if not torch.equal(idx, ridx) or not rel <= TOL_K8_D2_REL:
+            fail(f"K8 {name}: indices equal {torch.equal(idx, ridx)}, distance rel err {rel}")
+        if name == "full width":
+            k8_err = float((d2 - rd2).abs().max())
+        log(f"  K8 {name}: indices equal, distance rel err {rel:.3e} (tol {TOL_K8_D2_REL})")
+
+    match_err, pairs = 0.0, range(0, tour["n"] - 1, 50)
+    for t in pairs:
+        args = (tour["pts"][t + 1], tour["masks"][t + 1], tour["pts"][t], tour["masks"][t])
+        kw = dict(init_delta=tour["odom"][t + 1], iterations=32)
+        kern = icp.gicp_match(*args, **kw)
+        plain = icp.gicp_match(*args, use_kernel=False, **kw)
+        err = float((kern.delta - plain.delta).abs().max())
+        match_err = max(match_err, err)
+        if not err <= TOL_MATCH_DELTA:
+            fail(f"gicp_match kernel vs plain, scan {t + 1} on {t}: delta differs by {err}")
+    log(f"  gicp_match kernel vs plain on {len(pairs)} scan pairs: delta max err {match_err:.3e} "
+        f"(tol {TOL_MATCH_DELTA})")
+    return dict(k2_ratio=k2_ratio, k8_err=k8_err, match_err=match_err), full
+
+
+def _dead_reckoned(torch, se2, gt0, odom):
+    poses = [torch.as_tensor(gt0)]
+    for d in odom:
+        poses.append(se2.compose(poses[-1], torch.as_tensor(d)))
+    return torch.stack(poses)
+
+
+def _zero_counts(gk, ik, cc):
+    gk.fused_gn_solve.launches = 0
+    ik.fused_icp_loop.launches = 0
+    ik.fused_icp_iteration.launches = 0
+    cc.nearest_neighbors.launches = 0
+
+
+def _lockstep(torch, tour, n_cmp: int):
+    """The replay's first n_cmp scans through the kernels, and each step
+    again through the plain twins on the card from a copy of the same state:
+    the same keyframe and loop decisions and factor counts, and keyframe
+    poses within wrapped TOL_POSES_WRAPPED. Returns (worst pose difference
+    at steps without a loop commit, at loop commits, loops)."""
+    import dataclasses
+
+    from graphslam_tpu_torch.slam.pipeline import make_slam_step
+    from graphslam_tpu_torch.slam.state import init_state
+
+    cfg = tour["cfg"]
+    step_k, step_p = make_slam_step(cfg), make_slam_step(cfg, use_kernels=False)
+    sk = init_state(cfg)
+    worst = [0.0, 0.0]
+    for t in range(n_cmp):
+        sp = dataclasses.replace(sk, **{f.name: getattr(sk, f.name).clone()
+                                        for f in dataclasses.fields(sk)})
+        sk, ik_ = step_k(sk, tour["scans"][t], tour["odom"][t])
+        sp, ip = step_p(sp, tour["scans"][t], tour["odom"][t])
+        for f in ("is_keyframe", "added_loop", "num_factors"):
+            if not torch.equal(getattr(ik_, f), getattr(ip, f)):
+                fail(f"scan {t}: {f} through the kernels {getattr(ik_, f).tolist()}, "
+                     f"through the plain twins {getattr(ip, f).tolist()}")
+        nk, loop = int(sp.num_kf), bool(ip.added_loop)
+        err = wrapped_max(sk.kf_poses[:nk], sp.kf_poses[:nk])
+        worst[loop] = max(worst[loop], err)
+        if not err <= TOL_POSES_WRAPPED:
+            fail(f"scan {t}: keyframe poses through the kernels and the plain twins differ by "
+                 f"{err} (tol {TOL_POSES_WRAPPED})")
+    return worst[0], worst[1], int(sk.num_loops)
+
+
+def _bucket_solve_pair(torch, gk, tour, state):
+    """K1 against its twin at the replay's own solve: the occupancy bucket of
+    the replay's final map (a prior on every pose, every loop slot, most of
+    them masked), warm-started CG at the config's depth and PCR levels, from
+    the keyframe poses with seeded noise."""
+    from graphslam_tpu_torch.slam.pipeline import _solve_buckets, graph_view
+
+    cfg = tour["cfg"]
+    nkf = int(state.num_kf)
+    B = next(b for b in _solve_buckets(cfg.max_keyframes, cfg.solve_bucket_min) if b >= nkf)
+    g = graph_view(state, cfg, B)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    noise = torch.randn((B, 3), generator=gen) * torch.tensor([0.02, 0.02, 0.01])
+    noise[nkf:] = 0.0
+    p0 = state.kf_poses[:B] + noise.to(state.kf_poses.device)
+    err = _solve_pair(torch, gk, p0, g, iterations=cfg.solve_iterations,
+                      cg_iters=cfg.solver.cg_max_iterations, pcr_levels=cfg.solver.pcr_levels,
+                      warm_start=True)
+    live = int(g.edge_mask[g.chain_prefix:].sum())
+    log(f"  K1 at the replay's solve (bucket {B}, {nkf} keyframes, {live} of "
+        f"{g.num_edges - g.chain_prefix} loop slots live, pcr_levels {cfg.solver.pcr_levels}, "
+        f"warm, {cfg.solve_iterations} x cg {cfg.solver.cg_max_iterations}): wrapped max err "
+        f"{err:.3e} (tol {TOL_POSES_WRAPPED})")
+    if not err <= TOL_POSES_WRAPPED:
+        fail(f"K1 at the replay's solve differs from the plain twin: {err}")
+    return err
+
+
+def phase_replay(torch, metrics, tour):
+    log("== phase 7: online pipeline main path on cuda "
+        f"({tour['n']}-scan replay, bench_all.py's frontend config)")
+    from graphslam_tpu_torch.geometry import se2
+    from graphslam_tpu_torch.ops import correspondence as cc
+    from graphslam_tpu_torch.ops import gn_kernel as gk
+    from graphslam_tpu_torch.ops import icp_kernel as ik
+    from graphslam_tpu_torch.slam.pipeline import make_slam_replay
+    from graphslam_tpu_torch.slam.state import init_state
+
+    cfg, n = tour["cfg"], tour["n"]
+    replay = make_slam_replay(cfg, n)
+    _zero_counts(gk, ik, cc)
+    state, infos = replay(init_state(cfg), tour["scans"], tour["odom"])
+    torch.cuda.synchronize()
+    launches = {"gn_kernel": gk.fused_gn_solve.launches, "icp_kernel": ik.fused_icp_loop.launches,
+                "icp_iteration": ik.fused_icp_iteration.launches,
+                "nn_kernel": cc.nearest_neighbors.launches}
+    log(f"  launches in the replay: fused_gn_solve {launches['gn_kernel']}, fused_icp_loop "
+        f"{launches['icp_kernel']} (fused_icp_iteration {launches['icp_iteration']}, "
+        f"nearest_neighbors {launches['nn_kernel']}: not on this path)")
+    if launches["gn_kernel"] <= 0 or launches["icp_kernel"] <= 0:
+        fail("the replay did not launch both of its kernels")
+
+    nkf, nloops = int(state.num_kf), int(state.num_loops)
+    steps = torch.nonzero(infos.is_keyframe).flatten().cpu()
+    if steps.numel() != nkf:
+        fail(f"{steps.numel()} keyframe steps but num_kf {nkf}")
+    if not torch.isfinite(state.kf_poses[:nkf]).all() or not torch.isfinite(state.kf_covs[:nkf]).all():
+        fail("replay poses or covariances are not finite")
+    gt = torch.from_numpy(tour["gt"])
+    ate = float(metrics.ate(state.kf_poses[:nkf].cpu(), gt[steps]))
+    dead = _dead_reckoned(torch, se2, tour["gt"][0], tour["odom_np"][1:])
+    ate_dead = float(metrics.ate(dead[steps], gt[steps]))
+    log(f"  {nkf} keyframes, {nloops} loop closures, {int(infos.num_factors[-1])} factors; "
+        f"replay ATE {ate:.4f} m, dead-reckoned ATE {ate_dead:.4f} m")
+    ref = JAX_REPLAY
+    log(f"  JAX package on the CPU: {ref['keyframes']} keyframes, {ref['loops']} loops, "
+        f"ATE {ref['ate']:.4f} m, dead-reckoned {ref['ate_dead_reckoned']:.4f} m")
+    if not (abs(nkf - ref["keyframes"]) <= 3 and nloops >= ref["loops"] - 2
+            and ate <= ref["ate"] + 0.02 and ate < 0.5 * ate_dead):
+        fail(f"replay gate failed: {nkf} keyframes, {nloops} loops, ATE {ate}, dead {ate_dead}")
+
+    state2, infos2 = replay(init_state(cfg), tour["scans"], tour["odom"])
+    torch.cuda.synchronize()
+    import dataclasses
+
+    for f in dataclasses.fields(state):
+        if not torch.equal(getattr(state, f.name), getattr(state2, f.name)):
+            fail(f"two replays differ in {f.name}")
+    for a, b in zip(infos, infos2):
+        if not torch.equal(a, b):
+            fail("two replays differ in their step infos")
+    log("  two replays bitwise equal (every state field and step info)")
+
+    gn_err = _bucket_solve_pair(torch, gk, tour, state)
+    loop_steps = torch.nonzero(infos.added_loop).flatten().tolist()
+    n_cmp = min(n, max(60, loop_steps[0] + 20 if loop_steps else 0))
+    plain_err, loop_err, lk = _lockstep(torch, tour, n_cmp)
+    log(f"  kernels vs plain twins, each of the first {n_cmp} steps from the same state ({lk} "
+        f"loop commits from scan {loop_steps[0] if loop_steps else '-'}): decisions and factor "
+        f"counts equal, keyframe poses wrapped max err {plain_err:.3e} (steps without a loop "
+        f"commit), {loop_err:.3e} (loop commits), tol {TOL_POSES_WRAPPED}")
+    return launches, gn_err
+
+
+def phase_timing_frontend(torch, tour, k2_full):
+    log("== phase 8: online pipeline timing")
+    import ctypes
+    import warnings
+
+    from graphslam_tpu_torch.frontend import icp
+    from graphslam_tpu_torch.ops import correspondence as cc
+    from graphslam_tpu_torch.ops import icp_kernel as ik
+    from graphslam_tpu_torch.slam.pipeline import make_slam_replay
+    from graphslam_tpu_torch.slam.state import init_state
+
+    cfg, n = tour["cfg"], tour["n"]
+    out = {}
+
+    def fps(replay, scans, odom, steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replay(init_state(cfg), scans, odom)
+        torch.cuda.synchronize()
+        return steps / (time.perf_counter() - t0)
+
+    n60 = 60
+    kern_full = make_slam_replay(cfg, n)
+    kern_60 = make_slam_replay(cfg, n60)
+    plain_60 = make_slam_replay(cfg, n60, use_kernels=False)
+    s60, o60 = tour["scans"][:n60], tour["odom"][:n60]
+    runs_full = [fps(kern_full, tour["scans"], tour["odom"], n) for _ in range(3)]
+    runs_60 = [fps(kern_60, s60, o60, n60) for _ in range(3)]
+    plain = fps(plain_60, s60, o60, n60)
+    out["fps"] = statistics.median(runs_full)
+    out["fps_60"] = statistics.median(runs_60)
+    out["plain_fps_60"] = plain
+    log(f"  card: {tour['card']}")
+    log(f"  replay through the kernels: {out['fps']:.2f} frames/s over {n} scans (median of 3: "
+        f"{', '.join(f'{x:.2f}' for x in runs_full)})")
+    log(f"  first {n60} scans: kernels {out['fps_60']:.2f} frames/s (median of 3), plain twins "
+        f"on the card {plain:.2f} frames/s (one run)")
+
+    # K2: one IRLS iteration at full width, the C entry on a prepared problem
+    # (two launches) against the twin; the whole device loop per match.
+    args = k2_full
+    prob, keep = ik._problem(args[0], args[1], args[6], args[2], args[3], args[4],
+                             ik._packed(args[5]), 1.0, 1e-6)
+    lib = ik._lib()
+    out["k2_us"] = _event_us(torch, lambda: lib.icp_iteration(ctypes.byref(prob)), 500)
+    out["k2_plain_us"] = _event_us(torch, lambda: ik.fused_icp_iteration_reference(
+        *args, max_corr2=1.0, eps=1e-6), 50)
+    pair = (tour["pts"][1], tour["masks"][1], tour["pts"][0], tour["masks"][0])
+    out["match_us"] = _event_us(torch, lambda: icp.gicp_match(
+        *pair, init_delta=tour["odom"][1], iterations=32), 50)
+    out["match_plain_us"] = _event_us(torch, lambda: icp.gicp_match(
+        *pair, init_delta=tour["odom"][1], iterations=32, use_kernel=False), 10)
+    log(f"  K2, one IRLS iteration at P = Q = {args[0].shape[0]}: {out['k2_us']:.2f} us per call "
+        f"(2 launches) vs {out['k2_plain_us']:.2f} us for the plain twin")
+    log(f"  gicp_match, scan 1 on scan 0 (32 iterations, early exit): {out['match_us']:.2f} us "
+        f"through the kernel vs {out['match_plain_us']:.2f} us plain")
+
+    # K8 at full width against the twin and torch.cdist over the valid targets.
+    src, tgt, valid = args[0], args[3], args[4]
+    P, Q = src.shape[0], tgt.shape[0]
+    idx = torch.empty(P, dtype=torch.int32, device=src.device)
+    d2 = torch.empty(P, dtype=torch.float32, device=src.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    out["k8_us"] = _event_us(torch, lambda: lib.nn_search(
+        src.data_ptr(), tgt.data_ptr(), valid.data_ptr(), idx.data_ptr(), d2.data_ptr(), P, Q,
+        stream), 500)
+    out["k8_plain_us"] = _event_us(torch, lambda: cc.nearest_neighbors_reference(src, tgt, valid),
+                                   100)
+    tv = tgt[valid].contiguous()
+    out["k8_cdist_us"] = _event_us(torch, lambda: torch.cdist(
+        src, tv, compute_mode="donot_use_mm_for_euclid_dist").min(1), 200)
+    log(f"  K8 at P = Q = {P} ({tv.shape[0]} valid targets): {out['k8_us']:.2f} us per launch vs "
+        f"{out['k8_plain_us']:.2f} us plain twin, {out['k8_cdist_us']:.2f} us torch.cdist(...).min(1)")
+
+    # Host synchronizations per scan (CUDA sync debug mode) over the first scans.
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, inf60 = kern_60(init_state(cfg), s60, o60)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    out["syncs_per_scan"] = syncs / n60
+    out["keyframes_60"] = int(inf60.is_keyframe.sum())
+    log(f"  host synchronizations over the first {n60} scans ({out['keyframes_60']} keyframes): "
+        f"{syncs}, {out['syncs_per_scan']:.2f} per scan")
+
+    # One profiled replay: device busy share and launches per scan.
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        kern_full(init_state(cfg), tour["scans"], tour["odom"])
+        torch.cuda.synchronize()
+        span = time.perf_counter() - t0
+    by_name, busy_us, kernels = {}, 0.0, 0
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", 0.0) or 0.0
+        if dev_us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            by_name[e.key] = (e.count, dev_us)
+    for name, (count, dev_us) in by_name.items():
+        busy_us += dev_us
+        if not name.startswith("Memcpy") and not name.startswith("Memset"):
+            kernels += count
+    out["profile_span_s"] = span
+    if busy_us > 0:
+        out["busy_ms"] = busy_us / 1e3
+        out["idle_share"] = 1.0 - busy_us / 1e6 / span
+        out["kernels_per_scan"] = kernels / n
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+        log(f"  profiled replay: {span * 1e3:.1f} ms span, device busy {busy_us / 1e3:.1f} ms, "
+            f"idle share {out['idle_share']:.3f}, {kernels} kernel launches "
+            f"({out['kernels_per_scan']:.1f} per scan)")
+        for name, (count, dev_us) in top:
+            log(f"    {dev_us / 1e3:9.3f} ms  {count:7d}x  {name[:90]}")
+        groups = {}
+        for name, (count, dev_us) in by_name.items():
+            g = ("gn_kernel.cu" if "GnProblem" in name else "icp_kernel.cu"
+                 if "IcpProblem" in name else "memcpy/memset"
+                 if name.startswith(("Memcpy", "Memset")) else "torch ops")
+            c0, d0 = groups.get(g, (0, 0.0))
+            groups[g] = (c0 + count, d0 + dev_us)
+        for g, (count, dev_us) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+            log(f"    by source: {g:14s} {count / n:7.1f} launches a scan, "
+                f"{dev_us / 1e3:9.3f} device ms")
+    else:
+        log("  profiled replay: the profiler saw no device time; busy share not measured")
+    return out
+
+
+def make_tour(torch):
+    """The replay's scans, made on the card with the port's raycaster."""
+    from graphslam_tpu_torch.config import SLAMConfig, SolverConfig
+    from graphslam_tpu_torch.frontend.projection import beam_angles, scan_to_points
+    from graphslam_tpu_torch.sim import simulate_trajectory
+    import numpy as np
+
+    cfg = SLAMConfig(max_keyframes=1024, max_factors=1024, solve_iterations=4,
+                     solver=SolverConfig(mode="gn_fused", cg_max_iterations=12))
+    fc = cfg.frontend
+    sim = simulate_trajectory(fc, step_len=0.25, seed=1)
+    n = min(300, len(sim["scans"]))
+    odom = np.concatenate([np.zeros((1, 3), np.float32), sim["odom_deltas"][: n - 1]])
+    dev = torch.device("cuda")
+    scans = torch.from_numpy(sim["scans"][:n]).to(dev)
+    angles = beam_angles(fc.num_beams, fc.fov_rad, device=dev)
+    pts, masks = zip(*(scan_to_points(r, angles, fc.min_range, fc.max_range, fc.max_points)
+                       for r in scans))
+    return dict(cfg=cfg, n=n, scans=scans, odom=torch.from_numpy(odom).to(dev), odom_np=odom,
+                gt=sim["gt_poses"][:n], pts=torch.stack(pts), masks=torch.stack(masks))
+
+
 def main() -> int:
     import torch
 
@@ -282,19 +775,75 @@ def main() -> int:
     # the port accepts and ignores.
     cfg = SolverConfig(mode="gn_fused", cg_max_iterations=25, cg_tol=1e-7, pcr_levels=4,
                        edge_tile=512, hvp_splits=1)
-    p0, g, launches, err = phase_main(torch, datasets, from_dataset, chi2, metrics, lm, cfg, gk)
+    p0, g, m3500_launches, err = phase_main(torch, datasets, from_dataset, chi2, metrics, lm,
+                                            cfg, gk)
     ms_k, ms_p = phase_timing(torch, gk, cfg, card, p0, g)
 
-    print(json.dumps({"kernels": [{
-        "name": "gn_kernel",
-        "route": "cuda",
-        "source": "graphslam_tpu_torch/csrc/gn_kernel.cu",
-        "replaces": "graphslam_tpu/ops/gn_kernel.py:600",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms_k,
-        "plain_ms": ms_p,
-    }]}), flush=True)
+    tour = make_tour(torch)
+    tour["card"] = card
+    fe, k2_full = phase_frontend_kernels(torch, tour)
+    launches, gn_replay_err = phase_replay(torch, metrics, tour)
+    t = phase_timing_frontend(torch, tour, k2_full)
+    if "jax" in sys.modules:
+        fail("the port imported jax")
+
+    from graphslam_tpu_torch.ops.gn_kernel import pack_graph
+
+    pk = pack_graph(g, p0.shape[0])
+    gn_bound, gn_by = _bound(*gn_cost(pk.N, pk.c, pk.El, 4, 50, cfg.cg_max_iterations))
+    cg_bytes = gn_cg_stream_bytes(pk.N, pk.El, 4)
+    log(f"  K1 bound per m3500 solve {gn_bound:.4f} ms ({gn_by}); one CG iteration's working "
+        f"set {cg_bytes} bytes = {1e6 * cg_bytes / HBM_BYTES_PER_S:.3f} us at "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s, {50 * 26 * 1e3 * cg_bytes / HBM_BYTES_PER_S:.3f} ms "
+        f"per solve (50 x 26 CG passes)")
+    P, Q = k2_full[0].shape[0], k2_full[3].shape[0]
+    k2_bound, k2_by = _bound(*icp_iteration_cost(P, Q))
+    k8_bound, k8_by = _bound(*nn_cost(P, Q))
+    print(json.dumps({"kernels": [
+        {
+            "name": "gn_kernel",
+            "route": "cuda",
+            "source": "graphslam_tpu_torch/csrc/gn_kernel.cu",
+            "replaces": "graphslam_tpu/ops/gn_kernel.py:600",
+            "launches": launches["gn_kernel"],
+            "launches_m3500": m3500_launches,
+            "max_abs_err": max(err, gn_replay_err),
+            "max_abs_err_m3500": err,
+            "max_abs_err_replay_solve": gn_replay_err,
+            "ms": ms_k,
+            "plain_ms": ms_p,
+            "bound_ms": gn_bound,
+            "bound_by": gn_by,
+            "library_ms": None,
+        },
+        {
+            "name": "icp_kernel",
+            "route": "cuda",
+            "source": "graphslam_tpu_torch/csrc/icp_kernel.cu",
+            "replaces": "graphslam_tpu/ops/icp_kernel.py:30",
+            "launches": launches["icp_kernel"],
+            "max_abs_err": fe["match_err"],
+            "iteration_err_over_limit": fe["k2_ratio"],
+            "ms": t["k2_us"] / 1e3,
+            "plain_ms": t["k2_plain_us"] / 1e3,
+            "bound_ms": k2_bound,
+            "bound_by": k2_by,
+            "library_ms": None,
+        },
+        {
+            "name": "nn_kernel",
+            "route": "cuda",
+            "source": "graphslam_tpu_torch/csrc/icp_kernel.cu",
+            "replaces": "graphslam_tpu/ops/correspondence.py:39",
+            "launches": launches["nn_kernel"],
+            "max_abs_err": fe["k8_err"],
+            "ms": t["k8_us"] / 1e3,
+            "plain_ms": t["k8_plain_us"] / 1e3,
+            "bound_ms": k8_bound,
+            "bound_by": k8_by,
+            "library_ms": t["k8_cdist_us"] / 1e3,
+        },
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

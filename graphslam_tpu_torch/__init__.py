@@ -7,7 +7,11 @@ its module paths and public names so each counterpart is found at once:
   io/                  numpy-only g2o reader and synthetic generators
   geometry/            batched SO(2)/SE(2) ops on torch tensors
   factors/             FactorGraph dataclass of tensors, SE(2) linearization
-  solver/              normal equations, cyclic reduction, GN drivers
+  solver/              normal equations, cyclic reduction, GN loops,
+                       dense marginals
+  sim/                 segment-world raycaster and scripted tours
+  frontend/            scan projection, keyframe gates, GICP matching
+  slam/                the online pipeline's state, step and replays
   ops/                 hand-written CUDA kernels with their plain twins
   metrics.py, utils.py ATE/RPE, device sync and card info
 

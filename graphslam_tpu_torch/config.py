@@ -1,8 +1,8 @@
 """Typed configuration, the port's copy of graphslam_tpu/config.py.
 
 The four dataclasses keep the JAX package's field names and defaults
-exactly (tests/test_torch_solver.py checks it), so a config written for one
-package means the same for the other. The solver slice reads SolverConfig.
+exactly (tests/test_torch_solver.py and tests/test_torch_pipeline.py check
+it), so a config written for one package means the same for the other.
 """
 
 from __future__ import annotations
@@ -67,7 +67,7 @@ class SolverConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FrontendConfig:
-    """Scan-matching frontend settings (not ported yet; defaults kept)."""
+    """Scan-matching frontend settings (frontend/, sim/)."""
 
     num_beams: int = 1081
     fov_rad: float = 4.71716  # 270.25 deg
@@ -92,7 +92,7 @@ class FrontendConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SLAMConfig:
-    """Online pipeline settings (not ported yet; defaults kept)."""
+    """Online pipeline settings (slam/)."""
 
     max_keyframes: int = 1024
     max_factors: int = 4096

@@ -95,11 +95,12 @@ def _chain_reorder(edges: np.ndarray, n_poses: int):
 
 
 def from_numpy(
-    fields: Dict[str, np.ndarray], chain_prefix: int, device="cpu"
+    fields: Dict[str, np.ndarray], chain_prefix: int, device="cuda"
 ) -> FactorGraph:
-    """Build a FactorGraph from numpy arrays named as the dataclass fields
-    (for example a JAX FactorGraph's arrays fetched with np.asarray). Integer
-    fields become int32, masks bool, the rest keep their float dtype."""
+    """Build a FactorGraph on `device` from numpy arrays named as the
+    dataclass fields (for example a JAX FactorGraph's arrays fetched with
+    np.asarray). Integer fields become int32, masks bool, the rest keep
+    their float dtype."""
     out = {}
     for f in _TENSOR_FIELDS:
         a = np.asarray(fields[f])
@@ -115,12 +116,12 @@ def from_dataset(
     data: Dict[str, np.ndarray],
     prior_sigma: float = 0.1,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
 ) -> FactorGraph:
-    """Build a FactorGraph from a g2o/synthetic dataset dict, anchoring node 0
-    with an isotropic prior. Same permutation and chain_prefix as the JAX
-    from_dataset; the sqrt-information is factored in float64 numpy and then
-    cast, as there."""
+    """Build a FactorGraph on `device` from a g2o/synthetic dataset dict,
+    anchoring node 0 with an isotropic prior. Same permutation and
+    chain_prefix as the JAX from_dataset; the sqrt-information is factored
+    in float64 numpy and then cast, as there."""
     edges = np.asarray(data["edges"], np.int32)
     meas = np.asarray(data["measurements"])
     info = np.asarray(data["information"])

@@ -137,3 +137,15 @@ def left_jacobian_inv(xi: torch.Tensor) -> torch.Tensor:
 def right_jacobian_inv(xi: torch.Tensor) -> torch.Tensor:
     """Inverse SE(2) right Jacobian: Jr^{-1}(xi) = Jl^{-1}(-xi)."""
     return left_jacobian_inv(-xi)
+
+
+def transform(p: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply pose p (..., 3) to points pts (..., N, 2) in p's frame."""
+    return so2.rotate(p[..., None, 2], pts) + p[..., None, :2]
+
+
+def matrix(p: torch.Tensor) -> torch.Tensor:
+    """Homogeneous (..., 3, 3) matrix form."""
+    top = torch.cat([so2.rotmat(p[..., 2]), p[..., :2, None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 1.0], dtype=p.dtype, device=p.device)
+    return torch.cat([top, bottom.expand(*p.shape[:-1], 1, 3)], dim=-2)

@@ -13,6 +13,12 @@ def wrap(theta: torch.Tensor) -> torch.Tensor:
     return torch.atan2(torch.sin(theta), torch.cos(theta))
 
 
+def rotmat(theta: torch.Tensor) -> torch.Tensor:
+    """(...,) angle -> (..., 2, 2) rotation matrix."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack([torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2)
+
+
 def rotate(theta: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Rotate 2-vectors v (..., 2) by angles theta (...,)."""
     c, s = torch.cos(theta), torch.sin(theta)

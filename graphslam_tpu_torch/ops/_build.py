@@ -1,10 +1,11 @@
 """Build the CUDA sources in csrc/ with nvcc at first use; load them with ctypes.
 
 Each `csrc/<name>.cu` has a plain C interface (no PyTorch headers), so one
-nvcc call builds it in seconds. The library lands in the package's
-`build/` directory (listed in .gitignore) under a name that carries a hash
-of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. A failed build raises with nvcc's output.
+nvcc call builds it in seconds, and several sources build in parallel. The
+library lands in the package's `build/` directory (listed in .gitignore)
+under a name that carries a hash of the source and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is. A failed build
+raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -39,30 +40,45 @@ def nvcc() -> str:
     return str(path)
 
 
-def build(name: str) -> Tuple[Path, str]:
-    """Compile csrc/<name>.cu for sm_90a unless an up-to-date build exists.
-    Returns (library path, compiler log: ptxas register/spill report)."""
+def _target(name: str) -> Tuple[Path, Path, Path]:
+    """(source, library, compiler log) of csrc/<name>.cu under its hash."""
     src = SRC_DIR / f"{name}.cu"
-    text = src.read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"{name}-{digest}.so"
-    log = lib.with_suffix(".log")
-    if lib.exists() and log.exists():
-        return lib, log.read_text()
+    return src, lib, lib.with_suffix(".log")
+
+
+def build_all(names: Sequence[str]) -> Dict[str, Tuple[Path, str]]:
+    """Compile each csrc/<name>.cu for sm_90a unless an up-to-date build
+    exists, one nvcc process per source, all started at once. Returns
+    {name: (library path, compiler log: ptxas register/spill report)}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed to build {src} (exit {proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib, log.read_text()
+    procs = {}
+    for name in names:
+        src, lib, log = _target(name)
+        if not (lib.exists() and log.exists()):
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            procs[name] = (tmp, subprocess.Popen(
+                [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            ))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, err = proc.communicate()
+        src, lib, log = _target(name)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {src} (exit {proc.returncode}):\n{out}\n{err}")
+            continue
+        log.write_text(out + err)
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: (_target(name)[1], _target(name)[2].read_text()) for name in names}
+
+
+def build(name: str) -> Tuple[Path, str]:
+    """build_all for one source: (library path, compiler log)."""
+    return build_all([name])[name]
 
 
 @functools.lru_cache(maxsize=None)

@@ -76,6 +76,7 @@ class PackedGraph:
     loop_j: torch.Tensor    # (El,) int32
     loop_z: torch.Tensor    # (El, 3)
     loop_R: torch.Tensor    # (El, 3, 3)
+    loop_mask: torch.Tensor  # (El,) bool
 
     @property
     def El(self) -> int:
@@ -105,26 +106,30 @@ def pack_graph(graph, N: int) -> PackedGraph:
         loop_j=graph.edges[c:, 1].to(torch.int32).contiguous(),
         loop_z=(graph.measurements[c:] * lm[:, None]).contiguous(),
         loop_R=(graph.sqrt_info[c:] * lm[:, None, None]).contiguous(),
+        loop_mask=graph.edge_mask[c:],
     )
 
 
 def loop_csr(pk: PackedGraph) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Each node's incident loop edges in ascending edge order.
+    """Each node's incident live loop edges in ascending edge order.
 
     Returns (ptr (N+1,) int32, ent (2*El,) int32): node n's entries are
     ent[ptr[n]:ptr[n+1]], each 2*l + side with side 0 when n is edge l's i
-    endpoint and 1 when it is its j endpoint. Built on the device without a
-    host round trip."""
+    endpoint and 1 when it is its j endpoint. Masked edges (zero blocks)
+    are left out, after ptr[N]: the online graph's ~1000 masked loop slots
+    all end on one node, whose thread would otherwise walk them one by one
+    in every H@v. Built on the device without a host round trip."""
     El, dev = pk.El, pk.loop_i.device
-    node = torch.cat([pk.loop_i, pk.loop_j]).long()
+    live = torch.cat([pk.loop_mask, pk.loop_mask])
+    node = torch.where(live, torch.cat([pk.loop_i, pk.loop_j]).long(), pk.N)
     code = torch.cat([
         2 * torch.arange(El, device=dev), 2 * torch.arange(El, device=dev) + 1
     ])
     order = torch.argsort(node * (2 * El) + code)
-    counts = torch.zeros(pk.N, dtype=torch.long, device=dev)
+    counts = torch.zeros(pk.N + 1, dtype=torch.long, device=dev)
     counts.index_add_(0, node, torch.ones_like(node))
     ptr = torch.zeros(pk.N + 1, dtype=torch.long, device=dev)
-    ptr[1:] = torch.cumsum(counts, 0)
+    ptr[1:] = torch.cumsum(counts[:-1], 0)
     return ptr.to(torch.int32), code[order].to(torch.int32).contiguous()
 
 

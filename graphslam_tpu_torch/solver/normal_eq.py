@@ -62,16 +62,20 @@ def build_blocks(lin: Linearization, graph: FactorGraph, num_poses: int) -> Bloc
         diag[1 : c + 1] += Ajj[:c]
     i_idx = graph.edges[c:, 0].long()
     j_idx = graph.edges[c:, 1].long()
+    # index_put_ with accumulate sums repeated indices in a fixed order on
+    # CUDA too (index_add_ there uses float atomics), so the online
+    # pipeline's covariances repeat bitwise.
     if i_idx.shape[0] > 0:
-        g.index_add_(0, i_idx, gi[c:]).index_add_(0, j_idx, gj[c:])
-        diag.index_add_(0, i_idx, Aii[c:]).index_add_(0, j_idx, Ajj[c:])
+        g.index_put_((i_idx,), gi[c:], accumulate=True).index_put_((j_idx,), gj[c:], accumulate=True)
+        diag.index_put_((i_idx,), Aii[c:], accumulate=True)
+        diag.index_put_((j_idx,), Ajj[c:], accumulate=True)
 
     # Priors contribute only to the diagonal and gradient.
     Ap = torch.einsum("pki,pkj->pij", lin.Jp, lin.Jp)
     gp = torch.einsum("pki,pk->pi", lin.Jp, lin.rp)
     p_idx = graph.prior_idx.long()
-    diag.index_add_(0, p_idx, Ap)
-    g.index_add_(0, p_idx, gp)
+    diag.index_put_((p_idx,), Ap, accumulate=True)
+    g.index_put_((p_idx,), gp, accumulate=True)
 
     return BlockSystem(Aii=Aii, Aij=Aij, Ajj=Ajj, diag=diag, g=g, edges=graph.edges)
 

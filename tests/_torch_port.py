@@ -13,7 +13,7 @@ FIELDS = ("edges", "measurements", "sqrt_info", "edge_mask", "is_loop",
 def carry(jgraph) -> FactorGraph:
     """The port's FactorGraph holding a JAX FactorGraph's arrays."""
     return from_numpy({f: np.asarray(getattr(jgraph, f)) for f in FIELDS},
-                      jgraph.chain_prefix)
+                      jgraph.chain_prefix, device="cpu")
 
 
 def wrapped_max(a, b) -> float:

@@ -46,7 +46,7 @@ def test_from_dataset_same_perm_and_prefix(shuffle):
     if shuffle:
         data = _shuffled(data)
     jg = jfrom_dataset(data)
-    tg = from_dataset(data)
+    tg = from_dataset(data, device="cpu")
     assert tg.chain_prefix == jg.chain_prefix
     if not shuffle:
         assert tg.chain_prefix == 199
@@ -58,7 +58,8 @@ def test_from_dataset_same_perm_and_prefix(shuffle):
 def test_from_numpy_roundtrip_to_and_replace():
     data = datasets.manhattan(n_poses=80, seed=2)
     tg = carry(jfrom_dataset(data))
-    back = from_numpy({f: getattr(tg, f).numpy() for f in FIELDS}, tg.chain_prefix)
+    back = from_numpy({f: getattr(tg, f).numpy() for f in FIELDS}, tg.chain_prefix,
+                      device="cpu")
     for f in FIELDS:
         assert torch.equal(getattr(back, f), getattr(tg, f)), f
     assert back.chain_prefix == tg.chain_prefix

@@ -132,6 +132,22 @@ def test_loop_csr_lists_incident_edges_in_order(small):
         assert got.tolist() == want
 
 
+def test_loop_csr_leaves_out_masked_edges(small):
+    jg, tg, p0 = small
+    mask = tg.edge_mask.clone()
+    c = tg.chain_prefix
+    mask[c::3] = False
+    pk = gk.pack_graph(tg.replace(edge_mask=mask), p0.shape[0])
+    ptr, ent = gk.loop_csr(pk)
+    live = mask[c:].numpy()
+    li, lj = pk.loop_i.numpy(), pk.loop_j.numpy()
+    assert ptr[0] == 0 and ptr[-1] == 2 * live.sum()
+    for n in range(pk.N):
+        want = sorted([2 * l for l in np.nonzero((li == n) & live)[0]]
+                      + [2 * l + 1 for l in np.nonzero((lj == n) & live)[0]])
+        assert ent[ptr[n]:ptr[n + 1]].numpy().tolist() == want
+
+
 def test_kernel_wrapper_refuses_non_cuda_tensors(small, tmp_path, monkeypatch):
     jg, tg, p0 = small
     with pytest.raises(ValueError, match="CUDA"):
