@@ -47,15 +47,38 @@ a nonzero exit:
      path on the card over the first 60 scans, K2 and K8 per launch against
      their twins and K8 against torch.cdist, and one profiled replay
      (device busy share, kernels and host synchronizations per scan)
+  9. LM kernels against their twins on manhattan(260): K1's LM mode, 5
+     Huber iterations at pcr_levels 4 and exact (poses wrapped atol 3e-3,
+     chi2 within 1%, accepted steps and converged equal; its cost pass
+     alone rel 1e-5); K3 (the fused PCG) at lam 0 and 1e-3 (rel 1e-3); 5
+     iterations of _lm_loop(pcg_fused) through K3 against the same loop
+     through the twin (wrapped atol 3e-3); K3 on the replay's online graph
+     at bucket 128 (rel 1e-3, its CSR holding only the live loop slots)
+ 10. the m3500 LM main paths on cuda: lm_solve in mode gn_fused (K1-LM,
+     50 steps, cg 25, Huber, pcr_levels 4: scripts/bench_all.py's LM
+     config) and in mode pcg_fused (_lm_loop through K3, 50 iterations).
+     Gates from the JAX package's CPU runs (scripts/lm_gate_jax.py): ATE
+     < 0.35 m and within 0.02 m of JAX's, chi2 within 1%; both kernels'
+     launch counts above 0; two runs each bitwise equal; K1-LM within
+     wrapped 3e-3 of its twin over 5 steps, K3 within rel 1e-3 at m3500
+ 11. LM timing: m3500 LM it/s through K1-LM, in turns with its twin on
+     the card and with K1's GN mode; _lm_loop(pcg_fused) it/s; K3 per call
+     (its C entry on a prepared problem, and the whole wrapper) against its
+     twin (CUDA events); launches per LM iteration by source and the idle
+     share (profiler); host synchronizations per _lm_loop iteration
 
 Before the last line it prints one JSON object describing the kernels
 (max_abs_err: gn_kernel the larger of its m3500 and replay-solve pose
 errors, icp_kernel gicp_match's delta through the kernel against the plain
-path, nn_kernel the distances at full width); the last line is
+path, nn_kernel the distances at full width, gn_kernel_lm its largest pose
+error against the twin, pcg_kernel its largest dx error against the twin,
+and its "ms" is the C entry's, "ms_wrapper" the whole fused_pcg_solve's);
+the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, it exits nonzero and prints no result.
 """
 
+import dataclasses
 import json
 import math
 import statistics
@@ -76,11 +99,23 @@ ATE_GATE_M = 0.35         # bench.py's gate
 TOL_K2 = ((1e-4, 1e-3), (1e-4, 1e-3), (1e-4, 1e-2))  # (rtol, atol) of H, g, stats
 TOL_K8_D2_REL = 1e-6      # both sides round each product and the sum alike
 TOL_MATCH_DELTA = 5e-3    # the repo's fused-vs-XLA gicp_match tolerance
+TOL_LM_POSES = 3e-3       # the repo's kernel-vs-XLA pose tolerance (LM/Huber)
+TOL_CHI2_REL = 1e-2       # chi2 against the twin and against JAX
+TOL_COST_REL = 1e-5       # one cost pass: sums of squares in another order
+LM_ATE_BAND_M = 0.02      # ATE within this of the JAX package's
 
 # The JAX package's replay of the phase-7 config on the CPU
 # (scripts/replay_gate_jax.py, jax 0.9.0): 278 scans.
 JAX_REPLAY = {"keyframes": 110, "loops": 29, "ate": 0.060562863945961,
               "ate_dead_reckoned": 0.5801027417182922}
+
+# The JAX package's m3500 LM + Huber runs on the CPU (scripts/lm_gate_jax.py):
+# fused_lm_solve in interpret mode ("steps": accepted) and
+# lm_solve(mode="pcg_fused") ("steps": iterations), jax 0.9.0.
+JAX_LM = {
+    "fused": {"chi2": 5530.16357421875, "steps": 50, "ate": 0.29736045002937317},
+    "loop": {"chi2": 5531.26416015625, "steps": 50, "ate": 0.2907252013683319},
+}
 
 # H100 SXM peaks (HBM3 bandwidth, dense FP32 rate), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -467,8 +502,6 @@ def _lockstep(torch, tour, n_cmp: int):
     the same keyframe and loop decisions and factor counts, and keyframe
     poses within wrapped TOL_POSES_WRAPPED. Returns (worst pose difference
     at steps without a loop commit, at loop commits, loops)."""
-    import dataclasses
-
     from graphslam_tpu_torch.slam.pipeline import make_slam_step
     from graphslam_tpu_torch.slam.state import init_state
 
@@ -567,8 +600,6 @@ def phase_replay(torch, metrics, tour):
 
     state2, infos2 = replay(init_state(cfg), tour["scans"], tour["odom"])
     torch.cuda.synchronize()
-    import dataclasses
-
     for f in dataclasses.fields(state):
         if not torch.equal(getattr(state, f.name), getattr(state2, f.name)):
             fail(f"two replays differ in {f.name}")
@@ -585,7 +616,7 @@ def phase_replay(torch, metrics, tour):
         f"loop commits from scan {loop_steps[0] if loop_steps else '-'}): decisions and factor "
         f"counts equal, keyframe poses wrapped max err {plain_err:.3e} (steps without a loop "
         f"commit), {loop_err:.3e} (loop commits), tol {TOL_POSES_WRAPPED}")
-    return launches, gn_err
+    return launches, gn_err, state
 
 
 def phase_timing_frontend(torch, tour, k2_full):
@@ -720,6 +751,302 @@ def phase_timing_frontend(torch, tour, k2_full):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# Levenberg-Marquardt: K1's LM mode and K3
+# ---------------------------------------------------------------------------
+
+
+def _lm_pair(torch, gk, p0, g, iterations=5, cg_iters=25, **kw):
+    """fused_lm_solve through the kernel and through its twin on the card:
+    (wrapped pose error, chi2 relative error, kernel stats, twin stats)."""
+    out = gk.fused_lm_solve(p0, g, iterations=iterations, cg_iters=cg_iters, **kw)
+    ref = gk.fused_lm_solve_reference(p0, g, iterations=iterations, cg_iters=cg_iters, **kw)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out[0]).all():
+        fail(f"the LM kernel produced non-finite poses ({kw})")
+    ks, rs = [float(t) for t in out[1:]], [float(t) for t in ref[1:]]
+    return wrapped_max(out[0], ref[0]), abs(ks[0] - rs[0]) / abs(rs[0]), ks, rs
+
+
+def _check_lm_pair(name, e, ce, ks, rs):
+    log(f"  K1-LM {name}: wrapped max err {e:.3e} (tol {TOL_LM_POSES}), chi2 {ks[0]:.4f} vs "
+        f"{rs[0]:.4f} (rel {ce:.2e}, tol {TOL_CHI2_REL}), lam {ks[1]:.3g} vs {rs[1]:.3g}, "
+        f"accepted {ks[2]:.0f} vs {rs[2]:.0f}, converged {ks[3]:.0f} vs {rs[3]:.0f}")
+    if not (e <= TOL_LM_POSES and ce <= TOL_CHI2_REL and ks[2:] == rs[2:]):
+        fail(f"K1-LM {name} differs from its plain twin")
+
+
+def _k3_pair(torch, pk, sysm, lam, chain_prefix):
+    """K3 and its twin on one system: (relative error, absolute error)."""
+    x = pk.fused_pcg_solve(sysm, lam, max_iters=25, chain_prefix=chain_prefix)
+    xr = pk.fused_pcg_solve_reference(sysm, lam, max_iters=25, chain_prefix=chain_prefix)
+    torch.cuda.synchronize()
+    if not torch.isfinite(x).all():
+        fail("K3 produced a non-finite solution")
+    return rel_err(x, xr), float((x - xr).abs().max())
+
+
+def phase_lm_kernels(torch, datasets, from_dataset, lm, gk, tour, state):
+    log("== phase 9: LM kernels against their plain twins, manhattan(260)")
+    from graphslam_tpu_torch.config import SolverConfig
+    from graphslam_tpu_torch.ops import pcg_kernel as pk
+    from graphslam_tpu_torch.slam.pipeline import _solve_buckets, graph_view
+
+    dev = torch.device("cuda")
+    data = datasets.manhattan(n_poses=260, loop_prob=0.25, seed=0)
+    g = from_dataset(data, device=dev)
+    p0 = torch.from_numpy(data["poses"]).to(dev)
+    lm_err, k3_err = 0.0, 0.0
+
+    kern = gk.GnKernel(p0, g, 1.0, 4, cg_max=25, lm=True)
+    e = rel_err(kern.chi2(p0)[0], gk.chi2_reference(p0, kern.pk, 1.0))
+    log(f"  K1-LM cost pass (Huber 1.0): rel err {e:.3e} (tol {TOL_COST_REL})")
+    if not e <= TOL_COST_REL:
+        fail(f"the LM cost pass differs from its twin: {e}")
+    for levels in (4, None):
+        e, ce, ks, rs = _lm_pair(torch, gk, p0, g, huber_delta=1.0, pcr_levels=levels)
+        _check_lm_pair(f"5 Huber iterations, pcr_levels={levels}", e, ce, ks, rs)
+        lm_err = max(lm_err, e)
+
+    sysm = lm._linearized_system(p0, g, SolverConfig(use_huber_on_loops=True))
+    for lam in (0.0, 1e-3):
+        e, ea = _k3_pair(torch, pk, sysm, lam, g.chain_prefix)
+        k3_err = max(k3_err, ea)
+        log(f"  K3 at lam {lam}: rel err {e:.3e} (tol {TOL_CG_REL})")
+        if not e <= TOL_CG_REL:
+            fail(f"K3 differs from its twin at lam {lam}: {e}")
+
+    cfg = SolverConfig(mode="pcg_fused", max_iterations=5, cg_max_iterations=25,
+                       use_huber_on_loops=True)
+    out = lm._lm_loop(p0, g, cfg, "pcg_fused")
+    ref = lm._lm_loop(p0.cpu(), g.to("cpu"), cfg, "pcg_fused")  # the twin runs on the CPU
+    e = wrapped_max(out.poses.cpu(), ref.poses)
+    log(f"  5 iterations of _lm_loop(pcg_fused), K3 vs twin: wrapped max err {e:.3e} "
+        f"(tol {TOL_LM_POSES}); iterations {int(out.iterations)} vs {int(ref.iterations)}")
+    if not (e <= TOL_LM_POSES and int(out.iterations) == int(ref.iterations)):
+        fail(f"_lm_loop through K3 differs from the loop through the twin: {e}")
+
+    cfg_o = tour["cfg"]
+    nkf = int(state.num_kf)
+    B = next(b for b in _solve_buckets(cfg_o.max_keyframes, cfg_o.solve_bucket_min) if b >= nkf)
+    go = graph_view(state, cfg_o, B)
+    po = state.kf_poses[:B]
+    so = lm._linearized_system(po, go, SolverConfig())
+    c = go.chain_prefix
+    e, ea = _k3_pair(torch, pk, so, 0.0, c)
+    k3_err = max(k3_err, ea)
+    A = so.Aij[min(c, B - 1):]
+    live = pk.live_loops(A)
+    li, lj = (so.edges[min(c, B - 1):, k].to(torch.int32) for k in (0, 1))
+    ptr, _ = gk.edge_csr(li, lj, live, B)
+    n_live, n_mask = int(live.sum()), int(go.edge_mask[c:].sum())
+    log(f"  K3 on the replay's online graph (bucket {B}, {A.shape[0]} loop slots, {n_live} with "
+        f"a nonzero block, {n_mask} unmasked): rel err {e:.3e} (tol {TOL_CG_REL}); CSR entries "
+        f"{int(ptr[-1])}")
+    if not e <= TOL_CG_REL:
+        fail(f"K3 on the online graph differs from its twin: {e}")
+    if not (int(ptr[-1]) == 2 * n_live and torch.equal(live, go.edge_mask[c:])):
+        fail("K3's CSR does not hold exactly the live loop slots")
+    return lm_err, k3_err
+
+
+def phase_lm_main(torch, datasets, from_dataset, chi2, metrics, lm, gk):
+    log("== phase 10: m3500 LM main paths on cuda")
+    from graphslam_tpu_torch.config import SolverConfig
+    from graphslam_tpu_torch.ops import pcg_kernel as pk
+
+    dev = torch.device("cuda")
+    data = datasets.m3500()
+    g = from_dataset(data, device=dev)
+    p0 = torch.from_numpy(data["poses"]).to(dev)
+    gt = torch.from_numpy(data["gt"]).to(dev)
+    ate0 = float(metrics.ate(p0, gt))
+    # scripts/bench_all.py's LM config; edge_tile and hvp_splits are TPU knobs
+    cfg_k1 = SolverConfig(mode="gn_fused", cg_max_iterations=25, use_huber_on_loops=True,
+                          max_iterations=50, pcr_levels=4, edge_tile=512, hvp_splits=1)
+    cfg_k3 = SolverConfig(mode="pcg_fused", cg_max_iterations=25, use_huber_on_loops=True,
+                          max_iterations=50)
+    out = {}
+    for name, cfg, counter, ref in (("K1-LM", cfg_k1, gk.fused_lm_solve, JAX_LM["fused"]),
+                                    ("_lm_loop/K3", cfg_k3, pk.fused_pcg_solve, JAX_LM["loop"])):
+        counter.launches = 0
+        st = lm.lm_solve(p0, g, cfg)
+        st2 = lm.lm_solve(p0, g, cfg)
+        torch.cuda.synchronize()
+        launches = counter.launches
+        if launches <= 0:
+            fail(f"the {name} main path did not launch its kernel")
+        if not torch.isfinite(st.poses).all():
+            fail(f"{name}: m3500 poses are not finite")
+        ate, err = float(metrics.ate(st.poses, gt)), float(st.error)
+        log(f"  {name}: {launches} kernel launches; chi2 {err:.2f} (JAX {ref['chi2']:.2f}), lam "
+            f"{float(st.lam):.3g}, steps {int(st.iterations)} (JAX {ref['steps']}), converged "
+            f"{bool(st.converged)}; ATE {ate0:.4f} -> {ate:.4f} (JAX {ref['ate']:.4f})")
+        if not (ate < ATE_GATE_M and abs(ate - ref["ate"]) <= LM_ATE_BAND_M
+                and abs(err - ref["chi2"]) <= TOL_CHI2_REL * ref["chi2"]):
+            fail(f"{name}: m3500 LM gate failed (ATE {ate}, chi2 {err})")
+        for a, b in zip(st, st2):
+            if not torch.equal(a, b):
+                fail(f"{name}: two runs differ")
+        log(f"  {name}: two runs bitwise equal")
+        out[name] = dict(launches=launches, ate=ate, chi2=err, steps=int(st.iterations))
+
+    e, ce, ks, rs = _lm_pair(torch, gk, p0, g, huber_delta=1.0, pcr_levels=4)
+    _check_lm_pair("m3500, 5 steps", e, ce, ks, rs)
+    sysm = lm._linearized_system(p0, g, cfg_k3)
+    e3, ea3 = _k3_pair(torch, pk, sysm, cfg_k3.init_lambda, g.chain_prefix)
+    log(f"  K3 at m3500 (lam {cfg_k3.init_lambda}): rel err {e3:.3e} (tol {TOL_CG_REL})")
+    if not e3 <= TOL_CG_REL:
+        fail(f"K3 differs from its twin at m3500: {e3}")
+    return p0, g, sysm, out, e, ea3
+
+
+def _profile_launches(torch, fn):
+    """One profiled call of fn: ({source: (device launches, device ms)} for
+    gn_kernel.cu, torch ops and memcpy/memset, span ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        span = time.perf_counter() - t0
+    groups = {"gn_kernel.cu": (0, 0.0), "torch ops": (0, 0.0), "memcpy/memset": (0, 0.0)}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", 0.0) or 0.0
+        if dev_us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            g = ("gn_kernel.cu" if "GnProblem" in e.key else "memcpy/memset"
+                 if e.key.startswith(("Memcpy", "Memset")) else "torch ops")
+            c0, d0 = groups[g]
+            groups[g] = (c0 + e.count, d0 + dev_us / 1e3)
+    return groups, span * 1e3
+
+
+def _log_profile(name, groups, span, n_it):
+    busy = sum(d for _, d in groups.values())
+    log(f"  profiled {name}: span {span:.3f} ms, device busy {busy:.3f} ms"
+        + (f", idle share {1.0 - busy / span:.3f}" if busy > 0 else
+           " (the profiler saw no device time)"))
+    for g, (count, dev_ms) in groups.items():
+        log(f"    by source: {g:14s} {count / n_it:8.1f} launches an iteration, "
+            f"{dev_ms:9.3f} device ms")
+    return (1.0 - busy / span) if busy > 0 else None
+
+
+def _count_syncs(torch, fn) -> int:
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_lm_timing(torch, lm, gk, card, p0, g, sysm, main):
+    log("== phase 11: m3500 LM timing")
+    from graphslam_tpu_torch.config import SolverConfig
+    from graphslam_tpu_torch.ops import pcg_kernel as pk
+
+    iters, out = 50, {}
+    kw = dict(iterations=iters, cg_iters=25, huber_delta=1.0, pcr_levels=4)
+
+    def kernel(p):
+        return gk.fused_lm_solve(p, g, **kw)[0]
+
+    def plain(p):
+        return gk.fused_lm_solve_reference(p, g, **kw)[0]
+
+    def gn(p):
+        return gk.fused_gn_solve(p, g, iterations=iters, cg_iters=25, pcr_levels=4)
+
+    # in turns: plain, LM, GN, GN, LM, plain (the host's speed varies)
+    chain_k, chain_p = 10, 2
+    t_plain_a = _time_solves(torch, plain, p0, 3, chain_p)
+    t_lm_a = _time_solves(torch, kernel, p0, 3, chain_k)
+    t_gn = min(_time_solves(torch, gn, p0, 3, chain_k) for _ in range(2))
+    t_lm_b = _time_solves(torch, kernel, p0, 3, chain_k)
+    t_plain_b = _time_solves(torch, plain, p0, 3, chain_p)
+    out["lm_ms"] = 1e3 * min(t_lm_a, t_lm_b) / chain_k
+    out["gn_ms"] = 1e3 * t_gn / chain_k
+    out["lm_plain_ms"] = 1e3 * min(t_plain_a, t_plain_b) / chain_p
+    log(f"  card: {card}")
+    log(f"  K1-LM: {out['lm_ms']:.3f} ms per {iters}-iteration LM solve ({1e3 * t_lm_a / chain_k:.3f} "
+        f"and {1e3 * t_lm_b / chain_k:.3f} in turns), {iters * 1e3 / out['lm_ms']:.1f} LM it/s; "
+        f"K1's GN mode between them {out['gn_ms']:.3f} ms per {iters}-iteration GN solve")
+    log(f"  plain twin on the card: {out['lm_plain_ms']:.3f} ms per solve "
+        f"({1e3 * t_plain_a / chain_p:.3f} before, {1e3 * t_plain_b / chain_p:.3f} after), "
+        f"{iters * 1e3 / out['lm_plain_ms']:.1f} LM it/s")
+
+    cfg_k3 = SolverConfig(mode="pcg_fused", cg_max_iterations=25, use_huber_on_loops=True,
+                          max_iterations=iters)
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = lm.lm_solve(p0, g, cfg_k3)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, int(st.iterations)))
+    sec, n_it = statistics.median(r[0] for r in runs), runs[0][1]
+    out["loop_ms"] = 1e3 * sec
+    out["loop_it_s"] = n_it / sec
+    log(f"  _lm_loop(pcg_fused): {out['loop_ms']:.3f} ms for {n_it} iterations (median of 3), "
+        f"{out['loop_it_s']:.1f} LM it/s")
+
+    lam = torch.tensor(cfg_k3.init_lambda, device=p0.device)
+    kern3 = pk.PcgKernel(*pk._chain_and_loops(sysm, lam, True, g.chain_prefix), 25)
+    out["k3_us"] = _event_us(torch, kern3.solve, 100)
+    out["k3_wrapper_us"] = _event_us(torch, lambda: pk.fused_pcg_solve(
+        sysm, lam, max_iters=25, chain_prefix=g.chain_prefix), 50)
+    out["k3_plain_us"] = _event_us(torch, lambda: pk.fused_pcg_solve_reference(
+        sysm, lam, max_iters=25, chain_prefix=g.chain_prefix), 5, warmup=1)
+    log(f"  K3 at m3500 (exact PCR, K = 12, cg 25; CUDA events): {out['k3_us']:.2f} us per "
+        f"call of the C entry on a prepared problem, {out['k3_wrapper_us']:.2f} us per "
+        f"fused_pcg_solve (damping, chain blocks and CSR in torch included), "
+        f"{out['k3_plain_us']:.2f} us for the twin")
+
+    groups, span = _profile_launches(torch, lambda: kernel(p0))
+    out["lm_launches_per_it"] = groups["gn_kernel.cu"][0] / iters
+    out["lm_idle_share"] = _log_profile(f"K1-LM solve ({iters} iterations)", groups, span, iters)
+    cfg_10 = dataclasses.replace(cfg_k3, max_iterations=10)
+    groups, span = _profile_launches(torch, lambda: lm.lm_solve(p0, g, cfg_10))
+    out["loop_launches_per_it"] = sum(c for c, _ in groups.values()) / 10
+    out["loop_idle_share"] = _log_profile("_lm_loop(pcg_fused), 10 iterations", groups, span, 10)
+    s_loop = _count_syncs(torch, lambda: lm.lm_solve(p0, g, cfg_10))
+    s_lm = _count_syncs(torch, lambda: kernel(p0))
+    out["loop_syncs_per_it"] = s_loop / 10
+    out["lm_syncs"] = s_lm
+    log(f"  host synchronizations: _lm_loop(pcg_fused) {s_loop} over 10 iterations "
+        f"({s_loop / 10:.2f} per iteration); one K1-LM solve {s_lm} (the wrapper's node-id "
+        f"check; none inside the solve)")
+    return out
+
+
+def lm_cost(N: int, c: int, El: int, K: int, iters: int, cg: int):
+    """Bytes and float32 operations of one fused LM solve: a GN solve's
+    stages (gn_cost) plus, per iteration, the damping, the candidate's cost
+    pass over every chain, loop and prior row (~120 operations each: two
+    betweens, a log, a 3x3 product, a square) and the accept step."""
+    nbytes, flops = gn_cost(N, c, El, K, iters, cg)
+    per_it = 3 * N + 120 * (c + El + N) + 3 * N
+    return nbytes + 16, flops + (iters + 1) * per_it
+
+
+def pcg_cost(N: int, El: int, K: int, cg: int):
+    """Bytes (D, U, b and the loop blocks with their endpoints read once, x
+    written once) and float32 operations of one K3 solve: the K-level PCR
+    factor, then cg + 1 rounds of H@p, PCR apply, Dinv and the dots."""
+    nbytes = 36 * N + 36 * N + 12 * N + 36 * El + 8 * El + 12 * N
+    per_cg = N * (54 + 36 * K + 18 + 10) + 72 * El
+    return nbytes, 400 * K * N + (cg + 1) * per_cg
+
+
 def make_tour(torch):
     """The replay's scans, made on the card with the port's raycaster."""
     from graphslam_tpu_torch.config import SLAMConfig, SolverConfig
@@ -782,8 +1109,12 @@ def main() -> int:
     tour = make_tour(torch)
     tour["card"] = card
     fe, k2_full = phase_frontend_kernels(torch, tour)
-    launches, gn_replay_err = phase_replay(torch, metrics, tour)
+    launches, gn_replay_err, replay_state = phase_replay(torch, metrics, tour)
     t = phase_timing_frontend(torch, tour, k2_full)
+    lm_err9, k3_err9 = phase_lm_kernels(torch, datasets, from_dataset, lm, gk, tour, replay_state)
+    p_m, g_m, sys_m, lm_main, lm_err10, k3_err10 = phase_lm_main(
+        torch, datasets, from_dataset, chi2, metrics, lm, gk)
+    lt = phase_lm_timing(torch, lm, gk, card, p_m, g_m, sys_m, lm_main)
     if "jax" in sys.modules:
         fail("the port imported jax")
 
@@ -799,6 +1130,11 @@ def main() -> int:
     P, Q = k2_full[0].shape[0], k2_full[3].shape[0]
     k2_bound, k2_by = _bound(*icp_iteration_cost(P, Q))
     k8_bound, k8_by = _bound(*nn_cost(P, Q))
+    lm_bound, lm_by = _bound(*lm_cost(pk.N, pk.c, pk.El, 4, 50, 25))
+    K3 = math.ceil(math.log2(pk.N))
+    k3_bound, k3_by = _bound(*pcg_cost(pk.N, pk.El, K3, 25))
+    log(f"  K1-LM bound per m3500 solve {lm_bound:.4f} ms ({lm_by}); K3 bound per call at m3500 "
+        f"{k3_bound * 1e3:.3f} us ({k3_by}, K = {K3})")
     print(json.dumps({"kernels": [
         {
             "name": "gn_kernel",
@@ -842,6 +1178,33 @@ def main() -> int:
             "bound_ms": k8_bound,
             "bound_by": k8_by,
             "library_ms": t["k8_cdist_us"] / 1e3,
+        },
+        {
+            "name": "gn_kernel_lm",
+            "route": "cuda",
+            "source": "graphslam_tpu_torch/csrc/gn_kernel.cu",
+            "replaces": "graphslam_tpu/ops/gn_kernel.py:600",
+            "launches": lm_main["K1-LM"]["launches"],
+            "max_abs_err": max(lm_err9, lm_err10),
+            "ms": lt["lm_ms"],
+            "plain_ms": lt["lm_plain_ms"],
+            "bound_ms": lm_bound,
+            "bound_by": lm_by,
+            "library_ms": None,
+        },
+        {
+            "name": "pcg_kernel",
+            "route": "cuda",
+            "source": "graphslam_tpu_torch/csrc/gn_kernel.cu",
+            "replaces": "graphslam_tpu/ops/pcg_kernel.py:283",
+            "launches": lm_main["_lm_loop/K3"]["launches"],
+            "max_abs_err": max(k3_err9, k3_err10),
+            "ms": lt["k3_us"] / 1e3,
+            "ms_wrapper": lt["k3_wrapper_us"] / 1e3,
+            "plain_ms": lt["k3_plain_us"] / 1e3,
+            "bound_ms": k3_bound,
+            "bound_by": k3_by,
+            "library_ms": None,
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,8 @@ its module paths and public names so each counterpart is found at once:
   io/                  numpy-only g2o reader and synthetic generators
   geometry/            batched SO(2)/SE(2) ops on torch tensors
   factors/             FactorGraph dataclass of tensors, SE(2) linearization
-  solver/              normal equations, cyclic reduction, GN loops,
-                       dense marginals
+  solver/              normal equations, cyclic reduction, GN and LM
+                       loops, chordal init, dense marginals
   sim/                 segment-world raycaster and scripted tours
   frontend/            scan projection, keyframe gates, GICP matching
   slam/                the online pipeline's state, step and replays

@@ -22,7 +22,8 @@ class SolverConfig:
                       PCR preconditioner, fixed-count CG, retract) in the
                       hand-written CUDA kernel (ops/gn_kernel.py); its plain
                       torch twin runs for tensors on the CPU. SE(2) only.
-      * "pcg_fused" — the fused whole-CG-loop kernel; not ported yet.
+      * "pcg_fused" — the fused whole-CG-loop kernel (ops/pcg_kernel.py,
+                      K3) inside the GN and LM loops. SE(2) only.
       * "auto"      — dense below `dense_threshold` poses, else pcg.
     """
 

@@ -1,5 +1,6 @@
-// Fused SE(2) Gauss-Newton for Hopper (sm_90a): the CUDA port of the Pallas
-// kernel graphslam_tpu/ops/gn_kernel.py::_gn_kernel.
+// Fused SE(2) Gauss-Newton and Levenberg-Marquardt for Hopper (sm_90a): the
+// CUDA port of the Pallas kernels graphslam_tpu/ops/gn_kernel.py::_gn_kernel
+// (K1, GN and LM modes) and graphslam_tpu/ops/pcg_kernel.py::_kernel (K3).
 //
 // One GN iteration is a fixed sequence of small launches on the caller's
 // stream, with no host synchronization:
@@ -8,7 +9,8 @@
 //                  Jacobians, then Aii, Aij, Ajj, gi, gj (Aij kept for H@v)
 //   k_assemble     one thread per node: D and g from its chain neighbours,
 //                  its prior and its incident loop edges (a CSR in edge
-//                  order, so the sums have a fixed order and no atomics)
+//                  order, so the sums have a fixed order and no atomics);
+//                  in LM mode D's diagonal is scaled by (1 + lam)
 //   k_pcr_factor   one launch per PCR level (truncated at K levels)
 //   CG, cg_iters times:
 //     k_hvp          H@p with the partial sums of p.Ap per block
@@ -17,14 +19,25 @@
 //     k_pcr_apply    one launch per level; the last applies Dinv and adds
 //                    the partial sums of r.z
 //     k_cg_direction beta, p = z + beta p, rz kept on the device
-//   k_retract      x <- x * Exp(dx)
+//   k_retract      x <- x * Exp(dx) (GN: in place; LM: into a candidate)
+//
+// An LM iteration (gn_kernel.py:911-946) adds three launches: k_chi2 (the
+// candidate's cost, block partials), k_lm_decide (one thread: accept or
+// reject, the lambda schedule, the stats) and k_lm_select (poses <- the
+// candidate where accepted). lam and the stats live in device memory; the
+// decision is taken in its own one-block launch, so no block reads a scalar
+// another block of the same launch writes.
+//
+// K3 (gn_pcg) is the PCR factor at the exact K = ceil(log2 N) and a cold CG
+// on a D, U, b and loop blocks that the caller supplies (damped in torch
+// beforehand, as the JAX package damps in XLA); it reuses the same kernels.
 //
 // At m3500 size the arrays are a few MB and sit in the 50 MB L2; what bounds
 // the kernel is launch latency (about 190 launches per GN iteration at K=4,
 // cg 25), not bytes or FLOPs. Folding them into a persistent kernel or a CUDA
 // graph is left to later work; this version is the simple, correct one.
 //
-// Numerics follow the TPU kernel, not the XLA solver: floor-based angle
+// Numerics follow the TPU kernels, not the XLA solver: floor-based angle
 // wrap, PCR ridge eps/3*|tr| + 1e-8 with the adjugate inverse (no 1e-8*I),
 // zero-filled PCR shifts at both ends, and the Krylov-exhaustion guard
 // (alpha = beta = 0 once pAp or rz <= 1e-30). Every reduction has a fixed
@@ -58,6 +71,9 @@ struct GnProblem {
   float* b;            // (N, 3) right-hand side -g
   float* x;            // (N, 3) CG solution (and warm-start seed)
   float* ws;           // workspace of gn_ws_floats(...) floats
+  const float* lA;     // (El, 9) loop blocks from the caller (K3), or null:
+                       // K1's own, linearized into the workspace
+  float* stats;        // (4,) LM state [chi2, lam, n_acc, conv], or null (GN)
   void* stream;        // cudaStream_t
   int N, c, El, K, cg_max;
   float eps, huber_delta;
@@ -94,6 +110,9 @@ struct Ws {
   float* part_a;    // (n_blocks(N),) partial sums of p.Ap
   float* part_b;    // (n_blocks(N),) partial sums of r.z
   float* rz;        // (cg_max + 1,) r.z per CG iteration
+  float* cand;      // (N, 3) LM candidate poses
+  float* part_e;    // (n_blocks(c + El + N),) partial sums of the cost
+  float* acc;       // (1,) LM: 1 where the last step was accepted
   long long total;
 };
 
@@ -126,6 +145,9 @@ Ws layout(int N, int c, int El, int K, int cg_max, float* base) {
   w.part_a = take(n_blocks(N));
   w.part_b = take(n_blocks(N));
   w.rz = take(cg_max + 1);
+  w.cand = take(N3);
+  w.part_e = take(n_blocks(E + N));
+  w.acc = take(1);
   w.total = off;
   return w;
 }
@@ -298,6 +320,12 @@ __device__ void linearize_edge(const V3& xi, const V3& xj, const V3& z, const M3
   }
 }
 
+// Whitened residual only (gn_kernel.py:582-587), for the cost.
+__device__ __forceinline__ V3 residual_edge(const V3& xi, const V3& xj, const V3& z,
+                                            const M3& R) {
+  return mvec(R, se2_log(se2_between(z, se2_between(xi, xj))));
+}
+
 // PCR ridge and inverse of the TPU kernel (gn_kernel.py:282-300).
 __device__ __forceinline__ M3 ridge(M3 D, float eps3) {
   const float r = eps3 * fabsf(D.m[0] + D.m[4] + D.m[8]) + 1e-8f;
@@ -432,7 +460,13 @@ __global__ void k_assemble(GnProblem p, Ws w) {
       vadd(g, ld3(e + 18, 0));
     }
   }
-  st9(p.D, n, D);  // GN mode: no Marquardt damping (lam = 0 on the TPU)
+  if (p.stats) {  // LM: Marquardt damping D_ii * (1 + lam) (gn_kernel.py:769-771)
+    const float s = 1.f + p.stats[1];
+    D.m[0] *= s;
+    D.m[4] *= s;
+    D.m[8] *= s;
+  }
+  st9(p.D, n, D);
   st3(p.b, n, V3{{-g.v[0], -g.v[1], -g.v[2]}});
   st9(p.U, n, n < p.c ? ld9(w.Aij, n) : m3zero());
 }
@@ -519,10 +553,11 @@ __global__ void k_hvp(GnProblem p, Ws w, const float* v, float* out, float* part
     V3 o = mvec(ld9(p.D, n), vn);
     if (n + 1 < p.N) vadd(o, mvec(ld9(p.U, n), ld3(v, n + 1)));
     if (n >= 1) vadd(o, mTvec(ld9(p.U, n - 1), ld3(v, n - 1)));
+    const float* LA = p.lA ? p.lA : w.Aij + 9LL * p.c;
     for (int q = p.csr_ptr[n]; q < p.csr_ptr[n + 1]; ++q) {
       const int ent = p.csr_ent[q];
       const int l = ent >> 1;
-      const M3 A = ld9(w.Aij, (long long)p.c + l);
+      const M3 A = ld9(LA, l);
       if (ent & 1) vadd(o, mTvec(A, ld3(v, p.li[l])));  // node is j: A^T v_i
       else vadd(o, mvec(A, ld3(v, p.lj[l])));           // node is i: A v_j
     }
@@ -587,10 +622,87 @@ __global__ void k_cg_direction(GnProblem p, Ws w, int it, int init) {
   st3(w.p, n, pv);
 }
 
-__global__ void k_retract(GnProblem p) {
+// out = poses * Exp(x); out may be poses itself (each thread owns its node).
+__global__ void k_retract(GnProblem p, float* out) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= p.N) return;
-  st3(p.poses, n, se2_compose(ld3(p.poses, n), se2_exp(ld3(p.x, n))));
+  st3(out, n, se2_compose(ld3(p.poses, n), se2_exp(ld3(p.x, n))));
+}
+
+// Cost of `poses` (gn_kernel.py:651-690): squares on chain and prior rows,
+// Huber rho = 2 delta n - delta^2 (n = |rw|, where n > delta) on every loop
+// edge when delta > 0. Thread t takes chain edge t (t < c), loop edge t - c
+// (t < c + El) or the prior of node t - c - El; per-block partials go to
+// w.part_e and are summed in block order by k_lm_decide / k_cost_total.
+__global__ void k_chi2(GnProblem p, Ws w, const float* poses) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  float e = 0.f;
+  if (t < p.c) {
+    const V3 rw = residual_edge(ld3(poses, t), ld3(poses, t + 1), ld3(p.cz, t), ld9(p.cR, t));
+    e = vdot(rw, rw);
+  } else if (t < p.c + p.El) {
+    const int l = t - p.c;
+    const V3 rw = residual_edge(ld3(poses, p.li[l]), ld3(poses, p.lj[l]), ld3(p.lz, l),
+                                ld9(p.lR, l));
+    e = vdot(rw, rw);
+    if (p.huber_delta > 0.f) {
+      const float nrm = sqrtf(fmaxf(e, 1e-24f));
+      if (!(nrm <= p.huber_delta)) e = 2.f * p.huber_delta * nrm - p.huber_delta * p.huber_delta;
+    }
+  } else if (t < p.c + p.El + p.N) {
+    const int n = t - p.c - p.El;
+    const V3 rp = mvec(ld9(p.pR, n), se2_log(se2_between(ld3(p.pz, n), ld3(poses, n))));
+    e = vdot(rp, rp);
+  }
+  block_sum_to(e, w.part_e);
+}
+
+__device__ __forceinline__ float cost_total(const GnProblem& p, const Ws& w) {
+  float acc = 0.f;
+  const int nb = n_blocks((long long)p.c + p.El + p.N);
+  for (int i = 0; i < nb; ++i) acc += w.part_e[i];
+  return acc;
+}
+
+// One thread: the cost from k_chi2's partials into out[0].
+__global__ void k_cost_total(GnProblem p, Ws w, float* out) { out[0] = cost_total(p, w); }
+
+struct LmParams {
+  float lam0, lam_factor, lam_min, lam_max, abs_tol, rel_tol;
+};
+
+// One thread: stats = [chi2(poses0), lam0, 0, 0].
+__global__ void k_lm_init(GnProblem p, Ws w, LmParams q) {
+  p.stats[0] = cost_total(p, w);
+  p.stats[1] = q.lam0;
+  p.stats[2] = 0.f;
+  p.stats[3] = 0.f;
+}
+
+// One thread: accept or reject the candidate whose cost k_chi2 just summed
+// (gn_kernel.py:927-944). A NaN cost rejects; conv latches the _lm_loop
+// test with lam before its update.
+__global__ void k_lm_decide(GnProblem p, Ws w, LmParams q) {
+  const float new_err = cost_total(p, w);
+  const float err = p.stats[0], lam = p.stats[1];
+  const bool accepted = new_err < err;
+  const float dec = err - new_err;
+  const bool conv = p.stats[3] != 0.f ||
+                    (accepted && (dec < q.abs_tol || dec < q.rel_tol * err)) ||
+                    lam >= q.lam_max;
+  p.stats[0] = accepted ? new_err : err;
+  p.stats[1] = accepted ? fmaxf(lam / q.lam_factor, q.lam_min)
+                        : fminf(lam * q.lam_factor, q.lam_max);
+  p.stats[2] += accepted ? 1.f : 0.f;
+  p.stats[3] = conv ? 1.f : 0.f;
+  w.acc[0] = accepted ? 1.f : 0.f;
+}
+
+// poses <- candidate where the last step was accepted.
+__global__ void k_lm_select(GnProblem p, Ws w) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N || w.acc[0] == 0.f) return;
+  st3(p.poses, n, ld3(w.cand, n));
 }
 
 // ---------------------------------------------------------------------------
@@ -672,8 +784,14 @@ int run_cg(const GnProblem& p, const Ws& w, int cg_iters, int warm, cudaStream_t
   return 0;
 }
 
-int run_retract(const GnProblem& p, cudaStream_t s) {
-  k_retract<<<n_blocks(p.N), kThreads, 0, s>>>(p);
+int run_retract(const GnProblem& p, float* out, cudaStream_t s) {
+  k_retract<<<n_blocks(p.N), kThreads, 0, s>>>(p, out);
+  GN_CHECK();
+  return 0;
+}
+
+int run_chi2(const GnProblem& p, const Ws& w, const float* poses, cudaStream_t s) {
+  k_chi2<<<n_blocks((long long)p.c + p.El + p.N), kThreads, 0, s>>>(p, w, poses);
   GN_CHECK();
   return 0;
 }
@@ -705,7 +823,60 @@ int gn_cg(const GnProblem* p, int cg_iters, int warm) {
   return run_cg(*p, ws_of(*p), cg_iters, warm, (cudaStream_t)p->stream);
 }
 
-int gn_retract(const GnProblem* p) { return run_retract(*p, (cudaStream_t)p->stream); }
+int gn_retract(const GnProblem* p) { return run_retract(*p, p->poses, (cudaStream_t)p->stream); }
+
+int gn_problem_size() { return (int)sizeof(GnProblem); }
+
+// The cost of `poses` (N, 3) into out[0]: K1's LM cost pass on its own.
+int gn_chi2(const GnProblem* pp, const float* poses, float* out) {
+  const GnProblem& p = *pp;
+  const Ws w = ws_of(p);
+  const cudaStream_t s = (cudaStream_t)p.stream;
+  GN_TRY(run_chi2(p, w, poses, s));
+  k_cost_total<<<1, 1, 0, s>>>(p, w, out);
+  GN_CHECK();
+  return 0;
+}
+
+// K3: exact-K PCR factor and a cold CG of cg_iters on the caller's D, U, b
+// and loop blocks p->lA; the solution lands in p->x.
+int gn_pcg(const GnProblem* pp, int cg_iters) {
+  const GnProblem& p = *pp;
+  if (cg_iters > p.cg_max) return (int)cudaErrorInvalidValue;
+  const Ws w = ws_of(p);
+  const cudaStream_t s = (cudaStream_t)p.stream;
+  GN_TRY(run_factor(p, w, s));
+  return run_cg(p, w, cg_iters, 0, s);
+}
+
+// K1's LM mode (gn_kernel.py:911-946): `iterations` damped steps, each a
+// cold CG of cg_iters, a candidate, its cost and the accept/reject; the
+// stats [chi2, lam, n_acc, conv] stay in p->stats. No host synchronization.
+int gn_lm_solve(const GnProblem* pp, int iterations, int cg_iters, float lam0,
+                float lam_factor, float lam_min, float lam_max, float abs_tol,
+                float rel_tol) {
+  const GnProblem& p = *pp;
+  if (cg_iters > p.cg_max || !p.stats || p.lA) return (int)cudaErrorInvalidValue;
+  const Ws w = ws_of(p);
+  const cudaStream_t s = (cudaStream_t)p.stream;
+  const LmParams q{lam0, lam_factor, lam_min, lam_max, abs_tol, rel_tol};
+  const int nb = n_blocks(p.N);
+  GN_TRY(run_chi2(p, w, p.poses, s));
+  k_lm_init<<<1, 1, 0, s>>>(p, w, q);
+  GN_CHECK();
+  for (int i = 0; i < iterations; ++i) {
+    GN_TRY(run_system(p, w, s));
+    GN_TRY(run_factor(p, w, s));
+    GN_TRY(run_cg(p, w, cg_iters, 0, s));
+    GN_TRY(run_retract(p, w.cand, s));
+    GN_TRY(run_chi2(p, w, w.cand, s));
+    k_lm_decide<<<1, 1, 0, s>>>(p, w, q);
+    GN_CHECK();
+    k_lm_select<<<nb, kThreads, 0, s>>>(p, w);
+    GN_CHECK();
+  }
+  return 0;
+}
 
 // Whole solve: phases of (iterations, cg_iters); x starts at zero and, with
 // warm, seeds each CG from the previous GN step's dx.
@@ -722,7 +893,7 @@ int gn_solve(const GnProblem* pp, int n_phases, const int* phase_iters, const in
       GN_TRY(run_system(p, w, s));
       GN_TRY(run_factor(p, w, s));
       GN_TRY(run_cg(p, w, phase_cg[ph], warm, s));
-      GN_TRY(run_retract(p, s));
+      GN_TRY(run_retract(p, p.poses, s));
     }
   }
   return 0;

@@ -1,7 +1,8 @@
-"""Fused SE(2) Gauss-Newton: the whole GN iteration in a hand-written CUDA kernel.
+"""Fused SE(2) Gauss-Newton and Levenberg-Marquardt in a hand-written CUDA kernel.
 
 Replaces graphslam_tpu/ops/gn_kernel.py::_gn_kernel (the Pallas kernel
-reached through `fused_gn_solve`, mode "gn_fused"). Each GN iteration:
+reached through `fused_gn_solve`, mode "gn_fused", and through
+`fused_lm_solve`, its LM mode). Each GN iteration:
 
   linearize chain, prior and loop edges     one thread per edge
   assemble block-tridiagonal D/U and g      one thread per node; loop edges
@@ -14,6 +15,12 @@ reached through `fused_gn_solve`, mode "gn_fused"). Each GN iteration:
                                             two-pass block reductions; alpha
                                             and beta stay on the device
   right retraction                          one thread per node
+
+An LM iteration (`fused_lm_solve`) damps D's diagonal by (1 + lam), runs a
+cold CG, retracts into a candidate, takes the candidate's cost (squares on
+chain and prior rows, Huber on every loop edge when huber_delta > 0) and
+accepts or rejects it with the lambda schedule, all on the device: lam and
+the stats [chi2, lam, accepted steps, converged] never reach the host.
 
 The CUDA source is csrc/gn_kernel.cu (plain C interface, built with nvcc by
 ops/_build.py, called through ctypes). The host loop over GN and CG
@@ -119,16 +126,21 @@ def loop_csr(pk: PackedGraph) -> Tuple[torch.Tensor, torch.Tensor]:
     are left out, after ptr[N]: the online graph's ~1000 masked loop slots
     all end on one node, whose thread would otherwise walk them one by one
     in every H@v. Built on the device without a host round trip."""
-    El, dev = pk.El, pk.loop_i.device
-    live = torch.cat([pk.loop_mask, pk.loop_mask])
-    node = torch.where(live, torch.cat([pk.loop_i, pk.loop_j]).long(), pk.N)
+    return edge_csr(pk.loop_i, pk.loop_j, pk.loop_mask, pk.N)
+
+
+def edge_csr(li: torch.Tensor, lj: torch.Tensor, live: torch.Tensor, N: int):
+    """`loop_csr` of edges (li, lj) keeping those where `live` holds."""
+    El, dev = li.shape[0], li.device
+    live = torch.cat([live, live])
+    node = torch.where(live, torch.cat([li, lj]).long(), N)
     code = torch.cat([
         2 * torch.arange(El, device=dev), 2 * torch.arange(El, device=dev) + 1
     ])
     order = torch.argsort(node * (2 * El) + code)
-    counts = torch.zeros(pk.N + 1, dtype=torch.long, device=dev)
+    counts = torch.zeros(N + 1, dtype=torch.long, device=dev)
     counts.index_add_(0, node, torch.ones_like(node))
-    ptr = torch.zeros(pk.N + 1, dtype=torch.long, device=dev)
+    ptr = torch.zeros(N + 1, dtype=torch.long, device=dev)
     ptr[1:] = torch.cumsum(counts[:-1], 0)
     return ptr.to(torch.int32), code[order].to(torch.int32).contiguous()
 
@@ -230,10 +242,10 @@ class GnSystem(NamedTuple):
 
 
 def system_reference(
-    poses: torch.Tensor, pk: PackedGraph, huber_delta: float = -1.0
+    poses: torch.Tensor, pk: PackedGraph, huber_delta: float = -1.0, lam=None
 ) -> GnSystem:
-    """Linearize and assemble (gn_kernel.py:697-768). GN mode: no Marquardt
-    damping (the TPU kernel's D_ii * (1 + lam) has lam = 0 there)."""
+    """Linearize and assemble (gn_kernel.py:697-771). With lam (LM mode) D's
+    diagonal is scaled by (1 + lam); GN mode (lam None) has no damping."""
     N, c = pk.N, pk.c
     D = torch.zeros((N, 3, 3), dtype=poses.dtype, device=poses.device)
     g = torch.zeros((N, 3), dtype=poses.dtype, device=poses.device)
@@ -259,7 +271,15 @@ def system_reference(
         Aii, Aij_loop, Ajj, gi, gj = _outer(Jiw, Jjw, rw)
         D.index_add_(0, li, Aii).index_add_(0, lj, Ajj)
         g.index_add_(0, li, gi).index_add_(0, lj, gj)
+    if lam is not None:
+        D = _damp(D, lam)
     return GnSystem(D=D, U=U, b=-g, Aij_loop=Aij_loop)
+
+
+def _damp(D: torch.Tensor, lam) -> torch.Tensor:
+    """D with its diagonal entries times (1 + lam), as the kernel scales them."""
+    eye = torch.eye(3, dtype=torch.bool, device=D.device)
+    return torch.where(eye, D * (1.0 + lam), D)
 
 
 def _ridge(D: torch.Tensor, eps: float) -> torch.Tensor:
@@ -375,17 +395,87 @@ def fused_gn_solve_reference(
     return poses
 
 
+def _residual(xi, xj, z, R):
+    """Whitened between residual, no Jacobians (gn_kernel.py:582-587)."""
+    return _mv(R, _log(_between(z, _between(xi, xj))))
+
+
+def chi2_reference(poses: torch.Tensor, pk: PackedGraph, huber_delta: float = -1.0):
+    """The LM mode's cost (gn_kernel.py:651-690): squares on chain and prior
+    rows, Huber rho on every loop edge when huber_delta > 0. A () tensor."""
+    c = pk.c
+    e = torch.zeros((), dtype=poses.dtype, device=poses.device)
+    if c > 0:
+        rw = _residual(poses[:c], poses[1 : c + 1], pk.chain_z, pk.chain_R)
+        e = e + torch.sum(rw * rw)
+    rp = _mv(pk.prior_R, _log(_between(pk.prior_z, poses)))
+    e = e + torch.sum(rp * rp)
+    if pk.El > 0:
+        rw = _residual(poses[pk.loop_i.long()], poses[pk.loop_j.long()], pk.loop_z, pk.loop_R)
+        et = torch.sum(rw * rw, -1)
+        if huber_delta > 0.0:
+            n = torch.sqrt(torch.clamp(et, min=1e-24))
+            et = torch.where(n <= huber_delta, et, 2.0 * huber_delta * n - huber_delta**2)
+        e = e + torch.sum(et)
+    return e
+
+
+def fused_lm_solve_reference(
+    poses0: torch.Tensor,
+    graph,
+    iterations: int = 30,
+    cg_iters: int = 25,
+    huber_delta: float = -1.0,
+    lam0: float = 1e-5,
+    lam_factor: float = 10.0,
+    lam_min: float = 1e-10,
+    lam_max: float = 1e7,
+    pcr_levels: Optional[int] = None,
+    edge_tile=None,
+    hvp_splits=None,
+    abs_tol: float = 1e-9,
+    rel_tol: float = 1e-6,
+):
+    """Plain torch twin of the kernel's LM mode (gn_kernel.py:911-946), same
+    arguments and result: (poses, chi2, lam, accepted steps, converged), the
+    last four () float tensors. No host read."""
+    N = poses0.shape[0]
+    pk = pack_graph(graph, N)
+    K = pcr_levels_for(N, pcr_levels)
+    dtype, dev = poses0.dtype, poses0.device
+    poses = poses0
+    err = chi2_reference(poses, pk, huber_delta)
+    lam = torch.tensor(lam0, dtype=dtype, device=dev)
+    n_acc = torch.zeros((), dtype=dtype, device=dev)
+    conv = torch.zeros((), dtype=torch.bool, device=dev)
+    for _ in range(iterations):
+        sysm = system_reference(poses, pk, huber_delta, lam)
+        x = cg_reference(sysm, pk, pcr_factor_reference(sysm.D, sysm.U, K), cg_iters)
+        cand = retract_reference(poses, x)
+        new_err = chi2_reference(cand, pk, huber_delta)
+        accepted = new_err < err
+        poses = torch.where(accepted, cand, poses)
+        dec = err - new_err
+        conv = conv | (accepted & ((dec < abs_tol) | (dec < rel_tol * err))) | (lam >= lam_max)
+        lam = torch.where(accepted, torch.clamp(lam / lam_factor, min=lam_min),
+                          torch.clamp(lam * lam_factor, max=lam_max))
+        err = torch.where(accepted, new_err, err)
+        n_acc = n_acc + accepted.to(dtype)
+    return poses, err, lam, n_acc, conv.to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel (csrc/gn_kernel.cu) through ctypes
 # ---------------------------------------------------------------------------
 
 
 class _Problem(ctypes.Structure):
-    """Mirror of `struct GnProblem` in csrc/gn_kernel.cu (same field order)."""
+    """Mirror of `struct GnProblem` in csrc/gn_kernel.cu (same field order;
+    `_lib` checks the size against the C side's gn_problem_size())."""
 
     _fields_ = [(f, ctypes.c_void_p) for f in (
         "poses", "cz", "cR", "pz", "pR", "li", "lj", "lz", "lR",
-        "csr_ptr", "csr_ent", "D", "U", "b", "x", "ws", "stream",
+        "csr_ptr", "csr_ent", "D", "U", "b", "x", "ws", "lA", "stats", "stream",
     )] + [(f, ctypes.c_int) for f in ("N", "c", "El", "K", "cg_max")] + [
         (f, ctypes.c_float) for f in ("eps", "huber_delta")
     ]
@@ -398,18 +488,38 @@ def _lib():
     P = ctypes.POINTER(_Problem)
     lib.gn_ws_floats.argtypes = [ctypes.c_int] * 5
     lib.gn_ws_floats.restype = ctypes.c_longlong
+    lib.gn_problem_size.argtypes = []
+    lib.gn_problem_size.restype = ctypes.c_int
     for fn, extra in (
         ("gn_system", []), ("gn_factor", []), ("gn_retract", []),
         ("gn_precond", [ctypes.c_void_p, ctypes.c_void_p]),
         ("gn_cg", [ctypes.c_int, ctypes.c_int]),
         ("gn_solve", [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]),
+        ("gn_chi2", [ctypes.c_void_p, ctypes.c_void_p]),
+        ("gn_pcg", [ctypes.c_int]),
+        ("gn_lm_solve", [ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 6),
     ):
         f = getattr(lib, fn)
         f.argtypes = [P] + extra
         f.restype = ctypes.c_int
     lib.gn_error_string.argtypes = [ctypes.c_int]
     lib.gn_error_string.restype = ctypes.c_char_p
+    if lib.gn_problem_size() != ctypes.sizeof(_Problem):
+        raise RuntimeError(
+            f"struct GnProblem is {lib.gn_problem_size()} bytes in csrc/gn_kernel.cu but "
+            f"{ctypes.sizeof(_Problem)} in ops/gn_kernel.py::_Problem: the fields differ"
+        )
     return lib
+
+
+def call(lib, prob: _Problem, device: torch.device, fn: str, *args) -> None:
+    """Run lib.<fn>(&prob, *args) on the device's current stream; raise on a
+    CUDA error."""
+    prob.stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib, fn)(ctypes.byref(prob), *args)
+    if rc != 0:
+        msg = lib.gn_error_string(rc).decode()
+        raise RuntimeError(f"gn_kernel.{fn} failed: CUDA error {rc} ({msg})")
 
 
 def _check_f32(name: str, t: torch.Tensor, shape, device) -> None:
@@ -423,14 +533,16 @@ def _check_f32(name: str, t: torch.Tensor, shape, device) -> None:
 class GnKernel:
     """One packed problem on the card with the kernel's buffers.
 
-    `solve` runs whole GN phases; `system`, `factor`, `precond`, `cg` and
-    `retract` run one stage each on the same buffers, so that a check can
-    hold every stage against its plain twin. Results: D, U (N,3,3), b, x
-    (N,3) and poses (N,3), updated in place.
+    `solve` runs whole GN phases and `lm_solve` LM iterations; `system`,
+    `factor`, `precond`, `cg`, `retract` and `chi2` run one stage each on
+    the same buffers, so that a check can hold every stage against its plain
+    twin. Results: D, U (N,3,3), b, x (N,3), poses (N,3) and, with lm, the
+    stats [chi2, lam, accepted steps, converged] (4,), updated in place.
+    With lm, `system` damps D's diagonal by (1 + stats[1]).
     """
 
     def __init__(self, poses: torch.Tensor, graph, huber_delta: float = -1.0,
-                 pcr_levels: Optional[int] = None, cg_max: int = 25):
+                 pcr_levels: Optional[int] = None, cg_max: int = 25, lm: bool = False):
         if poses.device.type != "cuda":
             raise ValueError(f"GnKernel needs CUDA tensors, got {poses.device}")
         if graph.tangent_dim != 3 or poses.ndim != 2 or poses.shape[1] != 3:
@@ -454,6 +566,7 @@ class GnKernel:
         self.U = torch.empty_like(self.D)
         self.b = torch.empty((N, 3), dtype=torch.float32, device=dev)
         self.x = torch.zeros_like(self.b)
+        self.stats = torch.zeros(4, dtype=torch.float32, device=dev) if lm else None
         n_ws = self.lib.gn_ws_floats(N, self.pk.c, self.pk.El, self.K, self.cg_max)
         self.ws = torch.empty(int(n_ws), dtype=torch.float32, device=dev)
         pk = self.pk
@@ -469,16 +582,12 @@ class GnKernel:
                 pk.loop_i, pk.loop_j, pk.loop_z, pk.loop_R,
                 self.csr_ptr, self.csr_ent, self.D, self.U, self.b, self.x, self.ws,
             )),
-            None, N, pk.c, pk.El, self.K, self.cg_max,
-            _EPS, float(huber_delta),
+            None, self.stats.data_ptr() if lm else None, None,
+            N, pk.c, pk.El, self.K, self.cg_max, _EPS, float(huber_delta),
         )
 
     def _call(self, fn: str, *args) -> None:
-        self.prob.stream = torch.cuda.current_stream(self.poses.device).cuda_stream
-        rc = getattr(self.lib, fn)(ctypes.byref(self.prob), *args)
-        if rc != 0:
-            msg = self.lib.gn_error_string(rc).decode()
-            raise RuntimeError(f"gn_kernel.{fn} failed: CUDA error {rc} ({msg})")
+        call(self.lib, self.prob, self.poses.device, fn, *args)
 
     def system(self) -> None:
         self._call("gn_system")
@@ -509,6 +618,26 @@ class GnKernel:
         self._call("gn_solve", len(phases), ctypes.addressof(n_arr),
                    ctypes.addressof(cg_arr), int(warm_start))
         return self.poses
+
+    def chi2(self, poses: torch.Tensor) -> torch.Tensor:
+        """The LM cost of `poses` (N, 3) on the card, a (1,) tensor."""
+        _check_f32("poses", poses, self.poses.shape, self.poses.device)
+        poses = poses.contiguous()
+        out = torch.empty(1, dtype=torch.float32, device=poses.device)
+        self._call("gn_chi2", poses.data_ptr(), out.data_ptr())
+        return out
+
+    def lm_solve(self, iterations: int, cg_iters: int, lam0: float, lam_factor: float,
+                 lam_min: float, lam_max: float, abs_tol: float, rel_tol: float) -> torch.Tensor:
+        """`iterations` LM steps from the current poses; returns the stats."""
+        if self.stats is None:
+            raise ValueError("lm_solve needs a GnKernel built with lm=True")
+        if not 0 <= cg_iters <= self.cg_max or iterations < 0:
+            raise ValueError(f"cg_iters {cg_iters} outside [0, {self.cg_max}] "
+                             f"or iterations {iterations} < 0")
+        self._call("gn_lm_solve", int(iterations), int(cg_iters), *(
+            float(v) for v in (lam0, lam_factor, lam_min, lam_max, abs_tol, rel_tol)))
+        return self.stats
 
 
 def fused_gn_solve(
@@ -547,3 +676,47 @@ def fused_gn_solve(
 
 
 fused_gn_solve.launches = 0
+
+
+def fused_lm_solve(
+    poses0: torch.Tensor,
+    graph,
+    iterations: int = 30,
+    cg_iters: int = 25,
+    huber_delta: float = -1.0,
+    lam0: float = 1e-5,
+    lam_factor: float = 10.0,
+    lam_min: float = 1e-10,
+    lam_max: float = 1e7,
+    pcr_levels: Optional[int] = None,
+    edge_tile=None,
+    hvp_splits=None,
+    abs_tol: float = 1e-9,
+    rel_tol: float = 1e-6,
+):
+    """Full Levenberg-Marquardt of an SE(2) graph: `iterations` damped steps,
+    each accepted or rejected on its Huber-robustified cost, with the lambda
+    schedule (graphslam_tpu gn_kernel.py:1157).
+
+    Returns (poses (N, 3), chi2, lam, accepted steps, converged), the last
+    four () float32 tensors on the poses' device; nothing is read back to
+    the host. converged latches _lm_loop's test (a small accepted decrease
+    per abs_tol / rel_tol, or lam at lam_max); there is no early exit.
+    CUDA tensors go through the hand-written kernel, one ctypes call with
+    no host synchronization inside; CPU tensors through
+    `fused_lm_solve_reference`. edge_tile and hvp_splits are TPU layout
+    knobs, accepted and ignored.
+    """
+    kw = dict(iterations=iterations, cg_iters=cg_iters, huber_delta=huber_delta, lam0=lam0,
+              lam_factor=lam_factor, lam_min=lam_min, lam_max=lam_max,
+              abs_tol=abs_tol, rel_tol=rel_tol)
+    if poses0.device.type == "cpu":
+        return fused_lm_solve_reference(poses0, graph, pcr_levels=pcr_levels, **kw)
+    kern = GnKernel(poses0, graph, huber_delta, pcr_levels, cg_max=max(cg_iters, 0), lm=True)
+    stats = kern.lm_solve(iterations, cg_iters, lam0, lam_factor, lam_min, lam_max,
+                          abs_tol, rel_tol)
+    fused_lm_solve.launches += 1
+    return kern.poses, stats[0], stats[1], stats[2], stats[3]
+
+
+fused_lm_solve.launches = 0

@@ -1,19 +1,27 @@
-"""Parallel cyclic reduction (PCR) of the block-tridiagonal chain system.
+"""Parallel cyclic reduction (PCR) and the fused whole-CG-loop kernel (K3).
 
-Port of the plain half of graphslam_tpu/ops/pcg_kernel.py: `pcr_factor` and
-`pcr_apply_reference`. Unlike the folding cyclic reduction in
-solver/tridiag.py, PCR keeps every row in place and eliminates neighbours at
-doubling distances h = 2^k; each step is two shifted block products.
+Port of graphslam_tpu/ops/pcg_kernel.py. `pcr_factor` and
+`pcr_apply_reference` are the plain PCR: unlike the folding cyclic
+reduction in solver/tridiag.py, PCR keeps every row in place and eliminates
+neighbours at doubling distances h = 2^k; each step is two shifted block
+products.
 
-The fused whole-CG-loop kernel of that module (K3, `fused_pcg_solve`, mode
-"pcg_fused") is not ported yet: it is queued in ROADMAP.md, and will wrap
-the CG stage of the fused GN kernel (ops/gn_kernel.py, csrc/gn_kernel.cu).
+`fused_pcg_solve` (mode "pcg_fused", the inner solve of solver/lm.py's
+_lm_loop) replaces the Pallas kernel pcg_kernel.py::_kernel: exact PCR
+(K = ceil(log2 N)) with the fused GN kernel's ridge and adjugate inverse,
+then a fixed count of guarded CG iterations on an assembled SE(2)
+BlockSystem. For CUDA tensors it runs `gn_pcg` of csrc/gn_kernel.cu, the
+same PCR and CG launches as the fused GN kernel (ops/gn_kernel.py) on a D
+damped here in torch, as the JAX package damps in XLA; for CPU tensors its
+plain twin `fused_pcg_solve_reference`. Loop edges whose block is all zero
+(masked slots of the online graph) add exactly zero to H@v and are left out
+of the kernel's CSR.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -94,3 +102,117 @@ def pcr_apply_reference(A, G, Dinv, b):
             - torch.einsum("nij,nj->ni", G[k], _shift_blocks(b, -h))
         )
     return torch.einsum("nij,nj->ni", Dinv, b)
+
+
+# ---------------------------------------------------------------------------
+# K3: the fused PCR-preconditioned CG (graphslam_tpu pcg_kernel.py:399)
+# ---------------------------------------------------------------------------
+
+
+class _Loops(NamedTuple):
+    """The loop-edge view that ops/gn_kernel.py's hvp_reference reads."""
+
+    loop_i: torch.Tensor
+    loop_j: torch.Tensor
+    El: int
+
+
+def _chain_and_loops(sys, lam, lm_diag_scaling: bool, chain_prefix: int):
+    """(damped D, chain U, b, loop i, loop j, loop blocks) of a BlockSystem:
+    U[k] = Aij[k] for the chain edges k < c = min(chain_prefix, N-1), which
+    couple (k, k+1); every later edge is a loop edge."""
+    from graphslam_tpu_torch.solver.normal_eq import _damped_diag
+
+    N, T = sys.g.shape
+    if T != 3:
+        raise ValueError(f"fused_pcg_solve supports T=3 (SE(2)) only, got T={T}")
+    c = min(chain_prefix, N - 1)
+    U = torch.zeros((N, 3, 3), dtype=sys.g.dtype, device=sys.g.device)
+    U[:c] = sys.Aij[:c]
+    D = _damped_diag(sys, lam, lm_diag_scaling)
+    li = sys.edges[c:, 0].to(torch.int32).contiguous()
+    lj = sys.edges[c:, 1].to(torch.int32).contiguous()
+    return D, U, -sys.g, li, lj, sys.Aij[c:]
+
+
+def fused_pcg_solve_reference(sys, lam, max_iters: int = 25, lm_diag_scaling: bool = True,
+                              chain_prefix: int = 0) -> torch.Tensor:
+    """Plain torch twin of K3, same arguments and result dx (N, 3): exact
+    PCR with the fused GN kernel's ridge and inverse
+    (ops/gn_kernel.py::pcr_factor_reference), then `cg_reference`."""
+    from graphslam_tpu_torch.ops import gn_kernel as gk
+
+    D, U, b, li, lj, A = _chain_and_loops(sys, lam, lm_diag_scaling, chain_prefix)
+    sysm = gk.GnSystem(D=D, U=U, b=b, Aij_loop=A)
+    factor = gk.pcr_factor_reference(D, U, pcr_levels_for(D.shape[0], None))
+    return gk.cg_reference(sysm, _Loops(li, lj, li.shape[0]), factor, max_iters)
+
+
+def live_loops(A: torch.Tensor) -> torch.Tensor:
+    """Loop edges whose (E, 3, 3) block is not all zero: K3's CSR holds
+    only these."""
+    return A.flatten(1).ne(0).any(1)
+
+
+def fused_pcg_solve(sys, lam, max_iters: int = 25, lm_diag_scaling: bool = True,
+                    chain_prefix: int = 0) -> torch.Tensor:
+    """Drop-in for pcg_solve(..., preconditioner="tridiag") with a fixed
+    iteration count and exact PCR: dx (N, 3) of (H + damping) dx = -g for an
+    SE(2) BlockSystem whose first chain_prefix edges are (k, k+1).
+
+    CUDA tensors go through K3 (`PcgKernel`), CPU tensors through
+    `fused_pcg_solve_reference`."""
+    if sys.g.device.type == "cpu":
+        return fused_pcg_solve_reference(sys, lam, max_iters, lm_diag_scaling, chain_prefix)
+    x = PcgKernel(*_chain_and_loops(sys, lam, lm_diag_scaling, chain_prefix), max_iters).solve()
+    fused_pcg_solve.launches += 1
+    return x
+
+
+fused_pcg_solve.launches = 0
+
+
+class PcgKernel:
+    """K3's problem on the card (csrc/gn_kernel.cu `gn_pcg`) with its
+    buffers: exact-K PCR of the chain system (D (N,3,3) damped, U (N,3,3)),
+    then max_iters cold guarded CG iterations with the loop blocks A
+    (El,3,3) of edges (li, lj), on b (N,3). `solve` launches it and returns
+    x (N,3). No host read: the edge ids are checked on the device
+    (`torch._assert_async`). Raises for tensors not on a CUDA device."""
+
+    def __init__(self, D, U, b, li, lj, A, max_iters: int):
+        from graphslam_tpu_torch.ops import gn_kernel as gk
+
+        N, dev = D.shape[0], D.device
+        if dev.type != "cuda":
+            raise ValueError(f"PcgKernel needs CUDA tensors, got {dev}")
+        if max_iters < 0:
+            raise ValueError(f"max_iters {max_iters} < 0")
+        El = li.shape[0]
+        for name, t, shape in (("D", D, (N, 3, 3)), ("U", U, (N, 3, 3)), ("b", b, (N, 3)),
+                               ("Aij", A, (El, 3, 3))):
+            gk._check_f32(name, t, shape, dev)
+        for name, t in (("li", li), ("lj", lj)):
+            if t.device != dev or t.dtype != torch.int32 or tuple(t.shape) != (El,):
+                raise ValueError(f"{name}: expected int32 ({El},) on {dev}, got "
+                                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        # the kernel indexes by these without bounds checks
+        torch._assert_async(((li >= 0) & (li < N) & (lj >= 0) & (lj < N)).all())
+        self.gk, self.lib, self.device, self.max_iters = gk, gk._lib(), dev, int(max_iters)
+        self.ptr, self.ent = gk.edge_csr(li, lj, live_loops(A), N)
+        self.bufs = tuple(t.contiguous() for t in (D, U, b, A, li, lj))
+        D, U, b, A, li, lj = self.bufs
+        self.x = torch.empty((N, 3), dtype=torch.float32, device=dev)
+        K = pcr_levels_for(N, None)
+        self.ws = torch.empty(int(self.lib.gn_ws_floats(N, 0, El, K, self.max_iters)),
+                              dtype=torch.float32, device=dev)
+        self.prob = gk._Problem(
+            None, None, None, None, None, li.data_ptr(), lj.data_ptr(), None, None,
+            self.ptr.data_ptr(), self.ent.data_ptr(), D.data_ptr(), U.data_ptr(), b.data_ptr(),
+            self.x.data_ptr(), self.ws.data_ptr(), A.data_ptr(), None, None,
+            N, 0, El, K, self.max_iters, gk._EPS, -1.0,
+        )
+
+    def solve(self) -> torch.Tensor:
+        self.gk.call(self.lib, self.prob, self.device, "gn_pcg", self.max_iters)
+        return self.x

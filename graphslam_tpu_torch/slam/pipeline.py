@@ -205,15 +205,8 @@ def make_slam_step(cfg: SLAMConfig, use_kernels: Optional[bool] = None):
 
     def solve(poses0: torch.Tensor, graph: FactorGraph) -> torch.Tensor:
         mode = _solve_mode(scfg, poses0.shape[0])
-        if mode == "gn_fused" and use_kernels is False:
-            from graphslam_tpu_torch.ops.gn_kernel import fused_gn_solve_reference
-
-            return fused_gn_solve_reference(
-                poses0, graph, iterations=cfg.solve_iterations,
-                cg_iters=scfg.cg_max_iterations, pcr_levels=scfg.pcr_levels,
-                warm_start=scfg.cg_warm_start,
-            )
-        return _gn_loop(poses0, graph, scfg, mode, cfg.solve_iterations)
+        return _gn_loop(poses0, graph, scfg, mode, cfg.solve_iterations,
+                        use_kernel=use_kernels is not False)
 
     def step(
         state: SLAMState,

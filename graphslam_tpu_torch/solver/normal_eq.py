@@ -80,12 +80,14 @@ def build_blocks(lin: Linearization, graph: FactorGraph, num_poses: int) -> Bloc
     return BlockSystem(Aii=Aii, Aij=Aij, Ajj=Ajj, diag=diag, g=g, edges=graph.edges)
 
 
-def _damped_diag(sys: BlockSystem, lam):
-    """Marquardt damping: diag(H) scaled by (1 + lambda) on its diagonal."""
+def _damped_diag(sys: BlockSystem, lam, lm_diag_scaling: bool = True):
+    """LM damping: lambda * diag(H) (Marquardt) or lambda * I."""
     T = sys.diag.shape[-1]
     eye = torch.eye(T, dtype=sys.diag.dtype, device=sys.diag.device)
-    d = torch.diagonal(sys.diag, dim1=-2, dim2=-1)
-    return sys.diag + lam * d[..., None] * eye
+    if lm_diag_scaling:
+        d = torch.diagonal(sys.diag, dim1=-2, dim2=-1)
+        return sys.diag + lam * d[..., None] * eye
+    return sys.diag + lam * eye
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +95,7 @@ def _damped_diag(sys: BlockSystem, lam):
 # ---------------------------------------------------------------------------
 
 
-def assemble_dense(sys: BlockSystem, lam) -> torch.Tensor:
+def assemble_dense(sys: BlockSystem, lam, lm_diag_scaling: bool = True) -> torch.Tensor:
     """Scatter the edge blocks into the full (N*T, N*T) damped Hessian."""
     N, T = sys.g.shape
     H = torch.zeros((N, N, T, T), dtype=sys.g.dtype, device=sys.g.device)
@@ -104,15 +106,15 @@ def assemble_dense(sys: BlockSystem, lam) -> torch.Tensor:
     H.index_put_((j_idx, i_idx), sys.Aij.transpose(-1, -2), accumulate=True)
     # Replace the block diagonal with the (prior-inclusive, damped) one.
     idx = torch.arange(N, device=H.device)
-    H[idx, idx] = _damped_diag(sys, lam)
+    H[idx, idx] = _damped_diag(sys, lam, lm_diag_scaling)
     Hf = H.permute(0, 2, 1, 3).reshape(N * T, N * T)
     return Hf + 1e-10 * torch.eye(N * T, dtype=Hf.dtype, device=Hf.device)
 
 
-def dense_solve(sys: BlockSystem, lam) -> torch.Tensor:
+def dense_solve(sys: BlockSystem, lam, lm_diag_scaling: bool = True) -> torch.Tensor:
     """Assemble the full damped Hessian and Cholesky-solve. Returns dx (N, T)."""
     N, T = sys.g.shape
-    L = torch.linalg.cholesky(assemble_dense(sys, lam))
+    L = torch.linalg.cholesky(assemble_dense(sys, lam, lm_diag_scaling))
     rhs = -sys.g.reshape(N * T, 1)
     return torch.cholesky_solve(rhs, L).reshape(N, T)
 
@@ -163,9 +165,17 @@ def _inv3x3(A: torch.Tensor) -> torch.Tensor:
 
 
 def _block_inv(blocks: torch.Tensor) -> torch.Tensor:
-    """Batched SPD 3x3 inverse (closed form), with a 1e-8 ridge."""
+    """Batched SPD 2x2 or 3x3 inverse (closed forms), with a 1e-8 ridge."""
     T = blocks.shape[-1]
     A = blocks + 1e-8 * torch.eye(T, dtype=blocks.dtype, device=blocks.device)
+    if T == 2:
+        a, b = A[..., 0, 0], A[..., 0, 1]
+        c, d = A[..., 1, 0], A[..., 1, 1]
+        det = a * d - b * c
+        inv_det = 1.0 / torch.where(torch.abs(det) < 1e-20, torch.full_like(det, 1e-20), det)
+        row0 = torch.stack([d, -b], dim=-1)
+        row1 = torch.stack([-c, a], dim=-1)
+        return torch.stack([row0, row1], dim=-2) * inv_det[..., None, None]
     if T == 3:
         return _inv3x3(A)
     raise NotImplementedError(
@@ -178,6 +188,7 @@ def pcg_solve(
     lam,
     max_iters: int = 250,
     tol: float = 1e-8,
+    lm_diag_scaling: bool = True,
     preconditioner: str = "tridiag",
     chain_prefix: int = 0,
 ) -> torch.Tensor:
@@ -191,7 +202,7 @@ def pcg_solve(
     """
     from graphslam_tpu_torch.solver.tridiag import chain_offdiag, cr_factor, cr_solve
 
-    damped = _damped_diag(sys, lam)
+    damped = _damped_diag(sys, lam, lm_diag_scaling)
     b = -sys.g
 
     if preconditioner == "tridiag" and sys.g.shape[0] > 1:

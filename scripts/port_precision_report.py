@@ -20,6 +20,11 @@ prints one JSON line:
   surfel_covs      on the scan pair of tests/test_icp_kernel.py: the port's
                    surfel covariances against the JAX package's, with the
                    port's prefix sums (XLA's order) and with torch.cumsum
+  fused_pcg        on manhattan(n, loop_prob=0.25) graphs: 25 iterations
+                   of the JAX fused PCG kernel (interpret mode) and of the
+                   port's twin, each against the twin run in float64 on the
+                   same system, relative to the largest entry, at lam 0
+                   and 1e-3
 """
 
 import dataclasses
@@ -44,14 +49,20 @@ from graphslam_tpu.sim import simulate_trajectory as jsimulate  # noqa: E402
 from graphslam_tpu.slam import init_state as jinit_state  # noqa: E402
 from graphslam_tpu.slam import make_slam_step as jmake_slam_step  # noqa: E402
 from graphslam_tpu.slam import pipeline as jpipe  # noqa: E402
+from graphslam_tpu.factors import from_dataset as jfrom_dataset  # noqa: E402
+from graphslam_tpu.factors.linearize import linearize as jlinearize  # noqa: E402
+from graphslam_tpu.io import datasets  # noqa: E402
+from graphslam_tpu.ops.pcg_kernel import fused_pcg_solve as jfused_pcg_solve  # noqa: E402
+from graphslam_tpu.solver import normal_eq as jne  # noqa: E402
 from graphslam_tpu.solver.lm import _gn_loop as j_gn_loop  # noqa: E402
 from graphslam_tpu.solver.marginals import marginal_covariances_dense as jmarginals  # noqa: E402
 from graphslam_tpu_torch.config import FrontendConfig, SLAMConfig, SolverConfig  # noqa: E402
 from graphslam_tpu_torch.factors.linearize import linearize  # noqa: E402
 from graphslam_tpu_torch.frontend import icp  # noqa: E402
 from graphslam_tpu_torch.ops.gn_kernel import fused_gn_solve_reference  # noqa: E402
+from graphslam_tpu_torch.ops.pcg_kernel import fused_pcg_solve_reference  # noqa: E402
 from graphslam_tpu_torch.slam import pipeline, state as tstate  # noqa: E402
-from graphslam_tpu_torch.solver.normal_eq import assemble_dense, build_blocks  # noqa: E402
+from graphslam_tpu_torch.solver.normal_eq import BlockSystem, assemble_dense, build_blocks  # noqa: E402
 
 KW = dict(max_keyframes=128, max_factors=512, solve_iterations=4)
 JCFG = JSLAMConfig(frontend=JFrontendConfig(num_beams=361, max_points=384, icp_iterations=16),
@@ -85,7 +96,28 @@ def diag_blocks(inv: np.ndarray, n: int) -> np.ndarray:
     return np.stack([inv[k, :, k, :] for k in range(n)])
 
 
+def fused_pcg_report() -> dict:
+    out = {}
+    for n, seed in ((150, 0), (200, 0), (260, 0), (260, 1)):
+        jg = jfrom_dataset(datasets.manhattan(n_poses=n, loop_prob=0.25, seed=seed))
+        p = jnp.asarray(datasets.manhattan(n_poses=n, loop_prob=0.25, seed=seed)["poses"])
+        jsys = jne.build_blocks(jlinearize(p, jg), jg, n)
+        arrays = [np.array(a) for a in jsys]
+        for lam in (0.0, 1e-3):
+            kw = dict(max_iters=25, chain_prefix=jg.chain_prefix)
+            x64 = fused_pcg_solve_reference(BlockSystem(*(
+                torch.from_numpy(a).double() if a.dtype == np.float32 else torch.from_numpy(a)
+                for a in arrays)), torch.tensor(lam, dtype=torch.float64), **kw).numpy()
+            x32 = fused_pcg_solve_reference(BlockSystem(*(torch.from_numpy(a) for a in arrays)),
+                                            torch.tensor(lam), **kw).numpy()
+            xj = np.asarray(jfused_pcg_solve(jsys, jnp.float32(lam), interpret=True, **kw))
+            out[f"n{n}_seed{seed}_lam{lam:g}"] = {"jax_vs_f64": rel(xj, x64),
+                                                  "port_vs_f64": rel(x32, x64)}
+    return out
+
+
 def main() -> None:
+    pcg = fused_pcg_report()
     sim = jsimulate(JCFG.frontend, step_len=0.3, seed=9, odom_trans_sigma=0.02,
                     odom_rot_sigma=0.01)
     step = jmake_slam_step(JCFG)
@@ -150,7 +182,7 @@ def main() -> None:
               "torch_cumsum_max_abs": float(np.abs(with_cumsum - want).max())}
 
     print(json.dumps({"dense_marginals": dense, "loop_step": t, "loop_step_solve": solves,
-                      "surfel_covs": surfel}))
+                      "surfel_covs": surfel, "fused_pcg": pcg}))
 
 
 if __name__ == "__main__":

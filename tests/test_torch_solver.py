@@ -158,8 +158,10 @@ def test_gn_solve_auto_dispatch_and_unported_modes(small):
     auto = lm.gn_solve(p, tg, cfg, iterations=2)
     dense = lm._gn_loop(p, tg, cfg, "dense", 2)
     assert torch.equal(auto, dense)
-    with pytest.raises(NotImplementedError, match="pcg_fused"):
-        lm._gn_loop(p, tg, cfg, "pcg_fused", 1)
+    fused = lm._gn_loop(p, tg, cfg, "pcg_fused", 2)  # K3's twin on the CPU
+    assert wrapped_max(fused.numpy(), dense.numpy()) <= POSE_ATOL
+    with pytest.raises(ValueError, match="unknown solver mode"):
+        lm._gn_loop(p, tg, cfg, "cholmod", 1)
 
 
 def test_metrics_match(small):
