@@ -3,15 +3,16 @@
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
-It builds csrc/gn_kernel.cu and csrc/icp_kernel.cu with nvcc (in parallel),
-holds every kernel against its plain torch twin, drives the two slices of
-the port through the entry points a user calls, and times the kernel paths
-and the plain paths on the card. Phases, each failing with a traceback and
+It builds csrc/gn_kernel.cu, csrc/icp_kernel.cu and csrc/gn6_kernel.cu with
+nvcc (in parallel), holds every kernel against its plain torch twin, drives
+the slices of the port (SE(2) GN, the online pipeline, LM, SE(3)) through
+the entry points a user calls, and times the kernel paths and the plain
+paths on the card. Phases, each failing with a traceback and
 a nonzero exit:
 
   1. device info: card name and power limit (nvidia-smi), CUDA, nvcc,
      triton; float32 matmuls at "highest" precision, TF32 off
-  2. build both kernels from the checkout's sources
+  2. build the three kernel sources from the checkout
   3. fused GN kernel (K1) against its plain twin on manhattan(260):
      assembled D and b after one linearization (rel 1e-5), one PCR apply
      (rel 1e-4), one CG solve (rel 1e-3), and 5 whole GN iterations (wrapped
@@ -66,13 +67,39 @@ a nonzero exit:
      (its C entry on a prepared problem, and the whole wrapper) against its
      twin (CUDA events); launches per LM iteration by source and the idle
      share (profiler); host synchronizations per _lm_loop iteration
+ 12. SE(3) kernels against their twins (csrc/gn6_kernel.cu) on
+     sphere(10, 10) and on garage: K4's assembled D, U and b after one
+     linearization (rel 1e-5), one PCR apply (rel 1e-4), one CG solve (rel
+     1e-3); 5 GN iterations in the exact-PCR, pcr_levels=4, chain-only,
+     masked-edge and warm + ramp variants (max |d| over the 12 pose
+     entries <= 5e-3, the repo's SE(3) kernel-vs-XLA tolerance); K4-LM, 5
+     Huber steps (poses <= 8e-3, chi2 within 1%, accepted steps and
+     converged equal, its cost pass alone rel 1e-5); K5 at lam 0 and 1e-3
+     (rel 1e-3)
+ 13. the SE(3) main paths on cuda, scripts/bench_all.py's configs:
+     sphere2500 and garage through _gn_loop(mode="gn_fused") (K4, cg 25,
+     exact PCR, 20 iterations), and garage through lm_solve in modes
+     gn_fused (K4-LM) and pcg_fused (_lm_loop with K5), 20 steps, cg 25,
+     Huber 1.0. Gates from the JAX package's XLA runs of the same solves
+     on the CPU (scripts/se3_gate_jax.py): ATE < 0.2 m and within 0.02 m
+     of JAX's, chi2 within 2%; each kernel's launch count above 0 in its
+     own path; two runs each bitwise equal; sphere2500 5 GN iterations
+     kernel vs twin <= 5e-3
+ 14. SE(3) timing: sphere2500 and garage GN it/s through K4 in turns with
+     the twin on the card (median of 3 reps of back-to-back solves); garage
+     LM it/s through K4-LM (in turns with its twin) and through
+     _lm_loop(pcg_fused); K5 per call at garage (its C entry on a prepared
+     problem, and the whole wrapper) against its twin (CUDA events);
+     launches per iteration by source and the idle share (profiler)
 
 Before the last line it prints one JSON object describing the kernels
 (max_abs_err: gn_kernel the larger of its m3500 and replay-solve pose
 errors, icp_kernel gicp_match's delta through the kernel against the plain
 path, nn_kernel the distances at full width, gn_kernel_lm its largest pose
 error against the twin, pcg_kernel its largest dx error against the twin,
-and its "ms" is the C entry's, "ms_wrapper" the whole fused_pcg_solve's);
+and its "ms" is the C entry's, "ms_wrapper" the whole fused_pcg_solve's;
+gn6_kernel, gn6_kernel_lm and pcg6_kernel likewise from phases 12-14, with
+"ms" per sphere2500 GN solve, per garage LM solve and per K5 C-entry call);
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, it exits nonzero and prints no result.
@@ -81,6 +108,7 @@ without the package beside it, it exits nonzero and prints no result.
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -116,6 +144,19 @@ JAX_LM = {
     "fused": {"chi2": 5530.16357421875, "steps": 50, "ate": 0.29736045002937317},
     "loop": {"chi2": 5531.26416015625, "steps": 50, "ate": 0.2907252013683319},
 }
+
+# The JAX package's SE(3) solves on the CPU (scripts/se3_gate_jax.py, the XLA
+# path: mode "pcg", cg 25, cg_tol 0; jax 0.9.0). GN: 20 iterations, chi2
+# without a robust kernel; LM: lm_solve, 20 iterations, Huber 1.0 on loops.
+JAX_SE3 = {
+    "sphere2500_gn": {"chi2": 15126.3515625, "ate": 0.18779927492141724},
+    "garage_gn": {"chi2": 1629.3319091796875, "ate": 0.13828694820404053},
+    "garage_lm": {"chi2": 1477.469482421875, "ate": 0.1361154317855835, "steps": 20},
+}
+SE3_ATE_GATE_M = 0.2      # scripts/bench_all.py's sphere2500/garage gate
+SE3_CHI2_REL = 2e-2       # chi2 against JAX's XLA run
+TOL_SE3_POSES = 5e-3      # the repo's SE(3) kernel-vs-XLA tolerance (GN)
+TOL_SE3_LM_POSES = 8e-3   # the same for LM with Huber
 
 # H100 SXM peaks (HBM3 bandwidth, dense FP32 rate), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -176,7 +217,7 @@ def phase_build():
     from graphslam_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    built = _build.build_all(["gn_kernel", "icp_kernel"])
+    built = _build.build_all(["gn_kernel", "icp_kernel", "gn6_kernel"])
     log(f"built {len(built)} kernel libraries in parallel in {time.perf_counter() - t0:.2f} s")
     for lib, ptxas in built.values():
         log(f"  {lib.relative_to(ROOT)}")
@@ -902,9 +943,10 @@ def phase_lm_main(torch, datasets, from_dataset, chi2, metrics, lm, gk):
     return p0, g, sysm, out, e, ea3
 
 
-def _profile_launches(torch, fn):
+def _profile_launches(torch, fn, top: int = 0):
     """One profiled call of fn: ({source: (device launches, device ms)} for
-    gn_kernel.cu, torch ops and memcpy/memset, span ms)."""
+    gn_kernel.cu, gn6_kernel.cu, torch ops and memcpy/memset, span ms).
+    With top, logs the `top` kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -913,14 +955,25 @@ def _profile_launches(torch, fn):
         fn()
         torch.cuda.synchronize()
         span = time.perf_counter() - t0
-    groups = {"gn_kernel.cu": (0, 0.0), "torch ops": (0, 0.0), "memcpy/memset": (0, 0.0)}
+    groups = {"gn_kernel.cu": (0, 0.0), "gn6_kernel.cu": (0, 0.0), "torch ops": (0, 0.0),
+              "memcpy/memset": (0, 0.0)}
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", 0.0) or 0.0
         if dev_us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            g = ("gn_kernel.cu" if "GnProblem" in e.key else "memcpy/memset"
+            g = ("gn_kernel.cu" if "GnProblem" in e.key else "gn6_kernel.cu"
+                 if "Gn6Problem" in e.key else "memcpy/memset"
                  if e.key.startswith(("Memcpy", "Memset")) else "torch ops")
             c0, d0 = groups[g]
             groups[g] = (c0 + e.count, d0 + dev_us / 1e3)
+    if top:
+        kern = [e for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")
+                and (getattr(e, "self_device_time_total", 0.0) or 0.0) > 0]
+        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
+            m = re.search(r"(?:^|[^A-Za-z])(k6?_[a-z0-9_]+)", e.key)
+            name = m.group(1) if m else e.key[:60]
+            log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:7d}x  "
+                f"{e.self_device_time_total / e.count:8.2f} us each  {name}")
     return groups, span * 1e3
 
 
@@ -1047,6 +1100,313 @@ def pcg_cost(N: int, El: int, K: int, cg: int):
     return nbytes, 400 * K * N + (cg + 1) * per_cg
 
 
+# ---------------------------------------------------------------------------
+# SE(3): K4 (GN and LM modes) and K5
+# ---------------------------------------------------------------------------
+
+
+def pose_max(a, b) -> float:
+    """Max |a - b| over (N, 12) SE(3) poses, every entry alike."""
+    return float((a - b).double().abs().max())
+
+
+def _se3_graphs(torch, datasets, from_dataset):
+    dev = torch.device("cuda")
+    out = []
+    for name, data in (("sphere(10, 10)", datasets.sphere(n_rings=10, poses_per_ring=10, seed=1)),
+                       ("garage", datasets.garage())):
+        out.append((name, from_dataset(data, device=dev), torch.from_numpy(data["poses"]).to(dev)))
+    return out
+
+
+def _check(label, err, tol):
+    log(f"  {label}: {err:.3e} (tol {tol})")
+    if not err <= tol:
+        fail(f"{label} differs from the plain twin: {err} > {tol}")
+
+
+def phase_se3_kernels(torch, datasets, from_dataset, lm):
+    log("== phase 12: SE(3) kernels (K4, K5) against their plain twins")
+    from graphslam_tpu_torch.config import SolverConfig
+    from graphslam_tpu_torch.ops import gn_kernel as gk
+    from graphslam_tpu_torch.ops import gn6_kernel as g6
+    from graphslam_tpu_torch.ops import pcg6_kernel as p6
+
+    errs = {"gn": 0.0, "lm": 0.0, "k5": 0.0}
+    for name, g, p0 in _se3_graphs(torch, datasets, from_dataset):
+        N, dev = p0.shape[0], p0.device
+        log(f"  {name}: {N} poses, {g.chain_prefix} chain and {g.num_edges - g.chain_prefix} "
+            f"loop edges")
+        kern = g6.Gn6Kernel(p0, g, -1.0, None, cg_max=25)
+        kern.system()
+        sysm = g6.system_reference6(p0, kern.pk)
+        torch.cuda.synchronize()
+        for label, a, b in (("D", kern.D, sysm.D), ("U", kern.U, sysm.U), ("b", kern.b, sysm.b)):
+            _check(f"{name} assembled {label}, rel", rel_err(a, b), TOL_ASSEMBLY_REL)
+        kern.factor()
+        factor = g6.pcr_factor_reference6(sysm.D, sysm.U, kern.K)
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        v = torch.randn((N, 6), generator=gen).to(dev)
+        _check(f"{name} PCR apply (K={kern.K}), rel", rel_err(kern.precond(v),
+               gk.pcr_apply_reference(*factor, v)), TOL_PCR_REL)
+        kern.cg(25)
+        x_ref = gk.cg_reference(sysm, kern.pk, factor, 25)
+        torch.cuda.synchronize()
+        _check(f"{name} CG solve (25 it), rel", rel_err(kern.x, x_ref), TOL_CG_REL)
+
+        E, c = g.num_edges, g.chain_prefix
+        mask = g.edge_mask.clone()
+        mask[E - 1] = False
+        mask[c - 2] = False
+        keep = torch.arange(E, device=dev) < c
+        for label, gg, kw in (
+            ("exact PCR", g, dict(pcr_levels=None)),
+            ("pcr_levels=4", g, dict(pcr_levels=4)),
+            ("chain-only", g.replace(edge_mask=g.edge_mask & keep), dict(pcr_levels=None)),
+            ("masked", g.replace(edge_mask=mask), dict(pcr_levels=None)),
+            ("warm + ramp", g, dict(pcr_levels=None, warm_start=True, cg_ramp=((3, 25), (2, 12)))),
+        ):
+            out = g6.fused_gn6_solve(p0, gg, iterations=5, cg_iters=25, **kw)
+            ref = g6.fused_gn6_solve_reference(p0, gg, iterations=5, cg_iters=25, **kw)
+            torch.cuda.synchronize()
+            if not torch.isfinite(out).all():
+                fail(f"K4 produced non-finite poses ({name}, {label})")
+            e = pose_max(out, ref)
+            errs["gn"] = max(errs["gn"], e)
+            _check(f"{name} 5 GN iterations, {label}, max |d|", e, TOL_SE3_POSES)
+
+        kern = g6.Gn6Kernel(p0, g, 1.0, None, cg_max=25, lm=True)
+        _check(f"{name} K4-LM cost pass (Huber 1.0), rel",
+               rel_err(kern.chi2(p0)[0], g6.chi2_reference6(p0, kern.pk, 1.0)), TOL_COST_REL)
+        kw = dict(iterations=5, cg_iters=25, huber_delta=1.0)
+        out = g6.fused_lm6_solve(p0, g, **kw)
+        ref = g6.fused_lm6_solve_reference(p0, g, **kw)
+        torch.cuda.synchronize()
+        ks, rs = [float(t) for t in out[1:]], [float(t) for t in ref[1:]]
+        e, ce = pose_max(out[0], ref[0]), abs(ks[0] - rs[0]) / abs(rs[0])
+        errs["lm"] = max(errs["lm"], e)
+        log(f"  {name} K4-LM 5 Huber steps: max |d| {e:.3e} (tol {TOL_SE3_LM_POSES}), chi2 "
+            f"{ks[0]:.4f} vs {rs[0]:.4f} (rel {ce:.2e}, tol {TOL_CHI2_REL}), lam {ks[1]:.3g} vs "
+            f"{rs[1]:.3g}, accepted {ks[2]:.0f} vs {rs[2]:.0f}, converged {ks[3]:.0f} vs "
+            f"{rs[3]:.0f}")
+        if not (torch.isfinite(out[0]).all() and e <= TOL_SE3_LM_POSES and ce <= TOL_CHI2_REL
+                and ks[2:] == rs[2:]):
+            fail(f"K4-LM on {name} differs from its plain twin")
+
+        sysm = lm._linearized_system(p0, g, SolverConfig(use_huber_on_loops=True))
+        for lam in (0.0, 1e-3):
+            x = p6.fused_pcg6_solve(sysm, lam, max_iters=25, chain_prefix=c)
+            xr = p6.fused_pcg6_solve_reference(sysm, lam, max_iters=25, chain_prefix=c)
+            torch.cuda.synchronize()
+            if not torch.isfinite(x).all():
+                fail("K5 produced a non-finite solution")
+            errs["k5"] = max(errs["k5"], float((x - xr).abs().max()))
+            _check(f"{name} K5 at lam {lam}, rel", rel_err(x, xr), TOL_CG_REL)
+    return errs
+
+
+def _se3_main(torch, datasets, from_dataset):
+    dev = torch.device("cuda")
+    out = {}
+    for name, make in (("sphere2500", datasets.sphere2500), ("garage", datasets.garage)):
+        data = make()
+        out[name] = (from_dataset(data, device=dev), torch.from_numpy(data["poses"]).to(dev),
+                     torch.from_numpy(data["gt"]).to(dev))
+    return out
+
+
+def _gate_se3(name, ate0, ate, err, ref, steps=None):
+    log(f"  {name}: chi2 {err:.2f} (JAX {ref['chi2']:.2f}), ATE {ate0:.4f} -> {ate:.4f} (JAX "
+        f"{ref['ate']:.4f})" + ("" if steps is None else f", steps {steps} (JAX {ref['steps']})"))
+    if not (ate < SE3_ATE_GATE_M and abs(ate - ref["ate"]) <= LM_ATE_BAND_M
+            and abs(err - ref["chi2"]) <= SE3_CHI2_REL * ref["chi2"]):
+        fail(f"{name}: SE(3) gate failed (ATE {ate}, chi2 {err})")
+
+
+def phase_se3_main(torch, graphs, chi2, metrics, lm):
+    log("== phase 13: SE(3) main paths on cuda (sphere2500, garage)")
+    from graphslam_tpu_torch.config import SolverConfig
+    from graphslam_tpu_torch.ops import gn6_kernel as g6
+    from graphslam_tpu_torch.ops import pcg6_kernel as p6
+
+    out = {}
+    # scripts/bench_all.py's configs; edge_tile and hvp_splits are TPU knobs
+    for name, tile in (("sphere2500", 512), ("garage", 256)):
+        g, p0, gt = graphs[name]
+        cfg = SolverConfig(mode="gn_fused", cg_max_iterations=25, max_iterations=80,
+                           edge_tile=tile, hvp_splits=1)
+        g6.fused_gn6_solve.launches = 0
+        res = lm._gn_loop(p0, g, cfg, "gn_fused", 20)
+        res2 = lm._gn_loop(p0, g, cfg, "gn_fused", 20)
+        torch.cuda.synchronize()
+        launches = g6.fused_gn6_solve.launches
+        log(f"  {name} GN: fused_gn6_solve launches in the path: {launches}")
+        if launches <= 0:
+            fail(f"the {name} main path did not launch K4")
+        if not torch.isfinite(res).all():
+            fail(f"{name} poses are not finite")
+        _gate_se3(f"{name} GN (20 iterations, cg 25, exact PCR)", float(metrics.ate(p0, gt)),
+                  float(metrics.ate(res, gt)), float(chi2(res, g)), JAX_SE3[f"{name}_gn"])
+        if not torch.equal(res, res2):
+            fail(f"{name}: two runs differ: max {float((res - res2).abs().max())}")
+        log(f"  {name} GN: two runs bitwise equal")
+        out[name] = dict(launches=launches)
+
+    g, p0, gt = graphs["sphere2500"]
+    a = g6.fused_gn6_solve(p0, g, iterations=5, cg_iters=25)
+    b = g6.fused_gn6_solve_reference(p0, g, iterations=5, cg_iters=25)
+    torch.cuda.synchronize()
+    out["sphere2500_err"] = pose_max(a, b)
+    _check("sphere2500 5 GN iterations kernel vs twin, max |d|", out["sphere2500_err"],
+           TOL_SE3_POSES)
+
+    g, p0, gt = graphs["garage"]
+    for mode, counter in (("gn_fused", g6.fused_lm6_solve), ("pcg_fused", p6.fused_pcg6_solve)):
+        cfg = SolverConfig(mode=mode, cg_max_iterations=25, max_iterations=20,
+                           use_huber_on_loops=True)
+        counter.launches = 0
+        st = lm.lm_solve(p0, g, cfg)
+        st2 = lm.lm_solve(p0, g, cfg)
+        torch.cuda.synchronize()
+        launches = counter.launches
+        log(f"  garage LM, mode {mode}: {counter.__name__} launches in the path: {launches}; lam "
+            f"{float(st.lam):.3g}, converged {bool(st.converged)}")
+        if launches <= 0:
+            fail(f"the garage LM path in mode {mode} did not launch its kernel")
+        if not torch.isfinite(st.poses).all():
+            fail(f"garage LM ({mode}): poses are not finite")
+        ate, err = float(metrics.ate(st.poses, gt)), float(st.error)
+        _gate_se3(f"garage LM ({mode}, 20 steps, Huber 1.0)", float(metrics.ate(p0, gt)), ate, err,
+                  JAX_SE3["garage_lm"], int(st.iterations))
+        for x, y in zip(st, st2):
+            if not torch.equal(x, y):
+                fail(f"garage LM ({mode}): two runs differ")
+        log(f"  garage LM ({mode}): two runs bitwise equal")
+        out[f"garage_lm_{mode}"] = dict(launches=launches, ate=ate, chi2=err,
+                                        steps=int(st.iterations))
+    return out
+
+
+def phase_se3_timing(torch, card, graphs, lm):
+    log("== phase 14: SE(3) timing")
+    from graphslam_tpu_torch.config import SolverConfig
+    from graphslam_tpu_torch.ops import gn6_kernel as g6
+    from graphslam_tpu_torch.ops import pcg6_kernel as p6
+
+    iters, out = 20, {}
+    log(f"  card: {card}")
+    for name in ("sphere2500", "garage"):
+        g, p0, _ = graphs[name]
+
+        def kernel(p):
+            return g6.fused_gn6_solve(p, g, iterations=iters, cg_iters=25)
+
+        def plain(p):
+            return g6.fused_gn6_solve_reference(p, g, iterations=iters, cg_iters=25)
+
+        # in turns: plain, kernel, kernel, plain (the host's speed varies)
+        chain_k, chain_p = 5, 1
+        t_pa = _time_solves(torch, plain, p0, 3, chain_p)
+        t_ka = _time_solves(torch, kernel, p0, 3, chain_k)
+        t_kb = _time_solves(torch, kernel, p0, 3, chain_k)
+        t_pb = _time_solves(torch, plain, p0, 3, chain_p)
+        ms_k = 1e3 * min(t_ka, t_kb) / chain_k
+        ms_p = 1e3 * min(t_pa, t_pb) / chain_p
+        out[f"{name}_ms"], out[f"{name}_plain_ms"] = ms_k, ms_p
+        log(f"  {name} GN ({iters} iterations, cg 25, exact PCR): K4 {ms_k:.3f} ms per solve "
+            f"({1e3 * t_ka / chain_k:.3f} and {1e3 * t_kb / chain_k:.3f} in turns), "
+            f"{iters * 1e3 / ms_k:.1f} GN it/s; twin on the card {ms_p:.3f} ms "
+            f"({1e3 * t_pa / chain_p:.3f} before, {1e3 * t_pb / chain_p:.3f} after), "
+            f"{iters * 1e3 / ms_p:.1f} GN it/s")
+
+    g, p0, _ = graphs["garage"]
+    kw = dict(iterations=iters, cg_iters=25, huber_delta=1.0)
+
+    def lm_kernel(p):
+        return g6.fused_lm6_solve(p, g, **kw)[0]
+
+    def lm_plain(p):
+        return g6.fused_lm6_solve_reference(p, g, **kw)[0]
+
+    t_pa = _time_solves(torch, lm_plain, p0, 3, 1)
+    t_ka = _time_solves(torch, lm_kernel, p0, 3, 5)
+    t_kb = _time_solves(torch, lm_kernel, p0, 3, 5)
+    t_pb = _time_solves(torch, lm_plain, p0, 3, 1)
+    out["lm_ms"], out["lm_plain_ms"] = 1e3 * min(t_ka, t_kb) / 5, 1e3 * min(t_pa, t_pb)
+    log(f"  garage K4-LM ({iters} steps, cg 25, Huber): {out['lm_ms']:.3f} ms per solve "
+        f"({1e3 * t_ka / 5:.3f} and {1e3 * t_kb / 5:.3f} in turns), "
+        f"{iters * 1e3 / out['lm_ms']:.1f} LM it/s; twin {out['lm_plain_ms']:.3f} ms")
+    cfg5 = SolverConfig(mode="pcg_fused", cg_max_iterations=25, max_iterations=iters,
+                        use_huber_on_loops=True)
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = lm.lm_solve(p0, g, cfg5)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, int(st.iterations)))
+    sec, n_it = statistics.median(r[0] for r in runs), runs[0][1]
+    out["loop_ms"], out["loop_it_s"] = 1e3 * sec, n_it / sec
+    log(f"  garage _lm_loop(pcg_fused): {out['loop_ms']:.3f} ms for {n_it} iterations (median of "
+        f"3), {out['loop_it_s']:.1f} LM it/s")
+
+    sysm = lm._linearized_system(p0, g, cfg5)
+    lam = torch.tensor(cfg5.init_lambda, device=p0.device)
+    kern5 = p6.Pcg6Kernel(*p6._chain_and_loops(sysm, lam, True, g.chain_prefix, T=6), 25)
+    out["k5_us"] = _event_us(torch, kern5.solve, 50)
+    out["k5_wrapper_us"] = _event_us(torch, lambda: p6.fused_pcg6_solve(
+        sysm, lam, max_iters=25, chain_prefix=g.chain_prefix), 20)
+    out["k5_plain_us"] = _event_us(torch, lambda: p6.fused_pcg6_solve_reference(
+        sysm, lam, max_iters=25, chain_prefix=g.chain_prefix), 3, warmup=1)
+    log(f"  K5 at garage (exact PCR, K = {math.ceil(math.log2(p0.shape[0]))}, "
+        f"cg 25; CUDA events): {out['k5_us']:.2f} us per call of the C entry on a prepared "
+        f"problem, {out['k5_wrapper_us']:.2f} us per fused_pcg6_solve, {out['k5_plain_us']:.2f} us "
+        f"for the twin")
+
+    g, p0, _ = graphs["sphere2500"]
+    groups, span = _profile_launches(torch, lambda: g6.fused_gn6_solve(p0, g, iterations=iters,
+                                                                       cg_iters=25), top=8)
+    out["gn_launches_per_it"] = groups["gn6_kernel.cu"][0] / iters
+    out["gn_idle_share"] = _log_profile(f"sphere2500 K4 GN solve ({iters} iterations)", groups,
+                                        span, iters)
+    g, p0, _ = graphs["garage"]
+    cfg10 = dataclasses.replace(cfg5, max_iterations=10)
+    groups, span = _profile_launches(torch, lambda: lm.lm_solve(p0, g, cfg10))
+    out["loop_launches_per_it"] = sum(c for c, _ in groups.values()) / 10
+    out["loop_idle_share"] = _log_profile("garage _lm_loop(pcg_fused), 10 iterations", groups,
+                                          span, 10)
+    return out
+
+
+def gn6_cost(N: int, c: int, El: int, K: int, iters: int, cg: int):
+    """Bytes (inputs read once, poses written once) and float32 operations
+    of one fused SE(3) GN solve, counted from the kernel's stages: ~3500
+    operations to linearize an edge (two betweens, the SO(3) log, Jr^-1
+    with Q, Ad, whitening and the three 6x6 products JiT Ji, JiT Jj,
+    JjT Jj), ~1500 to assemble a node with its prior, ~2400 per node and
+    PCR level (two 6x6 inverses, four 6x6 products), ~250 to retract."""
+    nbytes = 4 * (12 * N + 48 * c + 48 * N + 2 * El + 48 * El + 12 * N)
+    per_cg = N * (72 + 144 + 144 * K + 72 + 30) + 144 * El
+    per_gn = 3500 * (c + El) + 1500 * N + 2400 * K * N + (cg + 1) * per_cg + 250 * N
+    return nbytes, iters * per_gn
+
+
+def lm6_cost(N: int, c: int, El: int, K: int, iters: int, cg: int):
+    """gn6_cost plus, per LM iteration, the damping and the candidate's cost
+    pass (~600 operations a chain, loop or prior row: two betweens, the
+    log, a 6x6 product and a square)."""
+    nbytes, flops = gn6_cost(N, c, El, K, iters, cg)
+    return nbytes + 16, flops + (iters + 1) * (600 * (c + El + N) + 6 * N)
+
+
+def pcg6_cost(N: int, El: int, K: int, cg: int):
+    """Bytes (D, U, b and the loop blocks with their endpoints read once, x
+    written once) and float32 operations of one K5 solve."""
+    nbytes = 4 * (36 * N + 36 * N + 6 * N + 36 * El + 2 * El + 6 * N)
+    per_cg = N * (72 + 144 + 144 * K + 72 + 30) + 144 * El
+    return nbytes, 2400 * K * N + (cg + 1) * per_cg
+
+
 def make_tour(torch):
     """The replay's scans, made on the card with the port's raycaster."""
     from graphslam_tpu_torch.config import SLAMConfig, SolverConfig
@@ -1115,6 +1475,10 @@ def main() -> int:
     p_m, g_m, sys_m, lm_main, lm_err10, k3_err10 = phase_lm_main(
         torch, datasets, from_dataset, chi2, metrics, lm, gk)
     lt = phase_lm_timing(torch, lm, gk, card, p_m, g_m, sys_m, lm_main)
+    se3_err = phase_se3_kernels(torch, datasets, from_dataset, lm)
+    se3_graphs = _se3_main(torch, datasets, from_dataset)
+    se3_main = phase_se3_main(torch, se3_graphs, chi2, metrics, lm)
+    st = phase_se3_timing(torch, card, se3_graphs, lm)
     if "jax" in sys.modules:
         fail("the port imported jax")
 
@@ -1135,6 +1499,17 @@ def main() -> int:
     k3_bound, k3_by = _bound(*pcg_cost(pk.N, pk.El, K3, 25))
     log(f"  K1-LM bound per m3500 solve {lm_bound:.4f} ms ({lm_by}); K3 bound per call at m3500 "
         f"{k3_bound * 1e3:.3f} us ({k3_by}, K = {K3})")
+    from graphslam_tpu_torch.ops.gn6_kernel import pack_graph6
+
+    Ns, Ng = (int(se3_graphs[k][1].shape[0]) for k in ("sphere2500", "garage"))
+    ps, pg = pack_graph6(se3_graphs["sphere2500"][0], Ns), pack_graph6(se3_graphs["garage"][0], Ng)
+    Ks, Kg = math.ceil(math.log2(Ns)), math.ceil(math.log2(Ng))
+    gn6_bound, gn6_by = _bound(*gn6_cost(Ns, ps.c, ps.El, Ks, 20, 25))
+    lm6_bound, lm6_by = _bound(*lm6_cost(Ng, pg.c, pg.El, Kg, 20, 25))
+    k5_bound, k5_by = _bound(*pcg6_cost(Ng, pg.El, Kg, 25))
+    log(f"  K4 bound per sphere2500 20-iteration solve {gn6_bound:.4f} ms ({gn6_by}, K = {Ks}); "
+        f"K4-LM per garage 20-step solve {lm6_bound:.4f} ms ({lm6_by}); K5 per call at garage "
+        f"{k5_bound * 1e3:.3f} us ({k5_by}, K = {Kg})")
     print(json.dumps({"kernels": [
         {
             "name": "gn_kernel",
@@ -1204,6 +1579,49 @@ def main() -> int:
             "plain_ms": lt["k3_plain_us"] / 1e3,
             "bound_ms": k3_bound,
             "bound_by": k3_by,
+            "library_ms": None,
+        },
+        {
+            "name": "gn6_kernel",
+            "route": "cuda",
+            "source": "graphslam_tpu_torch/csrc/gn6_kernel.cu",
+            "replaces": "graphslam_tpu/ops/gn6_kernel.py:602",
+            "launches": se3_main["sphere2500"]["launches"],
+            "launches_garage": se3_main["garage"]["launches"],
+            "max_abs_err": max(se3_err["gn"], se3_main["sphere2500_err"]),
+            "ms": st["sphere2500_ms"],
+            "plain_ms": st["sphere2500_plain_ms"],
+            "ms_garage": st["garage_ms"],
+            "plain_ms_garage": st["garage_plain_ms"],
+            "bound_ms": gn6_bound,
+            "bound_by": gn6_by,
+            "library_ms": None,
+        },
+        {
+            "name": "gn6_kernel_lm",
+            "route": "cuda",
+            "source": "graphslam_tpu_torch/csrc/gn6_kernel.cu",
+            "replaces": "graphslam_tpu/ops/gn6_kernel.py:602",
+            "launches": se3_main["garage_lm_gn_fused"]["launches"],
+            "max_abs_err": se3_err["lm"],
+            "ms": st["lm_ms"],
+            "plain_ms": st["lm_plain_ms"],
+            "bound_ms": lm6_bound,
+            "bound_by": lm6_by,
+            "library_ms": None,
+        },
+        {
+            "name": "pcg6_kernel",
+            "route": "cuda",
+            "source": "graphslam_tpu_torch/csrc/gn6_kernel.cu",
+            "replaces": "graphslam_tpu/ops/pcg6_kernel.py:207",
+            "launches": se3_main["garage_lm_pcg_fused"]["launches"],
+            "max_abs_err": se3_err["k5"],
+            "ms": st["k5_us"] / 1e3,
+            "ms_wrapper": st["k5_wrapper_us"] / 1e3,
+            "plain_ms": st["k5_plain_us"] / 1e3,
+            "bound_ms": k5_bound,
+            "bound_by": k5_by,
             "library_ms": None,
         },
     ]}), flush=True)

@@ -1,0 +1,1147 @@
+// Fused SE(3) Gauss-Newton and Levenberg-Marquardt for Hopper (sm_90a): the
+// CUDA port of the Pallas kernels graphslam_tpu/ops/gn6_kernel.py::_gn6_kernel
+// (K4, GN and LM modes) and graphslam_tpu/ops/pcg6_kernel.py::_kernel6 (K5).
+//
+// K1 (gn_kernel.cu) with 6x6 blocks and SE(3) poses. One GN iteration is a
+// fixed sequence of small launches on the caller's stream, with no host
+// synchronization:
+//
+//   k6_linearize    one thread per chain/loop edge: between, SO(3) log,
+//                   Jr^-1 (with Barfoot's Q), Ad(h^-1), whitening, Huber on
+//                   loop edges when huber_delta > 0 (gn6_kernel.py:548-574);
+//                   then Aii, Aij, Ajj, gi, gj (Aij kept for H@v)
+//   k6_assemble     one thread per node: D and g from its chain neighbours,
+//                   its prior and its incident loop edges (a CSR in edge
+//                   order, masked edges left out: fixed order, no atomics);
+//                   in LM mode D's 6 diagonal entries are scaled by (1 + lam)
+//   k6_pcr_factor   one launch per PCR level; ridge eps/6 |tr| + 1e-8, the
+//                   6x6 inverse as the Schur complement of the lower-right
+//                   3x3 over the 3x3 adjugate inverse (gn6_kernel.py:127-149)
+//   CG, cg_iters times:
+//     k6_hvp          H@p with the partial sums of p.Ap per block
+//     k6_cg_update    alpha from the partials (same order in every block)
+//     k6_pcr_apply    one launch per level; the last applies Dinv and adds
+//                     the partial sums of r.z
+//     k6_cg_direction beta, p = z + beta p, rz kept on the device
+//   k6_retract      x <- x * Exp(dx), then one polar-Newton step on R
+//                   (gn6_kernel.py:529-535, 877-882)
+//
+// An LM iteration (gn6_kernel.py:917-946) adds k6_chi2 (the candidate's cost
+// as block partials), k6_lm_decide (one thread: accept or reject, the lambda
+// schedule, the stats) and k6_lm_select (poses <- candidate where accepted).
+//
+// K5 (gn6_pcg) is the PCR factor at the exact K = ceil(log2 N) and a cold CG
+// on a D, U, b and loop blocks that the caller supplies (damped in torch
+// beforehand, as the JAX package damps in XLA); it reuses the same kernels.
+//
+// What bounds it: at sphere2500 size (2500 poses, 2450 loop edges) every
+// array is a few MB and sits in the 50 MB L2, and one GN iteration at exact
+// PCR (K = 12) and cg 25 is 25 (K + 3) + 2 K + 5 = 404 small launches, each
+// on ceil(N / 256) = 10 blocks of the card's 132 SMs. Neither bytes nor
+// FLOPs bound it: launch latency and the latency of the heavy 6x6 stages on
+// few, register-heavy threads do (k6_pcr_factor needs ~200 registers a
+// thread for two 6x6 inverses and four 6x6 products). More blocks per
+// stage, the 6x6 products staged in shared memory, and a persistent kernel
+// or a CUDA graph are later work; this version is the simple, correct one.
+//
+// The SO(3) log calls acosf in its generic branch, as geometry/so3.py's log
+// does; the TPU kernel's _acos_no_trig (gn6_kernel.py:321) only works around
+// Mosaic. Every reduction has a fixed order, so two runs on one card give
+// bitwise equal poses.
+//
+// Line references "gn6_kernel.py:N" are to graphslam_tpu/ops/gn6_kernel.py.
+//
+// Plain C interface for ctypes: every function takes a Gn6Problem* whose
+// pointers are device pointers, launches on problem->stream and returns
+// cudaGetLastError() (0 = success).
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+extern "C" {
+
+struct Gn6Problem {
+  float* poses;        // (N, 12) in/out: row-major R (9), then t (3)
+  const float* cz;     // (c, 12) chain measurements, identity where masked
+  const float* cW;     // (c, 36) chain sqrt-information, zero where masked
+  const float* pz;     // (N, 12) per-node prior measurement (identity: none)
+  const float* pW;     // (N, 36) per-node prior sqrt-information (zero: none)
+  const int* li;       // (El,) loop edge endpoints
+  const int* lj;
+  const float* lz;     // (El, 12)
+  const float* lW;     // (El, 36)
+  const int* csr_ptr;  // (N+1,)
+  const int* csr_ent;  // 2*l + side, ascending l per node, live edges only
+  float* D;            // (N, 36) assembled diagonal blocks
+  float* U;            // (N, 36) chain blocks, U[n] couples n and n+1
+  float* b;            // (N, 6) right-hand side -g
+  float* x;            // (N, 6) CG solution (and warm-start seed)
+  float* ws;           // workspace of gn6_ws_floats(...) floats
+  const float* lA;     // (El, 36) loop blocks from the caller (K5), or null:
+                       // K4's own, linearized into the workspace
+  float* stats;        // (4,) LM state [chi2, lam, n_acc, conv], or null (GN)
+  void* stream;        // cudaStream_t
+  int N, c, El, K, cg_max;
+  float eps, huber_delta;
+};
+
+}  // extern "C"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr float kPi = 3.14159265358979f;
+constexpr float kTiny = 1e-30f;
+
+__host__ __device__ inline int n_blocks(long long n) {
+  return (int)((n + kThreads - 1) / kThreads);
+}
+
+// Workspace carve-up (floats).
+struct Ws {
+  float* Aij;       // (c+El, 36)
+  float* blk;       // (c+El, 84): Aii 36, Ajj 36, gi 6, gj 6
+  float* PD[2];     // PCR working blocks, ping-pong (N, 36)
+  float* PU[2];
+  float* PL[2];
+  float* A;         // (K, N, 36) PCR coefficients alpha
+  float* G;         // (K, N, 36) PCR coefficients gamma
+  float* DinvF;     // (N, 36)
+  float* r;         // (N, 6) CG vectors
+  float* z;
+  float* p;
+  float* Ap;
+  float* t[2];      // PCR apply ping-pong
+  float* part_a;    // (n_blocks(N),) partial sums of p.Ap
+  float* part_b;    // (n_blocks(N),) partial sums of r.z
+  float* rz;        // (cg_max + 1,) r.z per CG iteration
+  float* cand;      // (N, 12) LM candidate poses
+  float* part_e;    // (n_blocks(c + El + N),) partial sums of the cost
+  float* acc;       // (1,) LM: 1 where the last step was accepted
+  long long total;
+};
+
+Ws layout(int N, int c, int El, int K, int cg_max, float* base) {
+  Ws w;
+  long long off = 0;
+  auto take = [&](long long n) {
+    float* ptr = base ? base + off : nullptr;
+    off += n;
+    return ptr;
+  };
+  const long long E = (long long)c + El;
+  const long long N36 = 36LL * N, N6 = 6LL * N;
+  w.Aij = take(36 * E);
+  w.blk = take(84 * E);
+  for (int i = 0; i < 2; ++i) {
+    w.PD[i] = take(N36);
+    w.PU[i] = take(N36);
+    w.PL[i] = take(N36);
+  }
+  w.A = take(N36 * K);
+  w.G = take(N36 * K);
+  w.DinvF = take(N36);
+  w.r = take(N6);
+  w.z = take(N6);
+  w.p = take(N6);
+  w.Ap = take(N6);
+  w.t[0] = take(N6);
+  w.t[1] = take(N6);
+  w.part_a = take(n_blocks(N));
+  w.part_b = take(n_blocks(N));
+  w.rz = take(cg_max + 1);
+  w.cand = take(12LL * N);
+  w.part_e = take(n_blocks(E + N));
+  w.acc = take(1);
+  w.total = off;
+  return w;
+}
+
+// ---------------------------------------------------------------------------
+// Small vectors and row-major blocks in registers
+// ---------------------------------------------------------------------------
+
+struct V3 { float v[3]; };
+struct M3 { float m[9]; };
+struct V6 { float v[6]; };
+struct M6 { float m[36]; };
+struct Pose { M3 R; V3 t; };
+
+__device__ __forceinline__ M3 m3zero() {
+  M3 r;
+#pragma unroll
+  for (int e = 0; e < 9; ++e) r.m[e] = 0.f;
+  return r;
+}
+__device__ __forceinline__ M3 mmul(const M3& A, const M3& B) {
+  M3 r;
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      r.m[3 * a + c] = A.m[3 * a] * B.m[c] + A.m[3 * a + 1] * B.m[3 + c] +
+                       A.m[3 * a + 2] * B.m[6 + c];
+  return r;
+}
+__device__ __forceinline__ M3 mT(const M3& A) {
+  return M3{{A.m[0], A.m[3], A.m[6], A.m[1], A.m[4], A.m[7], A.m[2], A.m[5], A.m[8]}};
+}
+__device__ __forceinline__ V3 mvec(const M3& A, const V3& x) {
+  V3 r;
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    r.v[a] = A.m[3 * a] * x.v[0] + A.m[3 * a + 1] * x.v[1] + A.m[3 * a + 2] * x.v[2];
+  return r;
+}
+__device__ __forceinline__ M3 madd(const M3& A, const M3& B) {
+  M3 r;
+#pragma unroll
+  for (int e = 0; e < 9; ++e) r.m[e] = A.m[e] + B.m[e];
+  return r;
+}
+__device__ __forceinline__ M3 msub(const M3& A, const M3& B) {
+  M3 r;
+#pragma unroll
+  for (int e = 0; e < 9; ++e) r.m[e] = A.m[e] - B.m[e];
+  return r;
+}
+__device__ __forceinline__ M3 mscale(const M3& A, float s) {
+  M3 r;
+#pragma unroll
+  for (int e = 0; e < 9; ++e) r.m[e] = A.m[e] * s;
+  return r;
+}
+__device__ __forceinline__ M3 hat(const V3& w) {
+  return M3{{0.f, -w.v[2], w.v[1], w.v[2], 0.f, -w.v[0], -w.v[1], w.v[0], 0.f}};
+}
+__device__ __forceinline__ V3 vneg(const V3& a) { return V3{{-a.v[0], -a.v[1], -a.v[2]}}; }
+
+__device__ __forceinline__ V6 v6zero() {
+  V6 r;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) r.v[i] = 0.f;
+  return r;
+}
+__device__ __forceinline__ M6 m6zero() {
+  M6 r;
+#pragma unroll
+  for (int e = 0; e < 36; ++e) r.m[e] = 0.f;
+  return r;
+}
+__device__ __forceinline__ V6 ld6(const float* a, long long i) {
+  V6 r;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) r.v[k] = a[6 * i + k];
+  return r;
+}
+__device__ __forceinline__ void st6(float* a, long long i, const V6& x) {
+#pragma unroll
+  for (int k = 0; k < 6; ++k) a[6 * i + k] = x.v[k];
+}
+__device__ __forceinline__ M6 ld36(const float* a, long long i) {
+  M6 r;
+#pragma unroll
+  for (int e = 0; e < 36; ++e) r.m[e] = a[36 * i + e];
+  return r;
+}
+__device__ __forceinline__ void st36(float* a, long long i, const M6& x) {
+#pragma unroll
+  for (int e = 0; e < 36; ++e) a[36 * i + e] = x.m[e];
+}
+__device__ __forceinline__ M6 m6mul(const M6& A, const M6& B) {
+  M6 r;
+#pragma unroll
+  for (int a = 0; a < 6; ++a)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) s += A.m[6 * a + k] * B.m[6 * k + c];
+      r.m[6 * a + c] = s;
+    }
+  return r;
+}
+// A^T B without forming A^T
+__device__ __forceinline__ M6 m6Tmul(const M6& A, const M6& B) {
+  M6 r;
+#pragma unroll
+  for (int a = 0; a < 6; ++a)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) s += A.m[6 * k + a] * B.m[6 * k + c];
+      r.m[6 * a + c] = s;
+    }
+  return r;
+}
+__device__ __forceinline__ M6 m6T(const M6& A) {
+  M6 r;
+#pragma unroll
+  for (int a = 0; a < 6; ++a)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) r.m[6 * a + c] = A.m[6 * c + a];
+  return r;
+}
+__device__ __forceinline__ V6 m6vec(const M6& A, const V6& x) {
+  V6 r;
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) s += A.m[6 * a + k] * x.v[k];
+    r.v[a] = s;
+  }
+  return r;
+}
+__device__ __forceinline__ V6 m6Tvec(const M6& A, const V6& x) {
+  V6 r;
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) s += A.m[6 * k + a] * x.v[k];
+    r.v[a] = s;
+  }
+  return r;
+}
+__device__ __forceinline__ void m6add(M6& A, const M6& B) {
+#pragma unroll
+  for (int e = 0; e < 36; ++e) A.m[e] += B.m[e];
+}
+__device__ __forceinline__ void v6add(V6& a, const V6& b) {
+#pragma unroll
+  for (int i = 0; i < 6; ++i) a.v[i] += b.v[i];
+}
+__device__ __forceinline__ float v6dot(const V6& a, const V6& b) {
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) s += a.v[i] * b.v[i];
+  return s;
+}
+// Quadrant (r0, c0) in {0, 3} of a 6x6, and its inverse.
+__device__ __forceinline__ M3 quad(const M6& A, int r0, int c0) {
+  M3 r;
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b) r.m[3 * a + b] = A.m[6 * (r0 + a) + c0 + b];
+  return r;
+}
+__device__ __forceinline__ void set_quad(M6& A, int r0, int c0, const M3& Q) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b) A.m[6 * (r0 + a) + c0 + b] = Q.m[3 * a + b];
+}
+__device__ __forceinline__ M6 from_quads(const M3& P, const M3& Q, const M3& R, const M3& S) {
+  M6 A;
+  set_quad(A, 0, 0, P);
+  set_quad(A, 0, 3, Q);
+  set_quad(A, 3, 0, R);
+  set_quad(A, 3, 3, S);
+  return A;
+}
+
+// ---------------------------------------------------------------------------
+// SO(3) / SE(3), mirroring geometry/so3.py and geometry/se3.py (the TPU
+// kernel's row-level copies, gn6_kernel.py:282-535)
+// ---------------------------------------------------------------------------
+
+// a I + b hat(w) + c hat(w)^2, with hat(w)^2 = w w^T - theta^2 I.
+__device__ __forceinline__ M3 aI_bW_cW2(const V3& w, float a, float b, float c) {
+  const float x = w.v[0], y = w.v[1], z = w.v[2];
+  const float d = a - c * (x * x + y * y + z * z);
+  return M3{{d + c * x * x, -b * z + c * x * y, b * y + c * x * z,
+             b * z + c * y * x, d + c * y * y, -b * x + c * y * z,
+             -b * y + c * z * x, b * x + c * z * y, d + c * z * z}};
+}
+
+__device__ M3 so3_exp(const V3& w) {
+  const float theta2 = w.v[0] * w.v[0] + w.v[1] * w.v[1] + w.v[2] * w.v[2];
+  const float theta = sqrtf(theta2);
+  const bool small = theta < 1e-6f;
+  const float ts = small ? 1.f : theta;
+  const float sh = sinf(ts / 2.f);
+  const float a = small ? 1.f - theta2 / 6.f : sinf(ts) / ts;
+  const float b = small ? 0.5f - theta2 / 24.f : 2.f * sh * sh / (ts * ts);
+  return aI_bW_cW2(w, 1.f, a, b);
+}
+
+// Rotation vector of R (so3.py::log): k(c) vee(R - R^T)/2 with k from
+// acosf in the generic branch, a series in u = 1 - c for c > 0.95, and the
+// axis from the largest column of R + I (first maximum wins) for c < -0.99.
+__device__ V3 so3_log(const M3& R) {
+  const float tr = R.m[0] + R.m[4] + R.m[8];
+  const float c = fminf(fmaxf((tr - 1.f) / 2.f, -1.f), 1.f);
+  const V3 ws{{(R.m[7] - R.m[5]) / 2.f, (R.m[2] - R.m[6]) / 2.f, (R.m[3] - R.m[1]) / 2.f}};
+  if (c < -0.99f) {
+    const float v = 1.f + c;
+    const float theta_pi = kPi - sqrtf(fmaxf(2.f * v, 0.f)) * (1.f + v / 12.f);
+    float n2[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float c0 = R.m[j] + (j == 0 ? 1.f : 0.f);
+      const float c1 = R.m[3 + j] + (j == 1 ? 1.f : 0.f);
+      const float c2 = R.m[6 + j] + (j == 2 ? 1.f : 0.f);
+      n2[j] = c0 * c0 + c1 * c1 + c2 * c2;
+    }
+    const int k = (n2[0] >= n2[1] && n2[0] >= n2[2]) ? 0 : (n2[1] >= n2[2] ? 1 : 2);
+    V3 axis{{R.m[k] + (k == 0 ? 1.f : 0.f), R.m[3 + k] + (k == 1 ? 1.f : 0.f),
+             R.m[6 + k] + (k == 2 ? 1.f : 0.f)}};
+    const float inv_n = 1.f / sqrtf(fmaxf(axis.v[0] * axis.v[0] + axis.v[1] * axis.v[1] +
+                                          axis.v[2] * axis.v[2], 1e-12f));
+    const float dot = axis.v[0] * ws.v[0] + axis.v[1] * ws.v[1] + axis.v[2] * ws.v[2];
+    const float s = theta_pi * inv_n * (dot < 0.f ? -1.f : 1.f);
+    return V3{{axis.v[0] * s, axis.v[1] * s, axis.v[2] * s}};
+  }
+  float k;
+  if (c > 0.95f) {
+    const float u = 1.f - c;
+    k = 1.f + u / 3.f + (2.f / 15.f) * u * u + (2.f / 35.f) * u * u * u;
+  } else {
+    k = acosf(c) / sqrtf(fmaxf(1.f - c * c, 1e-12f));
+  }
+  return V3{{k * ws.v[0], k * ws.v[1], k * ws.v[2]}};
+}
+
+__device__ M3 so3_jl(const V3& w) {
+  const float theta2 = w.v[0] * w.v[0] + w.v[1] * w.v[1] + w.v[2] * w.v[2];
+  const float theta = sqrtf(theta2);
+  const bool small = theta < 1e-6f;
+  const float ts = small ? 1.f : theta;
+  const float sh = sinf(ts / 2.f);
+  const float A = small ? 0.5f - theta2 / 24.f : 2.f * sh * sh / (ts * ts);
+  const float B = small ? 1.f / 6.f - theta2 / 120.f : (ts - sinf(ts)) / (ts * ts * ts);
+  return aI_bW_cW2(w, 1.f, A, B);
+}
+
+__device__ M3 so3_jl_inv(const V3& w) {
+  const float theta2 = w.v[0] * w.v[0] + w.v[1] * w.v[1] + w.v[2] * w.v[2];
+  const float theta = sqrtf(theta2);
+  const bool small = theta < 1e-6f;
+  const float ts = small ? 1.f : theta;
+  const float half = ts / 2.f;
+  const float cot_term = small ? 1.f / 12.f + theta2 / 720.f
+                               : (1.f - half * cosf(half) / sinf(half)) / (ts * ts);
+  return aI_bW_cW2(w, 1.f, -0.5f, cot_term);
+}
+
+// Barfoot's Q(rho, phi) (se3.py::_Q_matrix): Taylor forms below 0.7 rad.
+__device__ M3 q_matrix(const V3& rho, const V3& phi) {
+  const float theta2 = phi.v[0] * phi.v[0] + phi.v[1] * phi.v[1] + phi.v[2] * phi.v[2];
+  const float theta = sqrtf(theta2);
+  const bool small = theta < 0.7f;
+  const float ts = small ? 1.f : theta;
+  const float ts2 = ts * ts, ts3 = ts2 * ts;
+  const float st = sinf(ts), ct = cosf(ts);
+  const float c1 = small ? 1.f / 6.f - theta2 / 120.f + theta2 * theta2 / 5040.f
+                         : (ts - st) / ts3;
+  const float c2 = small ? -1.f / 24.f + theta2 / 720.f - theta2 * theta2 / 40320.f
+                         : (1.f - ts2 / 2.f - ct) / (ts2 * ts2);
+  const float c3i = small ? -1.f / 120.f + theta2 / 5040.f - theta2 * theta2 / 362880.f
+                          : (ts - st - ts3 / 6.f) / (ts3 * ts2);
+  const M3 rx = hat(rho), px = hat(phi);
+  const M3 pxrx = mmul(px, rx), rxpx = mmul(rx, px);
+  const M3 pxrxpx = mmul(pxrx, px);
+  const M3 t1 = mscale(rx, 0.5f);
+  const M3 t2 = mscale(madd(madd(pxrx, rxpx), pxrxpx), c1);
+  const M3 t3 = mscale(msub(madd(mmul(px, pxrx), mmul(rxpx, px)), mscale(pxrxpx, 3.f)), -c2);
+  const M3 t4 = mscale(madd(mmul(pxrxpx, px), mmul(px, pxrxpx)), -0.5f * (c2 - 3.f * c3i));
+  return madd(madd(t1, t2), madd(t3, t4));
+}
+
+// Inverse SE(3) right Jacobian Jl^{-1}(-xi) (se3.py:143-162), xi = [rho, phi].
+__device__ M6 se3_jr_inv(const V6& xi) {
+  const V3 nrho{{-xi.v[0], -xi.v[1], -xi.v[2]}};
+  const V3 nphi{{-xi.v[3], -xi.v[4], -xi.v[5]}};
+  const M3 Jinv = so3_jl_inv(nphi);
+  const M3 TR = mscale(mmul(mmul(Jinv, q_matrix(nrho, nphi)), Jinv), -1.f);
+  return from_quads(Jinv, TR, m3zero(), Jinv);
+}
+
+__device__ __forceinline__ Pose ld_pose(const float* a, long long i) {
+  Pose p;
+#pragma unroll
+  for (int e = 0; e < 9; ++e) p.R.m[e] = a[12 * i + e];
+#pragma unroll
+  for (int e = 0; e < 3; ++e) p.t.v[e] = a[12 * i + 9 + e];
+  return p;
+}
+__device__ __forceinline__ void st_pose(float* a, long long i, const Pose& p) {
+#pragma unroll
+  for (int e = 0; e < 9; ++e) a[12 * i + e] = p.R.m[e];
+#pragma unroll
+  for (int e = 0; e < 3; ++e) a[12 * i + 9 + e] = p.t.v[e];
+}
+
+// a^-1 b
+__device__ __forceinline__ Pose se3_between(const Pose& a, const Pose& b) {
+  const M3 RaT = mT(a.R);
+  const V3 d{{b.t.v[0] - a.t.v[0], b.t.v[1] - a.t.v[1], b.t.v[2] - a.t.v[2]}};
+  return Pose{mmul(RaT, b.R), mvec(RaT, d)};
+}
+__device__ __forceinline__ Pose se3_inverse(const Pose& p) {
+  const M3 RT = mT(p.R);
+  return Pose{RT, vneg(mvec(RT, p.t))};
+}
+__device__ __forceinline__ Pose se3_compose(const Pose& a, const Pose& b) {
+  const V3 rt = mvec(a.R, b.t);
+  return Pose{mmul(a.R, b.R), V3{{rt.v[0] + a.t.v[0], rt.v[1] + a.t.v[1], rt.v[2] + a.t.v[2]}}};
+}
+__device__ V6 se3_log(const Pose& p) {
+  const V3 phi = so3_log(p.R);
+  const V3 rho = mvec(so3_jl_inv(phi), p.t);
+  return V6{{rho.v[0], rho.v[1], rho.v[2], phi.v[0], phi.v[1], phi.v[2]}};
+}
+__device__ Pose se3_exp(const V6& xi) {
+  const V3 rho{{xi.v[0], xi.v[1], xi.v[2]}}, phi{{xi.v[3], xi.v[4], xi.v[5]}};
+  return Pose{so3_exp(phi), mvec(so3_jl(phi), rho)};
+}
+// [[R, hat(t) R], [0, R]]
+__device__ M6 se3_adjoint(const Pose& p) {
+  return from_quads(p.R, mmul(hat(p.t), p.R), m3zero(), p.R);
+}
+// One polar-Newton step R (1.5 I - 0.5 R^T R) (so3.py::normalize).
+__device__ M3 renorm(const M3& R) {
+  M3 M = mscale(mmul(mT(R), R), -0.5f);
+  M.m[0] += 1.5f;
+  M.m[4] += 1.5f;
+  M.m[8] += 1.5f;
+  return mmul(R, M);
+}
+
+// Whitened SE(3) between factor (gn6_kernel.py:548-574): rw, Jiw, Jjw.
+__device__ void linearize_edge(const Pose& xi, const Pose& xj, const Pose& z, const M6& W,
+                               float huber_delta, V6& rw, M6& Jiw, M6& Jjw) {
+  const Pose h = se3_between(xi, xj);
+  const V6 r = se3_log(se3_between(z, h));
+  const M6 Jr_inv = se3_jr_inv(r);
+  M6 Ji = m6mul(Jr_inv, se3_adjoint(se3_inverse(h)));
+#pragma unroll
+  for (int e = 0; e < 36; ++e) Ji.m[e] = -Ji.m[e];
+  rw = m6vec(W, r);
+  Jiw = m6mul(W, Ji);
+  Jjw = m6mul(W, Jr_inv);
+  if (huber_delta > 0.f) {
+    const float n = sqrtf(fmaxf(v6dot(rw, rw), 1e-24f));
+    const float sw = sqrtf(fminf(1.f, huber_delta / n));
+#pragma unroll
+    for (int i = 0; i < 6; ++i) rw.v[i] *= sw;
+#pragma unroll
+    for (int e = 0; e < 36; ++e) {
+      Jiw.m[e] *= sw;
+      Jjw.m[e] *= sw;
+    }
+  }
+}
+
+// Whitened residual only (gn6_kernel.py:577-580), for the cost.
+__device__ __forceinline__ V6 residual_edge(const Pose& xi, const Pose& xj, const Pose& z,
+                                            const M6& W) {
+  return m6vec(W, se3_log(se3_between(z, se3_between(xi, xj))));
+}
+
+// PCR ridge of the TPU kernel (gn6_kernel.py:127-137): + (eps/6 |tr| + 1e-8) I.
+__device__ __forceinline__ M6 ridge(M6 D, float eps6) {
+  const float tr = D.m[0] + D.m[7] + D.m[14] + D.m[21] + D.m[28] + D.m[35];
+  const float r = fabsf(tr) * eps6 + 1e-8f;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) D.m[7 * i] += r;
+  return D;
+}
+
+// 3x3 inverse of the TPU kernels (gn_kernel.py:289-300): row a is adj row a
+// times 1/det_a, det_a = sum_s M[a,s] adj[a,s], |det| clamped to 1e-20.
+__device__ M3 binv3(const M3& M) {
+  M3 adj;
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const int s1 = (s + 1) % 3, s2 = (s + 2) % 3;
+      const int a1 = (a + 1) % 3, a2 = (a + 2) % 3;
+      adj.m[3 * a + s] = M.m[3 * s1 + a1] * M.m[3 * s2 + a2] - M.m[3 * s1 + a2] * M.m[3 * s2 + a1];
+    }
+  M3 inv;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float det = 0.f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const int s = (a + d) % 3;
+      det += M.m[3 * a + s] * adj.m[3 * a + s];
+    }
+    const float id = 1.f / (fabsf(det) < 1e-20f ? 1e-20f : det);
+#pragma unroll
+    for (int s = 0; s < 3; ++s) inv.m[3 * a + s] = adj.m[3 * a + s] * id;
+  }
+  return inv;
+}
+
+// 6x6 inverse via the Schur complement of S (gn6_kernel.py:140-149):
+// [[P, Q], [R, S]]^-1 = [[TL, TR], [TR^T, BR]].
+__device__ M6 binv6(const M6& M) {
+  const M3 Q = quad(M, 0, 3);
+  const M3 Sinv = binv3(quad(M, 3, 3));
+  const M3 QSi = mmul(Q, Sinv);
+  const M3 TL = binv3(msub(quad(M, 0, 0), mmul(QSi, mT(Q))));
+  const M3 TR = mscale(mmul(TL, QSi), -1.f);
+  const M3 BR = msub(Sinv, mmul(mT(QSi), TR));
+  return from_quads(TL, TR, mT(TR), BR);
+}
+
+// ---------------------------------------------------------------------------
+// Deterministic reductions: a fixed shared-memory tree per block, then every
+// block sums the per-block partials in index order.
+// ---------------------------------------------------------------------------
+
+__device__ void block_sum_to(float val, float* part) {
+  __shared__ float s[kThreads];
+  const int t = threadIdx.x;
+  s[t] = val;
+  __syncthreads();
+  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
+    if (t < stride) s[t] += s[t + stride];
+    __syncthreads();
+  }
+  if (t == 0) part[blockIdx.x] = s[0];
+}
+
+__device__ float sum_partials(const float* part, int n) {
+  __shared__ float total;
+  if (threadIdx.x == 0) {
+    float acc = 0.f;
+    for (int i = 0; i < n; ++i) acc += part[i];
+    total = acc;
+  }
+  __syncthreads();
+  return total;
+}
+
+// ---------------------------------------------------------------------------
+// Kernels
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads) k6_linearize(Gn6Problem p, Ws w) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= p.c + p.El) return;
+  Pose xi, xj, z;
+  M6 W;
+  float huber = -1.f;
+  if (e < p.c) {
+    xi = ld_pose(p.poses, e);
+    xj = ld_pose(p.poses, e + 1);
+    z = ld_pose(p.cz, e);
+    W = ld36(p.cW, e);
+  } else {
+    const int l = e - p.c;
+    xi = ld_pose(p.poses, p.li[l]);
+    xj = ld_pose(p.poses, p.lj[l]);
+    z = ld_pose(p.lz, l);
+    W = ld36(p.lW, l);
+    huber = p.huber_delta;
+  }
+  V6 rw;
+  M6 Jiw, Jjw;
+  linearize_edge(xi, xj, z, W, huber, rw, Jiw, Jjw);
+  st36(w.Aij, e, m6Tmul(Jiw, Jjw));
+  float* out = w.blk + 84LL * e;
+  st36(out, 0, m6Tmul(Jiw, Jiw));
+  st36(out + 36, 0, m6Tmul(Jjw, Jjw));
+  st6(out + 72, 0, m6Tvec(Jiw, rw));
+  st6(out + 78, 0, m6Tvec(Jjw, rw));
+}
+
+__global__ void __launch_bounds__(kThreads) k6_assemble(Gn6Problem p, Ws w) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  M6 D = m6zero();
+  V6 g = v6zero();
+  if (n < p.c) {  // chain edge n = (n, n+1): node n is its i end
+    const float* e = w.blk + 84LL * n;
+    m6add(D, ld36(e, 0));
+    v6add(g, ld6(e + 72, 0));
+  }
+  if (n >= 1 && n - 1 < p.c) {  // chain edge n-1: node n is its j end
+    const float* e = w.blk + 84LL * (n - 1);
+    m6add(D, ld36(e + 36, 0));
+    v6add(g, ld6(e + 78, 0));
+  }
+  {  // prior: r = Log(z^-1 x), J = Jr^{-1}(r), zero sqrt-info = no prior
+    const V6 rp = se3_log(se3_between(ld_pose(p.pz, n), ld_pose(p.poses, n)));
+    const M6 pW = ld36(p.pW, n);
+    const M6 Jpw = m6mul(pW, se3_jr_inv(rp));
+    m6add(D, m6Tmul(Jpw, Jpw));
+    v6add(g, m6Tvec(Jpw, m6vec(pW, rp)));
+  }
+  for (int q = p.csr_ptr[n]; q < p.csr_ptr[n + 1]; ++q) {
+    const int ent = p.csr_ent[q];
+    const float* e = w.blk + 84LL * (p.c + (ent >> 1));
+    if (ent & 1) {
+      m6add(D, ld36(e + 36, 0));
+      v6add(g, ld6(e + 78, 0));
+    } else {
+      m6add(D, ld36(e, 0));
+      v6add(g, ld6(e + 72, 0));
+    }
+  }
+  if (p.stats) {  // LM: Marquardt damping D_ii * (1 + lam) (gn6_kernel.py:780-786)
+    const float s = 1.f + p.stats[1];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) D.m[7 * i] *= s;
+  }
+  st36(p.D, n, D);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) g.v[i] = -g.v[i];
+  st6(p.b, n, g);
+  st36(p.U, n, n < p.c ? ld36(w.Aij, n) : m6zero());
+}
+
+// Chain sub-diagonal L[m] = U[m-1]^T at level 0; the level's own L after.
+__device__ __forceinline__ M6 load_L(const float* Ls, const float* U0, int m) {
+  if (Ls) return ld36(Ls, m);
+  return m >= 1 ? m6T(ld36(U0, m - 1)) : m6zero();
+}
+
+// One PCR level (gn6_kernel.py:171-193): with h = 2^k,
+//   alpha = L[n] Dinv[n-h], gamma = U[n] Dinv[n+h]   (zero off the ends)
+//   D' = D - alpha U[n-h] - gamma L[n+h], L' = -alpha L[n-h], U' = -gamma U[n+h]
+// where D is the ridged block. Each thread inverts its neighbours' blocks
+// itself, so one launch per level suffices. The last level writes the
+// final inverse instead of D', L', U'.
+__global__ void __launch_bounds__(kThreads) k6_pcr_factor(
+    Gn6Problem p, Ws w, int k, const float* Ds, const float* Us, const float* Ls, float* Dd,
+    float* Ud, float* Ld, int last) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  const int h = 1 << k;
+  const float eps6 = p.eps / 6.f;
+  const bool has_m = n - h >= 0, has_p = n + h < p.N;
+  const long long kn = (long long)k * p.N + n;
+  M6 Dnew = ridge(ld36(Ds, n), eps6);
+  M6 alpha = m6zero(), gamma = m6zero();
+  if (has_m) {
+    alpha = m6mul(load_L(Ls, p.U, n), binv6(ridge(ld36(Ds, n - h), eps6)));
+    const M6 aU = m6mul(alpha, ld36(Us, n - h));
+#pragma unroll
+    for (int e = 0; e < 36; ++e) Dnew.m[e] -= aU.m[e];
+  }
+  if (has_p) {
+    gamma = m6mul(ld36(Us, n), binv6(ridge(ld36(Ds, n + h), eps6)));
+    const M6 gL = m6mul(gamma, load_L(Ls, p.U, n + h));
+#pragma unroll
+    for (int e = 0; e < 36; ++e) Dnew.m[e] -= gL.m[e];
+  }
+  st36(w.A, kn, alpha);
+  st36(w.G, kn, gamma);
+  if (last) {
+    st36(w.DinvF, n, binv6(ridge(Dnew, eps6)));
+    return;
+  }
+  st36(Dd, n, Dnew);
+  M6 Lnew = has_m ? m6mul(alpha, load_L(Ls, p.U, n - h)) : m6zero();
+#pragma unroll
+  for (int e = 0; e < 36; ++e) Lnew.m[e] = -Lnew.m[e];
+  st36(Ld, n, Lnew);
+  M6 Unew = has_p ? m6mul(gamma, ld36(Us, n + h)) : m6zero();
+#pragma unroll
+  for (int e = 0; e < 36; ++e) Unew.m[e] = -Unew.m[e];
+  st36(Ud, n, Unew);
+}
+
+// One PCR apply level: b' = b - A[k] b[n-h] - G[k] b[n+h]; the last level
+// also applies Dinv and, with rdot, adds the partial sums of rdot.out per
+// block to part.
+__global__ void __launch_bounds__(kThreads) k6_pcr_apply(
+    Gn6Problem p, Ws w, int k, const float* in, float* out, int last, const float* rdot,
+    float* part) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  float val = 0.f;
+  if (n < p.N) {
+    const int h = 1 << k;
+    const long long kn = (long long)k * p.N + n;
+    V6 o = ld6(in, n);
+    if (n - h >= 0) {
+      const V6 am = m6vec(ld36(w.A, kn), ld6(in, n - h));
+#pragma unroll
+      for (int a = 0; a < 6; ++a) o.v[a] -= am.v[a];
+    }
+    if (n + h < p.N) {
+      const V6 gp = m6vec(ld36(w.G, kn), ld6(in, n + h));
+#pragma unroll
+      for (int a = 0; a < 6; ++a) o.v[a] -= gp.v[a];
+    }
+    if (last) o = m6vec(ld36(w.DinvF, n), o);
+    st6(out, n, o);
+    if (rdot) val = v6dot(ld6(rdot, n), o);
+  }
+  if (part) block_sum_to(val, part);
+}
+
+// out = H v: diagonal blocks, chain U and L = U^T of the previous node,
+// then the node's loop edges in CSR order. With part, adds the partial sums
+// of v.out per block.
+__global__ void __launch_bounds__(kThreads) k6_hvp(Gn6Problem p, Ws w, const float* v,
+                                                   float* out, float* part) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  float val = 0.f;
+  if (n < p.N) {
+    const V6 vn = ld6(v, n);
+    V6 o = m6vec(ld36(p.D, n), vn);
+    if (n + 1 < p.N) v6add(o, m6vec(ld36(p.U, n), ld6(v, n + 1)));
+    if (n >= 1) v6add(o, m6Tvec(ld36(p.U, n - 1), ld6(v, n - 1)));
+    const float* LA = p.lA ? p.lA : w.Aij + 36LL * p.c;
+    for (int q = p.csr_ptr[n]; q < p.csr_ptr[n + 1]; ++q) {
+      const int ent = p.csr_ent[q];
+      const int l = ent >> 1;
+      const M6 A = ld36(LA, l);
+      if (ent & 1) v6add(o, m6Tvec(A, ld6(v, p.li[l])));  // node is j: A^T v_i
+      else v6add(o, m6vec(A, ld6(v, p.lj[l])));           // node is i: A v_j
+    }
+    st6(out, n, o);
+    if (part) val = v6dot(vn, o);
+  }
+  if (part) block_sum_to(val, part);
+}
+
+// Start of CG: cold x = 0, r = b; warm r = b - H x (Ap holds H x).
+__global__ void __launch_bounds__(kThreads) k6_cg_init(Gn6Problem p, Ws w, int warm) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  V6 r = ld6(p.b, n);
+  if (warm) {
+    const V6 hx = ld6(w.Ap, n);
+#pragma unroll
+    for (int a = 0; a < 6; ++a) r.v[a] -= hx.v[a];
+  } else {
+    st6(p.x, n, v6zero());
+  }
+  st6(w.r, n, r);
+}
+
+// alpha = rz / pAp, guarded; x += alpha p; r -= alpha Ap.
+__global__ void __launch_bounds__(kThreads) k6_cg_update(Gn6Problem p, Ws w, int it) {
+  const float pAp = sum_partials(w.part_a, n_blocks(p.N));
+  const float rz = w.rz[it];
+  const float alpha = pAp > kTiny ? rz / fmaxf(pAp, kTiny) : 0.f;
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  V6 x = ld6(p.x, n), r = ld6(w.r, n);
+  const V6 pv = ld6(w.p, n), ap = ld6(w.Ap, n);
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+    x.v[a] += alpha * pv.v[a];
+    r.v[a] -= alpha * ap.v[a];
+  }
+  st6(p.x, n, x);
+  st6(w.r, n, r);
+}
+
+// rz_new from the partials; p = z (init) or z + beta p; rz[it+1] = rz_new.
+__global__ void __launch_bounds__(kThreads) k6_cg_direction(Gn6Problem p, Ws w, int it,
+                                                            int init) {
+  const float rz_new = sum_partials(w.part_b, n_blocks(p.N));
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  float beta = 0.f;
+  if (!init) {
+    const float rz = w.rz[it];
+    beta = rz > kTiny ? rz_new / fmaxf(rz, kTiny) : 0.f;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) w.rz[init ? 0 : it + 1] = rz_new;
+  if (n >= p.N) return;
+  const V6 z = ld6(w.z, n);
+  if (init) {
+    st6(w.p, n, z);
+    return;
+  }
+  V6 pv = ld6(w.p, n);
+#pragma unroll
+  for (int a = 0; a < 6; ++a) pv.v[a] = z.v[a] + beta * pv.v[a];
+  st6(w.p, n, pv);
+}
+
+// out = poses * Exp(x) with R renormalized; out may be poses itself (each
+// thread owns its node).
+__global__ void __launch_bounds__(kThreads) k6_retract(Gn6Problem p, float* out) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  Pose q = se3_compose(ld_pose(p.poses, n), se3_exp(ld6(p.x, n)));
+  q.R = renorm(q.R);
+  st_pose(out, n, q);
+}
+
+// Cost of `poses` (gn6_kernel.py:687-714): squares on chain and prior rows,
+// Huber rho = 2 delta n - delta^2 (n = |rw|, where n > delta) on every loop
+// edge when delta > 0. Thread t takes chain edge t (t < c), loop edge t - c
+// (t < c + El) or the prior of node t - c - El; per-block partials go to
+// w.part_e and are summed in block order by k6_lm_decide / k6_cost_total.
+__global__ void __launch_bounds__(kThreads) k6_chi2(Gn6Problem p, Ws w, const float* poses) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  float e = 0.f;
+  if (t < p.c) {
+    const V6 rw = residual_edge(ld_pose(poses, t), ld_pose(poses, t + 1), ld_pose(p.cz, t),
+                                ld36(p.cW, t));
+    e = v6dot(rw, rw);
+  } else if (t < p.c + p.El) {
+    const int l = t - p.c;
+    const V6 rw = residual_edge(ld_pose(poses, p.li[l]), ld_pose(poses, p.lj[l]),
+                                ld_pose(p.lz, l), ld36(p.lW, l));
+    e = v6dot(rw, rw);
+    if (p.huber_delta > 0.f) {
+      const float nrm = sqrtf(fmaxf(e, 1e-24f));
+      if (!(nrm <= p.huber_delta)) e = 2.f * p.huber_delta * nrm - p.huber_delta * p.huber_delta;
+    }
+  } else if (t < p.c + p.El + p.N) {
+    const int n = t - p.c - p.El;
+    const V6 rp = m6vec(ld36(p.pW, n), se3_log(se3_between(ld_pose(p.pz, n), ld_pose(poses, n))));
+    e = v6dot(rp, rp);
+  }
+  block_sum_to(e, w.part_e);
+}
+
+__device__ __forceinline__ float cost_total(const Gn6Problem& p, const Ws& w) {
+  float acc = 0.f;
+  const int nb = n_blocks((long long)p.c + p.El + p.N);
+  for (int i = 0; i < nb; ++i) acc += w.part_e[i];
+  return acc;
+}
+
+// One thread: the cost from k6_chi2's partials into out[0].
+__global__ void k6_cost_total(Gn6Problem p, Ws w, float* out) { out[0] = cost_total(p, w); }
+
+struct LmParams {
+  float lam0, lam_factor, lam_min, lam_max, abs_tol, rel_tol;
+};
+
+// One thread: stats = [chi2(poses0), lam0, 0, 0].
+__global__ void k6_lm_init(Gn6Problem p, Ws w, LmParams q) {
+  p.stats[0] = cost_total(p, w);
+  p.stats[1] = q.lam0;
+  p.stats[2] = 0.f;
+  p.stats[3] = 0.f;
+}
+
+// One thread: accept or reject the candidate whose cost k6_chi2 just summed
+// (gn6_kernel.py:920-946). A NaN cost rejects; conv latches the _lm_loop
+// test with lam before its update.
+__global__ void k6_lm_decide(Gn6Problem p, Ws w, LmParams q) {
+  const float new_err = cost_total(p, w);
+  const float err = p.stats[0], lam = p.stats[1];
+  const bool accepted = new_err < err;
+  const float dec = err - new_err;
+  const bool conv = p.stats[3] != 0.f ||
+                    (accepted && (dec < q.abs_tol || dec < q.rel_tol * err)) ||
+                    lam >= q.lam_max;
+  p.stats[0] = accepted ? new_err : err;
+  p.stats[1] = accepted ? fmaxf(lam / q.lam_factor, q.lam_min)
+                        : fminf(lam * q.lam_factor, q.lam_max);
+  p.stats[2] += accepted ? 1.f : 0.f;
+  p.stats[3] = conv ? 1.f : 0.f;
+  w.acc[0] = accepted ? 1.f : 0.f;
+}
+
+// poses <- candidate where the last step was accepted.
+__global__ void __launch_bounds__(kThreads) k6_lm_select(Gn6Problem p, Ws w) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N || w.acc[0] == 0.f) return;
+  st_pose(p.poses, n, ld_pose(w.cand, n));
+}
+
+// ---------------------------------------------------------------------------
+// Host side: launch sequences
+// ---------------------------------------------------------------------------
+
+#define GN_CHECK()                                  \
+  do {                                              \
+    const cudaError_t err_ = cudaGetLastError();    \
+    if (err_ != cudaSuccess) return (int)err_;      \
+  } while (0)
+
+#define GN_TRY(expr)              \
+  do {                            \
+    const int rc_ = (expr);       \
+    if (rc_ != 0) return rc_;     \
+  } while (0)
+
+Ws ws_of(const Gn6Problem& p) { return layout(p.N, p.c, p.El, p.K, p.cg_max, p.ws); }
+
+int run_system(const Gn6Problem& p, const Ws& w, cudaStream_t s) {
+  const int E = p.c + p.El;
+  if (E > 0) {
+    k6_linearize<<<n_blocks(E), kThreads, 0, s>>>(p, w);
+    GN_CHECK();
+  }
+  k6_assemble<<<n_blocks(p.N), kThreads, 0, s>>>(p, w);
+  GN_CHECK();
+  return 0;
+}
+
+int run_factor(const Gn6Problem& p, const Ws& w, cudaStream_t s) {
+  for (int k = 0; k < p.K; ++k) {
+    const int src = (k - 1) & 1, dst = k & 1;
+    const float* Ds = k == 0 ? p.D : w.PD[src];
+    const float* Us = k == 0 ? p.U : w.PU[src];
+    const float* Ls = k == 0 ? nullptr : w.PL[src];
+    k6_pcr_factor<<<n_blocks(p.N), kThreads, 0, s>>>(p, w, k, Ds, Us, Ls, w.PD[dst], w.PU[dst],
+                                                    w.PL[dst], k == p.K - 1);
+    GN_CHECK();
+  }
+  return 0;
+}
+
+int run_precond(const Gn6Problem& p, const Ws& w, const float* in, float* out,
+                const float* rdot, float* part, cudaStream_t s) {
+  const float* src = in;
+  for (int k = 0; k < p.K; ++k) {
+    const bool last = k == p.K - 1;
+    float* dst = last ? out : w.t[k & 1];
+    k6_pcr_apply<<<n_blocks(p.N), kThreads, 0, s>>>(p, w, k, src, dst, last,
+                                                   last ? rdot : nullptr, last ? part : nullptr);
+    GN_CHECK();
+    src = dst;
+  }
+  return 0;
+}
+
+int run_cg(const Gn6Problem& p, const Ws& w, int cg_iters, int warm, cudaStream_t s) {
+  const int nb = n_blocks(p.N);
+  if (warm) {
+    k6_hvp<<<nb, kThreads, 0, s>>>(p, w, p.x, w.Ap, nullptr);
+    GN_CHECK();
+  }
+  k6_cg_init<<<nb, kThreads, 0, s>>>(p, w, warm);
+  GN_CHECK();
+  GN_TRY(run_precond(p, w, w.r, w.z, w.r, w.part_b, s));
+  k6_cg_direction<<<nb, kThreads, 0, s>>>(p, w, 0, 1);
+  GN_CHECK();
+  for (int it = 0; it < cg_iters; ++it) {
+    k6_hvp<<<nb, kThreads, 0, s>>>(p, w, w.p, w.Ap, w.part_a);
+    GN_CHECK();
+    k6_cg_update<<<nb, kThreads, 0, s>>>(p, w, it);
+    GN_CHECK();
+    GN_TRY(run_precond(p, w, w.r, w.z, w.r, w.part_b, s));
+    k6_cg_direction<<<nb, kThreads, 0, s>>>(p, w, it, 0);
+    GN_CHECK();
+  }
+  return 0;
+}
+
+int run_retract(const Gn6Problem& p, float* out, cudaStream_t s) {
+  k6_retract<<<n_blocks(p.N), kThreads, 0, s>>>(p, out);
+  GN_CHECK();
+  return 0;
+}
+
+int run_chi2(const Gn6Problem& p, const Ws& w, const float* poses, cudaStream_t s) {
+  k6_chi2<<<n_blocks((long long)p.c + p.El + p.N), kThreads, 0, s>>>(p, w, poses);
+  GN_CHECK();
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+long long gn6_ws_floats(int N, int c, int El, int K, int cg_max) {
+  return layout(N, c, El, K, cg_max, nullptr).total;
+}
+
+const char* gn6_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+int gn6_problem_size() { return (int)sizeof(Gn6Problem); }
+
+int gn6_system(const Gn6Problem* p) {
+  return run_system(*p, ws_of(*p), (cudaStream_t)p->stream);
+}
+
+int gn6_factor(const Gn6Problem* p) {
+  return run_factor(*p, ws_of(*p), (cudaStream_t)p->stream);
+}
+
+int gn6_precond(const Gn6Problem* p, const float* in, float* out) {
+  return run_precond(*p, ws_of(*p), in, out, nullptr, nullptr, (cudaStream_t)p->stream);
+}
+
+int gn6_cg(const Gn6Problem* p, int cg_iters, int warm) {
+  if (cg_iters > p->cg_max) return (int)cudaErrorInvalidValue;
+  return run_cg(*p, ws_of(*p), cg_iters, warm, (cudaStream_t)p->stream);
+}
+
+int gn6_retract(const Gn6Problem* p) {
+  return run_retract(*p, p->poses, (cudaStream_t)p->stream);
+}
+
+// The cost of `poses` (N, 12) into out[0]: K4's LM cost pass on its own.
+int gn6_chi2(const Gn6Problem* pp, const float* poses, float* out) {
+  const Gn6Problem& p = *pp;
+  const Ws w = ws_of(p);
+  const cudaStream_t s = (cudaStream_t)p.stream;
+  GN_TRY(run_chi2(p, w, poses, s));
+  k6_cost_total<<<1, 1, 0, s>>>(p, w, out);
+  GN_CHECK();
+  return 0;
+}
+
+// K5: exact-K PCR factor and a cold CG of cg_iters on the caller's D, U, b
+// and loop blocks p->lA; the solution lands in p->x.
+int gn6_pcg(const Gn6Problem* pp, int cg_iters) {
+  const Gn6Problem& p = *pp;
+  if (cg_iters > p.cg_max) return (int)cudaErrorInvalidValue;
+  const Ws w = ws_of(p);
+  const cudaStream_t s = (cudaStream_t)p.stream;
+  GN_TRY(run_factor(p, w, s));
+  return run_cg(p, w, cg_iters, 0, s);
+}
+
+// K4's LM mode (gn6_kernel.py:917-955): `iterations` damped steps, each a
+// cold CG of cg_iters, a candidate, its cost and the accept/reject; the
+// stats [chi2, lam, n_acc, conv] stay in p->stats. No host synchronization.
+int gn6_lm_solve(const Gn6Problem* pp, int iterations, int cg_iters, float lam0,
+                 float lam_factor, float lam_min, float lam_max, float abs_tol,
+                 float rel_tol) {
+  const Gn6Problem& p = *pp;
+  if (cg_iters > p.cg_max || !p.stats || p.lA) return (int)cudaErrorInvalidValue;
+  const Ws w = ws_of(p);
+  const cudaStream_t s = (cudaStream_t)p.stream;
+  const LmParams q{lam0, lam_factor, lam_min, lam_max, abs_tol, rel_tol};
+  const int nb = n_blocks(p.N);
+  GN_TRY(run_chi2(p, w, p.poses, s));
+  k6_lm_init<<<1, 1, 0, s>>>(p, w, q);
+  GN_CHECK();
+  for (int i = 0; i < iterations; ++i) {
+    GN_TRY(run_system(p, w, s));
+    GN_TRY(run_factor(p, w, s));
+    GN_TRY(run_cg(p, w, cg_iters, 0, s));
+    GN_TRY(run_retract(p, w.cand, s));
+    GN_TRY(run_chi2(p, w, w.cand, s));
+    k6_lm_decide<<<1, 1, 0, s>>>(p, w, q);
+    GN_CHECK();
+    k6_lm_select<<<nb, kThreads, 0, s>>>(p, w);
+    GN_CHECK();
+  }
+  return 0;
+}
+
+// Whole GN solve: phases of (iterations, cg_iters); x starts at zero and,
+// with warm, seeds each CG from the previous GN step's dx.
+int gn6_solve(const Gn6Problem* pp, int n_phases, const int* phase_iters, const int* phase_cg,
+              int warm) {
+  const Gn6Problem& p = *pp;
+  const Ws w = ws_of(p);
+  const cudaStream_t s = (cudaStream_t)p.stream;
+  if (cudaMemsetAsync(p.x, 0, sizeof(float) * 6 * (size_t)p.N, s) != cudaSuccess)
+    return (int)cudaGetLastError();
+  for (int ph = 0; ph < n_phases; ++ph) {
+    if (phase_cg[ph] > p.cg_max) return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < phase_iters[ph]; ++i) {
+      GN_TRY(run_system(p, w, s));
+      GN_TRY(run_factor(p, w, s));
+      GN_TRY(run_cg(p, w, phase_cg[ph], warm, s));
+      GN_TRY(run_retract(p, p.poses, s));
+    }
+  }
+  return 0;
+}
+
+}  // extern "C"

@@ -1,9 +1,9 @@
 """Batched whitened residuals + Jacobians for prior/between factors.
 
-Port of graphslam_tpu/factors/linearize.py, SE(2) only. Residuals are Lie
-local coordinates r = Log(z^-1 · x_i^-1 · x_j) (gtsam::BetweenFactor
-semantics); the Jacobians are the analytic right-perturbation ones. SE(3)
-waits for the SE(3) slice (ROADMAP.md, module queue item 9).
+Port of graphslam_tpu/factors/linearize.py, SE(2) (T = 3) and SE(3)
+(T = 6). Residuals are Lie local coordinates r = Log(z^-1 · x_i^-1 · x_j)
+(gtsam::BetweenFactor semantics); the Jacobians are the analytic
+right-perturbation ones, with the Barfoot-Q inverse Jacobian in SE(3).
 """
 
 from __future__ import annotations
@@ -13,15 +13,16 @@ from typing import NamedTuple
 import torch
 
 from graphslam_tpu_torch.factors.graph import FactorGraph
-from graphslam_tpu_torch.geometry import se2
+from graphslam_tpu_torch.geometry import se2, se3
 
 
 def group_for(tangent_dim: int):
+    """The geometry module of a tangent dimension: se2 (3) or se3 (6)."""
     if tangent_dim == 3:
         return se2
-    raise NotImplementedError(
-        "SE(3) factors are not ported yet (ROADMAP.md Queue 1, item 9: SE(3))"
-    )
+    if tangent_dim == 6:
+        return se3
+    raise ValueError(f"no pose group has tangent dimension {tangent_dim} (SE(2): 3, SE(3): 6)")
 
 
 class Linearization(NamedTuple):
@@ -97,17 +98,17 @@ def linearize_edges(
 ):
     """Whitened (r, Ji, Jj) for an arbitrary slice of between-edges.
 
-    Analytic SE(2): r = Log(z^-1 h) with h = x_i^-1 x_j;
+    Analytic in SE(2) and SE(3): r = Log(z^-1 h) with h = x_i^-1 x_j;
       dr/d(delta_j) =  Jr^{-1}(r)
       dr/d(delta_i) = -Jr^{-1}(r) Ad(h^-1)
     """
-    group_for(sqrt_info.shape[-1])
+    g = group_for(sqrt_info.shape[-1])
     xi = poses[edges[:, 0].long()]
     xj = poses[edges[:, 1].long()]
-    h = se2.between(xi, xj)
-    r = se2.log(se2.between(measurements, h))
-    Jr_inv = se2.right_jacobian_inv(r)
-    Ad_hinv = se2.adjoint(se2.inverse(h))
+    h = g.between(xi, xj)
+    r = g.log(g.between(measurements, h))
+    Jr_inv = g.right_jacobian_inv(r)
+    Ad_hinv = g.adjoint(g.inverse(h))
     Jj = Jr_inv
     Ji = -torch.einsum("eab,ebc->eac", Jr_inv, Ad_hinv)
 
@@ -128,10 +129,10 @@ def linearize_priors(
     prior_mask: torch.Tensor,
 ):
     """Whitened (rp, Jp) for the prior factors."""
-    group_for(prior_sqrt_info.shape[-1])
+    g = group_for(prior_sqrt_info.shape[-1])
     xp = poses[prior_idx.long()]
-    rp = se2.log(se2.between(prior_meas, xp))
-    Jp = se2.right_jacobian_inv(rp)
+    rp = g.log(g.between(prior_meas, xp))
+    Jp = g.right_jacobian_inv(rp)
     rpw = torch.einsum("pab,pb->pa", prior_sqrt_info, rp)
     Jpw = torch.einsum("pab,pbc->pac", prior_sqrt_info, Jp)
     pm = prior_mask[:, None].to(poses.dtype)

@@ -1,6 +1,3 @@
-"""Batched Lie-group geometry on torch tensors (SO(2), SE(2)).
+"""Batched Lie-group geometry on torch tensors: SO(2), SE(2), SO(3), SE(3)."""
 
-SO(3)/SE(3) wait for the SE(3) slice (ROADMAP.md, module queue).
-"""
-
-from graphslam_tpu_torch.geometry import se2, so2  # noqa: F401
+from graphslam_tpu_torch.geometry import se2, se3, so2, so3  # noqa: F401

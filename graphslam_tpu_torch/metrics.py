@@ -1,16 +1,16 @@
-"""Trajectory evaluation: ATE / RPE for SE(2) (port of graphslam_tpu/metrics.py)."""
+"""Trajectory evaluation: ATE / RPE for SE(2) and SE(3) (port of graphslam_tpu/metrics.py)."""
 
 from __future__ import annotations
 
 import torch
 
-from graphslam_tpu_torch.geometry import se2
+from graphslam_tpu_torch.geometry import se2, se3
 
 
 def _positions(poses: torch.Tensor) -> torch.Tensor:
     if poses.shape[-1] == 3:  # SE2 [x,y,theta]
         return poses[..., :2]
-    raise NotImplementedError("SE(3) metrics wait for the SE(3) slice (ROADMAP.md)")
+    return se3.trans(poses)  # SE3 flat [R|t]
 
 
 def align_umeyama(est: torch.Tensor, ref: torch.Tensor):
@@ -31,7 +31,8 @@ def align_umeyama(est: torch.Tensor, ref: torch.Tensor):
 
 
 def ate(estimate: torch.Tensor, reference: torch.Tensor, align: bool = True) -> torch.Tensor:
-    """Absolute trajectory error: RMSE of positions after rigid alignment."""
+    """Absolute trajectory error: RMSE of positions after rigid alignment.
+    Accepts SE(2) (N, 3) or SE(3) (N, 12) poses."""
     p_est = _positions(estimate)
     p_ref = _positions(reference)
     if align:
@@ -43,8 +44,12 @@ def ate(estimate: torch.Tensor, reference: torch.Tensor, align: bool = True) -> 
 
 def rpe(estimate: torch.Tensor, reference: torch.Tensor, delta: int = 1) -> torch.Tensor:
     """Relative pose error over index offset `delta` (translation RMSE)."""
-    _positions(estimate)
-    rel_e = se2.between(estimate[:-delta], estimate[delta:])
-    rel_r = se2.between(reference[:-delta], reference[delta:])
-    dt = rel_e[..., :2] - rel_r[..., :2]
+    if estimate.shape[-1] == 3:
+        rel_e = se2.between(estimate[:-delta], estimate[delta:])
+        rel_r = se2.between(reference[:-delta], reference[delta:])
+        dt = rel_e[..., :2] - rel_r[..., :2]
+    else:
+        rel_e = se3.between(estimate[:-delta], estimate[delta:])
+        rel_r = se3.between(reference[:-delta], reference[delta:])
+        dt = se3.trans(rel_e) - se3.trans(rel_r)
     return torch.sqrt(torch.mean(torch.sum(dt * dt, dim=-1)))

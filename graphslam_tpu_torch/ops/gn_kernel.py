@@ -48,14 +48,14 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from graphslam_tpu_torch.geometry import se2
 from graphslam_tpu_torch.ops.pcg_kernel import _shift_blocks, pcr_apply_reference, pcr_levels_for
 
-_EPS = 3e-4       # PCR ridge of the kernel (graphslam_tpu gn_kernel.py:1102)
+_EPS = 3e-4       # PCR ridge (graphslam_tpu gn_kernel.py:1102, gn6_kernel.py:1138)
 _TINY = 1e-30     # Krylov-exhaustion guard threshold
 _TWO_PI = 2.0 * math.pi
 
@@ -117,8 +117,9 @@ def pack_graph(graph, N: int) -> PackedGraph:
     )
 
 
-def loop_csr(pk: PackedGraph) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Each node's incident live loop edges in ascending edge order.
+def loop_csr(pk) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each node's incident live loop edges in ascending edge order, for a
+    PackedGraph (or the SE(3) kernel's PackedGraph6).
 
     Returns (ptr (N+1,) int32, ent (2*El,) int32): node n's entries are
     ent[ptr[n]:ptr[n+1]], each 2*l + side with side 0 when n is edge l's i
@@ -278,7 +279,7 @@ def system_reference(
 
 def _damp(D: torch.Tensor, lam) -> torch.Tensor:
     """D with its diagonal entries times (1 + lam), as the kernel scales them."""
-    eye = torch.eye(3, dtype=torch.bool, device=D.device)
+    eye = torch.eye(D.shape[-1], dtype=torch.bool, device=D.device)
     return torch.where(eye, D * (1.0 + lam), D)
 
 
@@ -304,15 +305,17 @@ def _binv(M: torch.Tensor) -> torch.Tensor:
     return adj * (1.0 / det)[..., None]
 
 
-def pcr_factor_reference(D: torch.Tensor, U: torch.Tensor, K: int, eps: float = _EPS):
+def pcr_factor_reference(D: torch.Tensor, U: torch.Tensor, K: int, eps: float = _EPS,
+                         ridge=_ridge, binv=_binv):
     """K-level PCR factor with the kernel's ridge and inverse
-    (gn_kernel.py:340-368). Returns (A (K,N,3,3), G (K,N,3,3), Dinv (N,3,3))."""
+    (gn_kernel.py:340-368). Returns (A (K,N,T,T), G (K,N,T,T), Dinv (N,T,T)).
+    `ridge` and `binv` are the T=3 ones; the SE(3) kernel passes its own."""
     L = _shift_blocks(U.transpose(-1, -2), 1)  # L[n] = U[n-1]^T
     A_steps, G_steps = [], []
     for k in range(K):
         h = 1 << k
-        D = _ridge(D, eps)
-        Dinv = _binv(D)
+        D = ridge(D, eps)
+        Dinv = binv(D)
         alpha = _mm(L, _shift_blocks(Dinv, h))
         gamma = _mm(U, _shift_blocks(Dinv, -h))
         A_steps.append(alpha)
@@ -320,7 +323,7 @@ def pcr_factor_reference(D: torch.Tensor, U: torch.Tensor, K: int, eps: float = 
         D = D - _mm(alpha, _shift_blocks(U, h)) - _mm(gamma, _shift_blocks(L, -h))
         L = -_mm(alpha, _shift_blocks(L, h))
         U = -_mm(gamma, _shift_blocks(U, -h))
-    return torch.stack(A_steps), torch.stack(G_steps), _binv(_ridge(D, eps))
+    return torch.stack(A_steps), torch.stack(G_steps), binv(ridge(D, eps))
 
 
 def hvp_reference(sysm: GnSystem, pk: PackedGraph, v: torch.Tensor) -> torch.Tensor:
@@ -368,6 +371,36 @@ def retract_reference(poses: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return _compose(poses, _exp(x))
 
 
+class Stages(NamedTuple):
+    """The plain stages of one fused kernel: pack(graph, N), system(poses,
+    pk, huber_delta, lam), factor(D, U, K), retract(poses, x) and
+    chi2(poses, pk, huber_delta). The GN and LM loops below run on the
+    SE(2) ones (here) or the SE(3) ones (ops/gn6_kernel.py)."""
+
+    pack: Callable
+    system: Callable
+    factor: Callable
+    retract: Callable
+    chi2: Callable
+
+
+def gn_loop_reference(st: Stages, poses0, graph, iterations: int, cg_iters: int,
+                      huber_delta: float, pcr_levels: Optional[int], warm_start: bool,
+                      cg_ramp) -> torch.Tensor:
+    """The fused kernels' GN loop on plain stages (gn_kernel.py:892-915)."""
+    N = poses0.shape[0]
+    pk = st.pack(graph, N)
+    K = pcr_levels_for(N, pcr_levels)
+    poses, x = poses0, None
+    for n_k, cg_k in _phases(iterations, cg_iters, cg_ramp):
+        for _ in range(n_k):
+            sysm = st.system(poses, pk, huber_delta)
+            factor = st.factor(sysm.D, sysm.U, K)
+            x = cg_reference(sysm, pk, factor, cg_k, x if warm_start else None)
+            poses = st.retract(poses, x)
+    return poses
+
+
 def fused_gn_solve_reference(
     poses0: torch.Tensor,
     graph,
@@ -381,18 +414,8 @@ def fused_gn_solve_reference(
     cg_ramp: Optional[Sequence[Tuple[int, int]]] = None,
 ) -> torch.Tensor:
     """Plain torch twin of the fused GN kernel, same arguments and result."""
-    N = poses0.shape[0]
-    pk = pack_graph(graph, N)
-    K = pcr_levels_for(N, pcr_levels)
-    poses = poses0
-    x = torch.zeros_like(poses0)
-    for n_k, cg_k in _phases(iterations, cg_iters, cg_ramp):
-        for _ in range(n_k):
-            sysm = system_reference(poses, pk, huber_delta)
-            factor = pcr_factor_reference(sysm.D, sysm.U, K)
-            x = cg_reference(sysm, pk, factor, cg_k, x if warm_start else None)
-            poses = retract_reference(poses, x)
-    return poses
+    return gn_loop_reference(SE2_STAGES, poses0, graph, iterations, cg_iters, huber_delta,
+                             pcr_levels, warm_start, cg_ramp)
 
 
 def _residual(xi, xj, z, R):
@@ -439,20 +462,28 @@ def fused_lm_solve_reference(
     """Plain torch twin of the kernel's LM mode (gn_kernel.py:911-946), same
     arguments and result: (poses, chi2, lam, accepted steps, converged), the
     last four () float tensors. No host read."""
+    return lm_loop_reference(SE2_STAGES, poses0, graph, iterations, cg_iters, huber_delta, lam0,
+                             lam_factor, lam_min, lam_max, pcr_levels, abs_tol, rel_tol)
+
+
+def lm_loop_reference(st: Stages, poses0, graph, iterations: int, cg_iters: int,
+                      huber_delta: float, lam0: float, lam_factor: float, lam_min: float,
+                      lam_max: float, pcr_levels: Optional[int], abs_tol: float, rel_tol: float):
+    """The fused kernels' LM loop on plain stages (gn_kernel.py:911-946)."""
     N = poses0.shape[0]
-    pk = pack_graph(graph, N)
+    pk = st.pack(graph, N)
     K = pcr_levels_for(N, pcr_levels)
     dtype, dev = poses0.dtype, poses0.device
     poses = poses0
-    err = chi2_reference(poses, pk, huber_delta)
+    err = st.chi2(poses, pk, huber_delta)
     lam = torch.tensor(lam0, dtype=dtype, device=dev)
     n_acc = torch.zeros((), dtype=dtype, device=dev)
     conv = torch.zeros((), dtype=torch.bool, device=dev)
     for _ in range(iterations):
-        sysm = system_reference(poses, pk, huber_delta, lam)
-        x = cg_reference(sysm, pk, pcr_factor_reference(sysm.D, sysm.U, K), cg_iters)
-        cand = retract_reference(poses, x)
-        new_err = chi2_reference(cand, pk, huber_delta)
+        sysm = st.system(poses, pk, huber_delta, lam)
+        x = cg_reference(sysm, pk, st.factor(sysm.D, sysm.U, K), cg_iters)
+        cand = st.retract(poses, x)
+        new_err = st.chi2(cand, pk, huber_delta)
         accepted = new_err < err
         poses = torch.where(accepted, cand, poses)
         dec = err - new_err
@@ -462,6 +493,10 @@ def fused_lm_solve_reference(
         err = torch.where(accepted, new_err, err)
         n_acc = n_acc + accepted.to(dtype)
     return poses, err, lam, n_acc, conv.to(dtype)
+
+
+SE2_STAGES = Stages(pack_graph, system_reference, pcr_factor_reference, retract_reference,
+                    chi2_reference)
 
 
 # ---------------------------------------------------------------------------
@@ -481,45 +516,60 @@ class _Problem(ctypes.Structure):
     ]
 
 
-def _lib():
+_ENTRY_ARGS = (
+    ("system", []), ("factor", []), ("retract", []),
+    ("precond", [ctypes.c_void_p, ctypes.c_void_p]),
+    ("cg", [ctypes.c_int, ctypes.c_int]),
+    ("solve", [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]),
+    ("chi2", [ctypes.c_void_p, ctypes.c_void_p]),
+    ("pcg", [ctypes.c_int]),
+    ("lm_solve", [ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 6),
+)
+
+
+def load_lib(name: str, prefix: str, problem) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu, declare its `<prefix>_*`
+    entry points and check its problem struct's size against the ctypes
+    mirror `problem` (csrc/gn_kernel.cu and csrc/gn6_kernel.cu have the
+    same interface over 3x3 and 6x6 blocks)."""
     from graphslam_tpu_torch.ops import _build
 
-    lib = _build.load("gn_kernel")
-    P = ctypes.POINTER(_Problem)
-    lib.gn_ws_floats.argtypes = [ctypes.c_int] * 5
-    lib.gn_ws_floats.restype = ctypes.c_longlong
-    lib.gn_problem_size.argtypes = []
-    lib.gn_problem_size.restype = ctypes.c_int
-    for fn, extra in (
-        ("gn_system", []), ("gn_factor", []), ("gn_retract", []),
-        ("gn_precond", [ctypes.c_void_p, ctypes.c_void_p]),
-        ("gn_cg", [ctypes.c_int, ctypes.c_int]),
-        ("gn_solve", [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]),
-        ("gn_chi2", [ctypes.c_void_p, ctypes.c_void_p]),
-        ("gn_pcg", [ctypes.c_int]),
-        ("gn_lm_solve", [ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 6),
-    ):
-        f = getattr(lib, fn)
-        f.argtypes = [P] + extra
-        f.restype = ctypes.c_int
-    lib.gn_error_string.argtypes = [ctypes.c_int]
-    lib.gn_error_string.restype = ctypes.c_char_p
-    if lib.gn_problem_size() != ctypes.sizeof(_Problem):
+    lib = _build.load(name)
+    P = ctypes.POINTER(problem)
+
+    def entry(fn):
+        return getattr(lib, f"{prefix}_{fn}")
+
+    entry("ws_floats").argtypes = [ctypes.c_int] * 5
+    entry("ws_floats").restype = ctypes.c_longlong
+    entry("problem_size").argtypes = []
+    entry("problem_size").restype = ctypes.c_int
+    for fn, extra in _ENTRY_ARGS:
+        entry(fn).argtypes = [P] + extra
+        entry(fn).restype = ctypes.c_int
+    entry("error_string").argtypes = [ctypes.c_int]
+    entry("error_string").restype = ctypes.c_char_p
+    if entry("problem_size")() != ctypes.sizeof(problem):
         raise RuntimeError(
-            f"struct GnProblem is {lib.gn_problem_size()} bytes in csrc/gn_kernel.cu but "
-            f"{ctypes.sizeof(_Problem)} in ops/gn_kernel.py::_Problem: the fields differ"
+            f"the problem struct is {entry('problem_size')()} bytes in csrc/{name}.cu but "
+            f"{ctypes.sizeof(problem)} in its ctypes mirror {problem.__qualname__}: "
+            "the fields differ"
         )
     return lib
 
 
-def call(lib, prob: _Problem, device: torch.device, fn: str, *args) -> None:
+def _lib():
+    return load_lib("gn_kernel", "gn", _Problem)
+
+
+def call(lib, prob, device: torch.device, fn: str, *args) -> None:
     """Run lib.<fn>(&prob, *args) on the device's current stream; raise on a
     CUDA error."""
     prob.stream = torch.cuda.current_stream(device).cuda_stream
     rc = getattr(lib, fn)(ctypes.byref(prob), *args)
     if rc != 0:
-        msg = lib.gn_error_string(rc).decode()
-        raise RuntimeError(f"gn_kernel.{fn} failed: CUDA error {rc} ({msg})")
+        msg = getattr(lib, f"{fn.split('_', 1)[0]}_error_string")(rc).decode()
+        raise RuntimeError(f"{fn} failed: CUDA error {rc} ({msg})")
 
 
 def _check_f32(name: str, t: torch.Tensor, shape, device) -> None:
@@ -536,47 +586,56 @@ class GnKernel:
     `solve` runs whole GN phases and `lm_solve` LM iterations; `system`,
     `factor`, `precond`, `cg`, `retract` and `chi2` run one stage each on
     the same buffers, so that a check can hold every stage against its plain
-    twin. Results: D, U (N,3,3), b, x (N,3), poses (N,3) and, with lm, the
+    twin. Results: D, U (N,T,T), b, x (N,T), poses (N,P) and, with lm, the
     stats [chi2, lam, accepted steps, converged] (4,), updated in place.
     With lm, `system` damps D's diagonal by (1 + stats[1]).
+
+    T = 3, P = 3 (SE(2), csrc/gn_kernel.cu); ops/gn6_kernel.py::Gn6Kernel
+    sets T = 6, P = 12 (SE(3), csrc/gn6_kernel.cu), whose C interface is
+    the same.
     """
+
+    T, P, PREFIX = 3, 3, "gn"
+    Problem = _Problem
+    load = staticmethod(_lib)
+    pack = staticmethod(pack_graph)
 
     def __init__(self, poses: torch.Tensor, graph, huber_delta: float = -1.0,
                  pcr_levels: Optional[int] = None, cg_max: int = 25, lm: bool = False):
+        name, T, P = type(self).__name__, self.T, self.P
         if poses.device.type != "cuda":
-            raise ValueError(f"GnKernel needs CUDA tensors, got {poses.device}")
-        if graph.tangent_dim != 3 or poses.ndim != 2 or poses.shape[1] != 3:
-            raise ValueError("the fused GN kernel supports SE(2) (N, 3) poses only")
+            raise ValueError(f"{name} needs CUDA tensors, got {poses.device}")
+        if graph.tangent_dim != T or poses.ndim != 2 or poses.shape[1] != P:
+            raise ValueError(f"{name} takes (N, {P}) poses of a graph with tangent dim {T}")
         N = poses.shape[0]
         dev = poses.device
         if graph.device != dev:
             raise ValueError(f"graph on {graph.device}, poses on {dev}")
-        _check_f32("poses", poses, (N, 3), dev)
+        _check_f32("poses", poses, (N, P), dev)
         # the kernel indexes poses by these without bounds checks
         ids = torch.cat([graph.edges.reshape(-1), graph.prior_idx])
         if not bool(((ids >= 0) & (ids < N)).all()):
             raise ValueError(f"edge or prior node ids outside [0, {N})")
-        self.lib = _lib()
-        self.pk = pack_graph(graph, N)
-        self.csr_ptr, self.csr_ent = loop_csr(self.pk)
+        self.lib = self.load()
+        self.pk = pk = self.pack(graph, N)
+        self.csr_ptr, self.csr_ent = loop_csr(pk)
         self.K = pcr_levels_for(N, pcr_levels)
         self.cg_max = int(cg_max)
         self.poses = poses.clone().contiguous()
-        self.D = torch.empty((N, 3, 3), dtype=torch.float32, device=dev)
+        self.D = torch.empty((N, T, T), dtype=torch.float32, device=dev)
         self.U = torch.empty_like(self.D)
-        self.b = torch.empty((N, 3), dtype=torch.float32, device=dev)
+        self.b = torch.empty((N, T), dtype=torch.float32, device=dev)
         self.x = torch.zeros_like(self.b)
         self.stats = torch.zeros(4, dtype=torch.float32, device=dev) if lm else None
-        n_ws = self.lib.gn_ws_floats(N, self.pk.c, self.pk.El, self.K, self.cg_max)
+        n_ws = self._entry("ws_floats")(N, pk.c, pk.El, self.K, self.cg_max)
         self.ws = torch.empty(int(n_ws), dtype=torch.float32, device=dev)
-        pk = self.pk
-        for name, t, shape in (
-            ("chain z", pk.chain_z, (pk.c, 3)), ("chain R", pk.chain_R, (pk.c, 3, 3)),
-            ("prior z", pk.prior_z, (N, 3)), ("prior R", pk.prior_R, (N, 3, 3)),
-            ("loop z", pk.loop_z, (pk.El, 3)), ("loop R", pk.loop_R, (pk.El, 3, 3)),
+        for label, t, shape in (
+            ("chain z", pk.chain_z, (pk.c, P)), ("chain R", pk.chain_R, (pk.c, T, T)),
+            ("prior z", pk.prior_z, (N, P)), ("prior R", pk.prior_R, (N, T, T)),
+            ("loop z", pk.loop_z, (pk.El, P)), ("loop R", pk.loop_R, (pk.El, T, T)),
         ):
-            _check_f32(name, t, shape, dev)
-        self.prob = _Problem(
+            _check_f32(label, t, shape, dev)
+        self.prob = self.Problem(
             *(t.data_ptr() for t in (
                 self.poses, pk.chain_z, pk.chain_R, pk.prior_z, pk.prior_R,
                 pk.loop_i, pk.loop_j, pk.loop_z, pk.loop_R,
@@ -586,56 +645,59 @@ class GnKernel:
             N, pk.c, pk.El, self.K, self.cg_max, _EPS, float(huber_delta),
         )
 
+    def _entry(self, fn: str):
+        return getattr(self.lib, f"{self.PREFIX}_{fn}")
+
     def _call(self, fn: str, *args) -> None:
-        call(self.lib, self.prob, self.poses.device, fn, *args)
+        call(self.lib, self.prob, self.poses.device, f"{self.PREFIX}_{fn}", *args)
 
     def system(self) -> None:
-        self._call("gn_system")
+        self._call("system")
 
     def factor(self) -> None:
-        self._call("gn_factor")
+        self._call("factor")
 
     def precond(self, v: torch.Tensor) -> torch.Tensor:
         _check_f32("v", v, self.b.shape, self.b.device)
         v = v.contiguous()
         out = torch.empty_like(v)
-        self._call("gn_precond", v.data_ptr(), out.data_ptr())
+        self._call("precond", v.data_ptr(), out.data_ptr())
         return out
 
     def cg(self, cg_iters: int, warm_start: bool = False) -> None:
         if not 0 <= cg_iters <= self.cg_max:
             raise ValueError(f"cg_iters {cg_iters} outside [0, {self.cg_max}]")
-        self._call("gn_cg", int(cg_iters), int(warm_start))
+        self._call("cg", int(cg_iters), int(warm_start))
 
     def retract(self) -> None:
-        self._call("gn_retract")
+        self._call("retract")
 
     def solve(self, phases: Sequence[Tuple[int, int]], warm_start: bool) -> torch.Tensor:
         if any(cg > self.cg_max or cg < 0 or n < 0 for n, cg in phases):
             raise ValueError(f"phases {phases} outside cg_max {self.cg_max}")
         n_arr = (ctypes.c_int * len(phases))(*(n for n, _ in phases))
         cg_arr = (ctypes.c_int * len(phases))(*(cg for _, cg in phases))
-        self._call("gn_solve", len(phases), ctypes.addressof(n_arr),
-                   ctypes.addressof(cg_arr), int(warm_start))
+        self._call("solve", len(phases), ctypes.addressof(n_arr), ctypes.addressof(cg_arr),
+                   int(warm_start))
         return self.poses
 
     def chi2(self, poses: torch.Tensor) -> torch.Tensor:
-        """The LM cost of `poses` (N, 3) on the card, a (1,) tensor."""
+        """The LM cost of `poses` (N, P) on the card, a (1,) tensor."""
         _check_f32("poses", poses, self.poses.shape, self.poses.device)
         poses = poses.contiguous()
         out = torch.empty(1, dtype=torch.float32, device=poses.device)
-        self._call("gn_chi2", poses.data_ptr(), out.data_ptr())
+        self._call("chi2", poses.data_ptr(), out.data_ptr())
         return out
 
     def lm_solve(self, iterations: int, cg_iters: int, lam0: float, lam_factor: float,
                  lam_min: float, lam_max: float, abs_tol: float, rel_tol: float) -> torch.Tensor:
         """`iterations` LM steps from the current poses; returns the stats."""
         if self.stats is None:
-            raise ValueError("lm_solve needs a GnKernel built with lm=True")
+            raise ValueError(f"lm_solve needs a {type(self).__name__} built with lm=True")
         if not 0 <= cg_iters <= self.cg_max or iterations < 0:
             raise ValueError(f"cg_iters {cg_iters} outside [0, {self.cg_max}] "
                              f"or iterations {iterations} < 0")
-        self._call("gn_lm_solve", int(iterations), int(cg_iters), *(
+        self._call("lm_solve", int(iterations), int(cg_iters), *(
             float(v) for v in (lam0, lam_factor, lam_min, lam_max, abs_tol, rel_tol)))
         return self.stats
 

@@ -117,17 +117,18 @@ class _Loops(NamedTuple):
     El: int
 
 
-def _chain_and_loops(sys, lam, lm_diag_scaling: bool, chain_prefix: int):
-    """(damped D, chain U, b, loop i, loop j, loop blocks) of a BlockSystem:
-    U[k] = Aij[k] for the chain edges k < c = min(chain_prefix, N-1), which
-    couple (k, k+1); every later edge is a loop edge."""
+def _chain_and_loops(sys, lam, lm_diag_scaling: bool, chain_prefix: int, T: int = 3):
+    """(damped D, chain U, b, loop i, loop j, loop blocks) of a BlockSystem
+    of T x T blocks: U[k] = Aij[k] for the chain edges k < c =
+    min(chain_prefix, N-1), which couple (k, k+1); every later edge is a
+    loop edge. Raises unless the system's blocks are T x T."""
     from graphslam_tpu_torch.solver.normal_eq import _damped_diag
 
-    N, T = sys.g.shape
-    if T != 3:
-        raise ValueError(f"fused_pcg_solve supports T=3 (SE(2)) only, got T={T}")
+    N, Tg = sys.g.shape
+    if Tg != T:
+        raise ValueError(f"expected a BlockSystem of T={T} blocks, got T={Tg}")
     c = min(chain_prefix, N - 1)
-    U = torch.zeros((N, 3, 3), dtype=sys.g.dtype, device=sys.g.device)
+    U = torch.zeros((N, T, T), dtype=sys.g.dtype, device=sys.g.device)
     U[:c] = sys.Aij[:c]
     D = _damped_diag(sys, lam, lm_diag_scaling)
     li = sys.edges[c:, 0].to(torch.int32).contiguous()
@@ -174,23 +175,33 @@ fused_pcg_solve.launches = 0
 
 class PcgKernel:
     """K3's problem on the card (csrc/gn_kernel.cu `gn_pcg`) with its
-    buffers: exact-K PCR of the chain system (D (N,3,3) damped, U (N,3,3)),
+    buffers: exact-K PCR of the chain system (D (N,T,T) damped, U (N,T,T)),
     then max_iters cold guarded CG iterations with the loop blocks A
-    (El,3,3) of edges (li, lj), on b (N,3). `solve` launches it and returns
-    x (N,3). No host read: the edge ids are checked on the device
-    (`torch._assert_async`). Raises for tensors not on a CUDA device."""
+    (El,T,T) of edges (li, lj), on b (N,T). `solve` launches it and returns
+    x (N,T). No host read: the edge ids are checked on the device
+    (`torch._assert_async`). Raises for tensors not on a CUDA device.
+    T = 3 here; ops/pcg6_kernel.py::Pcg6Kernel is K5 at T = 6, the same
+    launches in csrc/gn6_kernel.cu."""
+
+    @staticmethod
+    def fused():
+        """The fused GN kernel's wrapper class whose library runs this CG."""
+        from graphslam_tpu_torch.ops import gn_kernel as gk
+
+        return gk.GnKernel
 
     def __init__(self, D, U, b, li, lj, A, max_iters: int):
         from graphslam_tpu_torch.ops import gn_kernel as gk
 
-        N, dev = D.shape[0], D.device
+        F = self.fused()
+        N, dev, T = D.shape[0], D.device, F.T
         if dev.type != "cuda":
-            raise ValueError(f"PcgKernel needs CUDA tensors, got {dev}")
+            raise ValueError(f"{type(self).__name__} needs CUDA tensors, got {dev}")
         if max_iters < 0:
             raise ValueError(f"max_iters {max_iters} < 0")
         El = li.shape[0]
-        for name, t, shape in (("D", D, (N, 3, 3)), ("U", U, (N, 3, 3)), ("b", b, (N, 3)),
-                               ("Aij", A, (El, 3, 3))):
+        for name, t, shape in (("D", D, (N, T, T)), ("U", U, (N, T, T)), ("b", b, (N, T)),
+                               ("Aij", A, (El, T, T))):
             gk._check_f32(name, t, shape, dev)
         for name, t in (("li", li), ("lj", lj)):
             if t.device != dev or t.dtype != torch.int32 or tuple(t.shape) != (El,):
@@ -198,15 +209,16 @@ class PcgKernel:
                                  f"{t.dtype} {tuple(t.shape)} on {t.device}")
         # the kernel indexes by these without bounds checks
         torch._assert_async(((li >= 0) & (li < N) & (lj >= 0) & (lj < N)).all())
-        self.gk, self.lib, self.device, self.max_iters = gk, gk._lib(), dev, int(max_iters)
+        self.gk, self.fn = gk, f"{F.PREFIX}_pcg"
+        self.lib, self.device, self.max_iters = F.load(), dev, int(max_iters)
         self.ptr, self.ent = gk.edge_csr(li, lj, live_loops(A), N)
         self.bufs = tuple(t.contiguous() for t in (D, U, b, A, li, lj))
         D, U, b, A, li, lj = self.bufs
-        self.x = torch.empty((N, 3), dtype=torch.float32, device=dev)
+        self.x = torch.empty((N, T), dtype=torch.float32, device=dev)
         K = pcr_levels_for(N, None)
-        self.ws = torch.empty(int(self.lib.gn_ws_floats(N, 0, El, K, self.max_iters)),
-                              dtype=torch.float32, device=dev)
-        self.prob = gk._Problem(
+        n_ws = getattr(self.lib, f"{F.PREFIX}_ws_floats")(N, 0, El, K, self.max_iters)
+        self.ws = torch.empty(int(n_ws), dtype=torch.float32, device=dev)
+        self.prob = F.Problem(
             None, None, None, None, None, li.data_ptr(), lj.data_ptr(), None, None,
             self.ptr.data_ptr(), self.ent.data_ptr(), D.data_ptr(), U.data_ptr(), b.data_ptr(),
             self.x.data_ptr(), self.ws.data_ptr(), A.data_ptr(), None, None,
@@ -214,5 +226,5 @@ class PcgKernel:
         )
 
     def solve(self) -> torch.Tensor:
-        self.gk.call(self.lib, self.prob, self.device, "gn_pcg", self.max_iters)
+        self.gk.call(self.lib, self.prob, self.device, self.fn, self.max_iters)
         return self.x

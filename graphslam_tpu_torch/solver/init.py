@@ -1,4 +1,4 @@
-"""Chordal initialization for SE(2) pose graphs: port of graphslam_tpu/solver/init.py.
+"""Chordal initialization for SE(2) and SE(3) pose graphs: port of graphslam_tpu/solver/init.py.
 
 Odometry-integrated initial guesses accumulate unbounded heading drift; when
 it exceeds ~90 deg, Gauss-Newton basins stop containing the global optimum.
@@ -12,7 +12,7 @@ The standard cure (Carlone et al.) is a two-stage LINEAR bootstrap:
      linear in positions, a second anchored least-squares.
 
 Both systems reuse the solver's block machinery (BlockSystem + PCG with the
-chain preconditioner) at T=2. SE(3) waits for ROADMAP.md Queue 1, item 9.
+chain preconditioner) at T=2, and at T=3 for the rows of SE(3) rotations.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from graphslam_tpu_torch.factors.graph import FactorGraph
-from graphslam_tpu_torch.geometry import so2
+from graphslam_tpu_torch.geometry import se3, so2, so3
 from graphslam_tpu_torch.solver.normal_eq import BlockSystem, pcg_solve
 
 
@@ -79,6 +79,35 @@ def chordal_init_se2(graph: FactorGraph, num_poses: int, cg_iters: int = 150) ->
 
 
 def chordal_init_se3(graph: FactorGraph, num_poses: int, cg_iters: int = 150) -> torch.Tensor:
-    raise NotImplementedError(
-        "SE(3) chordal init is not ported yet (ROADMAP.md Queue 1, item 9: SE(3))"
-    )
+    """Initial SE(3) poses (N, 12) from the chordal bootstrap.
+
+    Rotations: R_j ~ R_i Rz means each ROW of R satisfies row_j = Rz^T row_i,
+    three independent T=3 linear problems (one per anchor row of R_0 = I),
+    then the SVD projection onto SO(3). Translations: t_j ~ t_i + R_i t_z
+    is linear given the rotations."""
+    z = graph.measurements
+    dtype, dev = z.dtype, z.device
+    w = graph.edge_mask.to(dtype)
+    edges = graph.edges
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    Rz, tz = se3.rot(z), se3.trans(z)
+
+    def solve(sys):
+        return pcg_solve(sys, zero, max_iters=cg_iters, tol=1e-8, lm_diag_scaling=False,
+                         preconditioner="tridiag", chain_prefix=graph.chain_prefix)
+
+    # rotations: one T=3 system per row of R
+    G = Rz.transpose(-1, -2)  # row_j = Rz^T row_i
+    rhs0 = torch.zeros((edges.shape[0], 3), dtype=dtype, device=dev)
+    anchors = torch.eye(3, dtype=dtype, device=dev)  # rows of R_0 = I
+    rows = torch.stack([solve(_linear_system(edges, G, rhs0, num_poses, a, 100.0, w))
+                        for a in anchors])          # (3, N, 3)
+    R = so3.project(rows.permute(1, 0, 2))          # (N, 3, 3) rows stacked
+
+    # translations
+    eye3 = torch.eye(3, dtype=dtype, device=dev).expand(edges.shape[0], 3, 3)
+    Ri = R[edges[:, 0].long()]
+    rhs_t = -(Ri @ tz[..., None])[..., 0] * w[:, None]
+    t = solve(_linear_system(edges, eye3, rhs_t, num_poses, torch.zeros(3, dtype=dtype, device=dev),
+                             100.0, w))
+    return se3.make(R, t)

@@ -7,15 +7,17 @@ entry point of the headline GN solve, called exactly as bench.py calls the
 JAX one. Modes:
 
   gn_fused   the whole GN (or, in lm_solve, LM) loop in the fused kernel
-             (ops/gn_kernel.py): the hand-written CUDA kernel for CUDA
-             tensors, its plain torch twin for CPU tensors
+             (ops/gn_kernel.py for SE(2), ops/gn6_kernel.py for SE(3)): the
+             hand-written CUDA kernel for CUDA tensors, its plain torch twin
+             for CPU tensors
   pcg_fused  linearize + build_blocks + the fused PCR-preconditioned CG
-             (ops/pcg_kernel.py, K3) + retract
+             (ops/pcg_kernel.py, K3; ops/pcg6_kernel.py, K5) + retract
   pcg        linearize + build_blocks + pcg_solve + retract, plain torch
   dense      the same with dense_solve
   auto       dense up to cfg.dense_threshold poses, else pcg
 
-SE(2) only: SE(3) waits for ROADMAP.md Queue 1, item 9.
+SE(2) graphs carry (N, 3) poses and SE(3) graphs (N, 12); the kernel of
+each fused mode is picked by the graph's tangent dimension.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from graphslam_tpu_torch.config import SolverConfig
 from graphslam_tpu_torch.factors.graph import FactorGraph
 from graphslam_tpu_torch.factors.linearize import chi2, group_for, linearize
+from graphslam_tpu_torch.geometry import se3
 from graphslam_tpu_torch.solver.normal_eq import build_blocks, dense_solve, pcg_solve
 
 
@@ -45,20 +48,24 @@ def _solve_mode(cfg: SolverConfig, num_poses: int) -> str:
 
 
 def _fused_pcg(sys, lam, cfg: SolverConfig, graph: FactorGraph, use_kernel: bool = True):
-    """The fused whole-CG-loop solve (K3) of an assembled system.
-    use_kernel=False takes the plain twin on any device."""
-    if graph.tangent_dim != 3:
-        raise NotImplementedError(
-            "the SE(3) fused PCG (K5) is not ported yet (ROADMAP.md Queue 1, item 9)"
-        )
-    from graphslam_tpu_torch.ops import pcg_kernel
+    """The fused whole-CG-loop solve of an assembled system, K3 for SE(2)
+    and K5 for SE(3). use_kernel=False takes the plain twin on any device."""
+    if graph.tangent_dim == 3:
+        from graphslam_tpu_torch.ops import pcg_kernel as m
 
-    f = pcg_kernel.fused_pcg_solve if use_kernel else pcg_kernel.fused_pcg_solve_reference
+        f = m.fused_pcg_solve if use_kernel else m.fused_pcg_solve_reference
+    else:
+        from graphslam_tpu_torch.ops import pcg6_kernel as m
+
+        f = m.fused_pcg6_solve if use_kernel else m.fused_pcg6_solve_reference
     return f(sys, lam, max_iters=cfg.cg_max_iterations, chain_prefix=graph.chain_prefix)
 
 
 def _retract_all(poses: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
-    return group_for(dx.shape[-1]).retract(poses, dx)
+    out = group_for(dx.shape[-1]).retract(poses, dx)
+    if poses.shape[-1] == 12:
+        out = se3.renormalize(out)
+    return out
 
 
 def _linearized_system(poses, graph: FactorGraph, cfg: SolverConfig):
@@ -161,20 +168,20 @@ def lm_solve(
     """Full Levenberg-Marquardt optimization. Returns the final LMState.
 
     Mode gn_fused runs the whole LM loop in the fused kernel's LM mode
-    (`fused_lm_solve`): cfg.max_iterations steps with no early exit, and
-    `iterations` counts the ACCEPTED steps. Every other mode runs `_lm_loop`,
-    where `iterations` counts the loop's iterations. auto_init bootstraps a
-    hopeless start with chordal initialization first (`auto_init_poses`).
+    (`fused_lm_solve`; `fused_lm6_solve` on SE(3) graphs): cfg.max_iterations
+    steps with no early exit, and `iterations` counts the ACCEPTED steps.
+    Every other mode runs `_lm_loop`, where `iterations` counts the loop's
+    iterations. auto_init bootstraps a hopeless start with chordal
+    initialization first (`auto_init_poses`).
     """
     if auto_init:
         poses0 = auto_init_poses(poses0, graph)
     mode = _solve_mode(cfg, poses0.shape[0])
     if mode == "gn_fused":
-        if graph.tangent_dim != 3:
-            raise NotImplementedError(
-                "the SE(3) fused LM kernel (K4) is not ported yet (ROADMAP.md Queue 1, item 9)"
-            )
-        from graphslam_tpu_torch.ops.gn_kernel import fused_lm_solve
+        if graph.tangent_dim == 3:
+            from graphslam_tpu_torch.ops.gn_kernel import fused_lm_solve
+        else:
+            from graphslam_tpu_torch.ops.gn6_kernel import fused_lm6_solve as fused_lm_solve
 
         poses, err, lam, n_acc, conv = fused_lm_solve(
             poses0, graph,
@@ -204,9 +211,14 @@ def _gn_loop(
     use_kernel=False runs the fused modes' plain twins on any device."""
     group_for(graph.tangent_dim)
     if mode == "gn_fused":
-        from graphslam_tpu_torch.ops import gn_kernel
+        if graph.tangent_dim == 3:
+            from graphslam_tpu_torch.ops import gn_kernel as m
 
-        f = gn_kernel.fused_gn_solve if use_kernel else gn_kernel.fused_gn_solve_reference
+            f = m.fused_gn_solve if use_kernel else m.fused_gn_solve_reference
+        else:
+            from graphslam_tpu_torch.ops import gn6_kernel as m
+
+            f = m.fused_gn6_solve if use_kernel else m.fused_gn6_solve_reference
         return f(
             poses0, graph,
             iterations=iterations,

@@ -8,8 +8,8 @@ damped Gauss-Newton system (H + lambda*D) dx = -g with
 
 dense_solve scatters the blocks into the full matrix and Cholesky-solves;
 pcg_solve never forms H and runs preconditioned CG on the edge blocks. These
-are the plain torch paths (modes "dense" and "pcg"); the fused CUDA kernel
-lives in ops/gn_kernel.py.
+are the plain torch paths (modes "dense" and "pcg"); the fused CUDA kernels
+live in ops/gn_kernel.py (SE(2)) and ops/gn6_kernel.py (SE(3)).
 """
 
 from __future__ import annotations
@@ -165,7 +165,9 @@ def _inv3x3(A: torch.Tensor) -> torch.Tensor:
 
 
 def _block_inv(blocks: torch.Tensor) -> torch.Tensor:
-    """Batched SPD 2x2 or 3x3 inverse (closed forms), with a 1e-8 ridge."""
+    """Batched SPD TxT inverse with a 1e-8 ridge: closed forms for T = 2 and
+    3; for T = 6 the Schur complement of the lower-right 3x3 on the 3x3
+    closed form; otherwise through a Cholesky factor."""
     T = blocks.shape[-1]
     A = blocks + 1e-8 * torch.eye(T, dtype=blocks.dtype, device=blocks.device)
     if T == 2:
@@ -178,9 +180,19 @@ def _block_inv(blocks: torch.Tensor) -> torch.Tensor:
         return torch.stack([row0, row1], dim=-2) * inv_det[..., None, None]
     if T == 3:
         return _inv3x3(A)
-    raise NotImplementedError(
-        "6x6 block inverse waits for the SE(3) slice (ROADMAP.md Queue 1, item 9)"
-    )
+    if T == 6:
+        # [[P, Q], [Q^T, S]]^-1 via the Schur complement of S
+        P, Q, S = A[..., :3, :3], A[..., :3, 3:], A[..., 3:, 3:]
+        S_inv = _inv3x3(S)
+        QSi = Q @ S_inv
+        TL = _inv3x3(P - QSi @ Q.transpose(-1, -2))
+        TR = -TL @ QSi
+        BR = S_inv - QSi.transpose(-1, -2) @ TR
+        return torch.cat([torch.cat([TL, TR], -1), torch.cat([TR.transpose(-1, -2), BR], -1)], -2)
+    Linv = torch.linalg.solve_triangular(
+        torch.linalg.cholesky(A), torch.eye(T, dtype=A.dtype, device=A.device).expand(A.shape),
+        upper=False)
+    return torch.einsum("nki,nkj->nij", Linv, Linv)
 
 
 def pcg_solve(

@@ -1,17 +1,26 @@
 #!/usr/bin/env python3
-"""Rehearse csrc/gn_kernel.cu on the CPU, without a GPU or nvcc.
+"""Rehearse csrc/gn_kernel.cu or csrc/gn6_kernel.cu on the CPU, without a GPU or nvcc.
 
 Usage:  python scripts/emulate_gn_kernel.py [--poses N]
+        python scripts/emulate_gn_kernel.py --se3 [--rings R --per-ring P]
 
 Rewrites every `k<<<grid, block, 0, s>>>(` launch of the CUDA source into a
 call of a C++ emulation (blocks in turn, the threads of a block as
 std::threads meeting at a std::barrier for __syncthreads), compiles it with
 g++ into graphslam_tpu_torch/build/emu/, loads it in place of the nvcc
-build and drives the port's own wrappers on CPU tensors: K1's GN and LM
-modes (GnKernel) and K3 (PcgKernel) on manhattan(N), each against its plain
-torch twin. Prints one JSON line of max errors (poses wrapped, K3 relative
-to the largest entry) and the LM stats of kernel and twin. Slow (a thread
-per emulated CUDA thread): a minute or two at N = 260.
+build and drives the port's own wrappers on CPU tensors, each against its
+plain torch twin:
+
+  default  gn_kernel.cu: K1's GN and LM modes (GnKernel) and K3
+           (PcgKernel) on manhattan(N); a minute or two at N = 260
+  --se3    gn6_kernel.cu: K4's stages (Gn6Kernel: assembly, PCR apply, CG),
+           its GN mode plain, chain-only, masked and warm, its LM mode and
+           cost pass, and K5 (Pcg6Kernel) on sphere(R, P); a few minutes at
+           sphere(6, 8)
+
+Prints one JSON line of max errors (poses wrapped or over the 12 entries,
+stages and K3/K5 relative to the largest entry) and the LM stats of kernel
+and twin. Slow: a thread per emulated CUDA thread.
 """
 
 import argparse
@@ -39,6 +48,7 @@ HEADER = r"""#pragma once
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __launch_bounds__(...)
 #define __shared__ static
 struct dim3 { unsigned x = 1, y = 1, z = 1; };
 inline thread_local dim3 threadIdx, blockIdx, blockDim;
@@ -64,29 +74,30 @@ void emu_launch(int grid, int block, K kernel, A... args) {
 """
 
 
-def build() -> Path:
+def build(name: str = "gn_kernel") -> Path:
     out = ROOT / "graphslam_tpu_torch" / "build" / "emu"
     out.mkdir(parents=True, exist_ok=True)
     (out / "cuda_runtime.h").write_text(HEADER)
-    src = (ROOT / "graphslam_tpu_torch" / "csrc" / "gn_kernel.cu").read_text()
+    src = (ROOT / "graphslam_tpu_torch" / "csrc" / f"{name}.cu").read_text()
     src = re.sub(r"(\w+)<<<([^,]+),\s*([^,]+),\s*0,\s*s>>>\(", r"emu_launch(\2, \3, \1, ", src)
-    (out / "gn_kernel_emu.cpp").write_text(src)
-    lib = out / "libgn_kernel_emu.so"
+    (out / f"{name}_emu.cpp").write_text(src)
+    lib = out / f"lib{name}_emu.so"
     subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{out}", "-o", str(lib),
-                    str(out / "gn_kernel_emu.cpp")], check=True)
+                    str(out / f"{name}_emu.cpp")], check=True)
     return lib
 
 
-def load_ops(lib: Path):
-    """The port's ops/gn_kernel.py and ops/pcg_kernel.py, with the emulated
-    library in place of the nvcc build and the CUDA device checks dropped."""
+def load_ops(libs, names=("gn_kernel", "pcg_kernel")):
+    """The port's ops modules `names`, with the emulated libraries `libs`
+    ({source name: path}) in place of the nvcc builds and the CUDA device
+    checks dropped."""
     import graphslam_tpu_torch.ops as ops_pkg
     from graphslam_tpu_torch.ops import _build
 
-    _build.load = lambda name: ctypes.CDLL(str(lib))
+    _build.load = lambda name: ctypes.CDLL(str(libs[name]))
     torch.cuda.current_stream = lambda dev=None: types.SimpleNamespace(cuda_stream=0)
     mods = []
-    for name in ("gn_kernel", "pcg_kernel"):
+    for name in names:
         path = ROOT / "graphslam_tpu_torch" / "ops" / f"{name}.py"
         mod = types.ModuleType(f"graphslam_tpu_torch.ops.{name}")
         mod.__file__ = str(path)
@@ -104,11 +115,72 @@ def wrapped_max(a, b) -> float:
     return float(d.abs().max())
 
 
+def main_se3(rings: int, per_ring: int) -> None:
+    _, _, g6, p6 = load_ops({"gn6_kernel": build("gn6_kernel")},
+                            ("gn_kernel", "pcg_kernel", "gn6_kernel", "pcg6_kernel"))
+    from graphslam_tpu_torch.factors import from_dataset
+    from graphslam_tpu_torch.factors.linearize import linearize
+    from graphslam_tpu_torch.io import datasets
+    from graphslam_tpu_torch.solver import normal_eq as ne
+
+    data = datasets.sphere(n_rings=rings, poses_per_ring=per_ring, seed=1)
+    g = from_dataset(data, device="cpu")
+    p0 = torch.from_numpy(data["poses"])
+    n = p0.shape[0]
+    out = {"poses": n, "loop_edges": g.num_edges - g.chain_prefix}
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    kern = g6.Gn6Kernel(p0, g, -1.0, None, cg_max=25)
+    kern.system()
+    sysm = g6.system_reference6(p0, kern.pk)
+    out["D"], out["b"], out["U"] = rel(kern.D, sysm.D), rel(kern.b, sysm.b), rel(kern.U, sysm.U)
+    kern.factor()
+    factor = g6.pcr_factor_reference6(sysm.D, sysm.U, kern.K)
+    v = torch.randn((n, 6), generator=torch.Generator().manual_seed(0))
+    out["pcr_apply"] = rel(kern.precond(v), g6.gk.pcr_apply_reference(*factor, v))
+    kern.cg(25)
+    out["cg"] = rel(kern.x, g6.gk.cg_reference(sysm, kern.pk, factor, 25))
+
+    E, c = g.num_edges, g.chain_prefix
+    mask = g.edge_mask.clone()
+    mask[E - 1] = False
+    mask[c - 2] = False
+    chain = g.replace(edge_mask=g.edge_mask & (torch.arange(E) < c))
+    for name, gg, kw in (("gn_pcr4", g, dict(pcr_levels=4)), ("gn_exact", g, {}),
+                         ("gn_chain", chain, {}), ("gn_masked", g.replace(edge_mask=mask), {}),
+                         ("gn_warm_ramp", g, dict(warm_start=True, cg_ramp=((2, 25), (1, 12))))):
+        kern = g6.Gn6Kernel(p0, gg, -1.0, kw.get("pcr_levels"), cg_max=25)
+        res = kern.solve(g6.gk._phases(3, 25, kw.get("cg_ramp")), kw.get("warm_start", False))
+        ref = g6.fused_gn6_solve_reference(p0, gg, 3, 25, **kw)
+        out[name] = float((res - ref).abs().max())
+    kern = g6.Gn6Kernel(p0, g, 1.0, None, cg_max=25, lm=True)
+    out["cost_rel"] = rel(kern.chi2(p0)[0], g6.chi2_reference6(p0, kern.pk, 1.0))
+    stats = kern.lm_solve(3, 25, 1e-5, 10.0, 1e-10, 1e7, 1e-9, 1e-6).tolist()
+    ref = g6.fused_lm6_solve_reference(p0, g, iterations=3, cg_iters=25, huber_delta=1.0)
+    out["lm"] = {"poses": float((kern.poses - ref[0]).abs().max()), "stats": stats,
+                 "twin_stats": [float(t) for t in ref[1:]]}
+    sysm = ne.build_blocks(linearize(p0, g), g, n)
+    for lam in (0.0, 1e-3):
+        args = p6._chain_and_loops(sysm, torch.tensor(lam), True, c, T=6)
+        x = p6.Pcg6Kernel(*args, 25).solve()
+        xr = p6.fused_pcg6_solve_reference(sysm, torch.tensor(lam), 25, True, c)
+        out[f"k5_lam{lam}"] = rel(x, xr)
+    print(json.dumps(out))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--poses", type=int, default=260)
-    n = ap.parse_args().poses
-    gk, pk = load_ops(build())
+    ap.add_argument("--se3", action="store_true")
+    ap.add_argument("--rings", type=int, default=6)
+    ap.add_argument("--per-ring", type=int, default=8)
+    args = ap.parse_args()
+    if args.se3:
+        return main_se3(args.rings, args.per_ring)
+    n = args.poses
+    gk, pk = load_ops({"gn_kernel": build()})
     from graphslam_tpu_torch.factors import from_dataset
     from graphslam_tpu_torch.factors.linearize import linearize
     from graphslam_tpu_torch.io import datasets

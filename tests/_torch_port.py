@@ -21,3 +21,11 @@ def wrapped_max(a, b) -> float:
     d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
     d[:, 2] = (d[:, 2] + math.pi) % (2 * math.pi) - math.pi
     return float(np.abs(d).max())
+
+
+def se3_max(a, b) -> float:
+    """Max |a - b| over (N, 12) SE(3) poses: the 9 row-major rotation
+    entries and the 3 translation entries alike (no angle to wrap)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    assert a.shape == b.shape and a.shape[-1] == 12, (a.shape, b.shape)
+    return float(np.abs(a - b).max())

@@ -113,7 +113,11 @@ def test_linearize_and_chi2_match(kind):
 
 
 def test_se3_raises_named_roadmap_item():
+    """SE(3) is ported (tests/test_torch_se3.py); a tangent dimension that
+    names no pose group still raises, naming the two that exist."""
     from graphslam_tpu_torch.factors.linearize import group_for
+    from graphslam_tpu_torch.geometry import se2, se3
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        group_for(6)
+    assert group_for(3) is se2 and group_for(6) is se3
+    with pytest.raises(ValueError, match="SE\\(2\\): 3, SE\\(3\\): 6"):
+        group_for(4)

@@ -1,0 +1,162 @@
+"""K4 and K5 (csrc/gn6_kernel.cu) against their plain torch twins on the card.
+
+Needs an NVIDIA GPU and nvcc; without a card every case skips. The file
+imports no JAX, so it also runs where JAX is not installed:
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gn6_kernel_cuda.py
+Tolerances (float32 on both sides; the kernel sums in another order and
+uses FMAs): assembled blocks and one cost pass rel 1e-5, one PCR apply rel
+1e-4, one 25-step CG solve and K5 rel 1e-3; poses after 5 GN iterations
+within 5e-3 over the 12 pose entries (the repo's SE(3) kernel tolerance,
+tests/test_gn6_kernel.py:37), after 5 LM steps with Huber within 8e-3
+(tests/test_gn6_kernel.py:87) with chi2 within 1% and the accepted steps
+and converged flag equal.
+"""
+
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+from graphslam_tpu_torch.config import SolverConfig
+from graphslam_tpu_torch.factors import from_dataset
+from graphslam_tpu_torch.io import datasets
+from graphslam_tpu_torch.ops import gn6_kernel as g6
+from graphslam_tpu_torch.ops import gn_kernel as gk
+from graphslam_tpu_torch.ops import pcg6_kernel as p6
+from graphslam_tpu_torch.solver import lm
+
+pytestmark = pytest.mark.cuda
+
+
+def rel_err(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def max_err(a, b) -> float:
+    return float((a - b).double().abs().max())
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def small(dev):
+    data = datasets.sphere(n_rings=10, poses_per_ring=10, seed=1)
+    return from_dataset(data, device=dev), torch.from_numpy(data["poses"]).to(dev)
+
+
+def test_problem_struct_matches_the_c_side(dev):
+    assert g6._lib().gn6_problem_size() == ctypes.sizeof(g6._Problem)
+
+
+def test_stages_match_twin(small):
+    g, p0 = small
+    kern = g6.Gn6Kernel(p0, g, -1.0, None, cg_max=25)
+    kern.system()
+    sysm = g6.system_reference6(p0, kern.pk)
+    assert rel_err(kern.D, sysm.D) <= 1e-5
+    assert rel_err(kern.U, sysm.U) <= 1e-5
+    assert rel_err(kern.b, sysm.b) <= 1e-5
+    kern.factor()
+    factor = g6.pcr_factor_reference6(sysm.D, sysm.U, kern.K)
+    v = torch.from_numpy(np.random.default_rng(0).normal(size=(p0.shape[0], 6))
+                         .astype(np.float32)).to(p0.device)
+    assert rel_err(kern.precond(v), gk.pcr_apply_reference(*factor, v)) <= 1e-4
+    kern.cg(25)
+    assert rel_err(kern.x, gk.cg_reference(sysm, kern.pk, factor, 25)) <= 1e-3
+
+
+def _variants(g):
+    E, c = g.num_edges, g.chain_prefix
+    mask = g.edge_mask.clone()
+    mask[E - 1] = False
+    mask[c - 2] = False
+    keep = torch.arange(E, device=g.device) < c
+    return {
+        "pcr4": (g, dict(pcr_levels=4)),
+        "exact": (g, dict(pcr_levels=None)),
+        "chain_only": (g.replace(edge_mask=g.edge_mask & keep), dict(pcr_levels=None)),
+        "masked": (g.replace(edge_mask=mask), dict(pcr_levels=4)),
+        "warm_ramp": (g, dict(pcr_levels=4, warm_start=True, cg_ramp=((3, 25), (2, 12)))),
+    }
+
+
+@pytest.mark.parametrize("variant", ["pcr4", "exact", "chain_only", "masked", "warm_ramp"])
+def test_gn_solve_matches_twin(small, variant):
+    g, p0 = small
+    gg, kw = _variants(g)[variant]
+    out = g6.fused_gn6_solve(p0, gg, iterations=5, cg_iters=25, **kw)
+    ref = g6.fused_gn6_solve_reference(p0, gg, iterations=5, cg_iters=25, **kw)
+    assert torch.isfinite(out).all()
+    assert max_err(out, ref) <= 5e-3
+
+
+def test_cost_pass_matches_twin(small):
+    g, p0 = small
+    kern = g6.Gn6Kernel(p0, g, 1.0, None, cg_max=25, lm=True)
+    assert rel_err(kern.chi2(p0)[0], g6.chi2_reference6(p0, kern.pk, 1.0)) <= 1e-5
+
+
+@pytest.mark.parametrize("levels", [4, None], ids=["pcr4", "pcr_exact"])
+def test_lm_solve_matches_twin(small, levels):
+    g, p0 = small
+    kw = dict(iterations=5, cg_iters=25, huber_delta=1.0, pcr_levels=levels)
+    out = g6.fused_lm6_solve(p0, g, **kw)
+    ref = g6.fused_lm6_solve_reference(p0, g, **kw)
+    assert torch.isfinite(out[0]).all()
+    assert max_err(out[0], ref[0]) <= 8e-3
+    assert abs(float(out[1]) - float(ref[1])) <= 1e-2 * float(ref[1])
+    assert float(out[3]) == float(ref[3]) and float(out[4]) == float(ref[4])
+
+
+@pytest.mark.parametrize("lam", [0.0, 1e-3])
+def test_k5_matches_twin(small, lam):
+    g, p0 = small
+    sysm = lm._linearized_system(p0, g, SolverConfig(use_huber_on_loops=True))
+    x = p6.fused_pcg6_solve(sysm, lam, max_iters=25, chain_prefix=g.chain_prefix)
+    xr = p6.fused_pcg6_solve_reference(sysm, lam, max_iters=25, chain_prefix=g.chain_prefix)
+    assert rel_err(x, xr) <= 1e-3
+
+
+def test_lm_loop_through_k5_matches_the_loop_through_the_twin(small):
+    g, p0 = small
+    cfg = SolverConfig(mode="pcg_fused", max_iterations=5, cg_max_iterations=25,
+                       use_huber_on_loops=True)
+    before = p6.fused_pcg6_solve.launches
+    out = lm._lm_loop(p0, g, cfg, "pcg_fused")
+    assert p6.fused_pcg6_solve.launches == before + int(out.iterations)
+    ref = lm._lm_loop(p0.cpu(), g.to("cpu"), cfg, "pcg_fused")
+    assert max_err(out.poses.cpu(), ref.poses) <= 8e-3
+    assert int(out.iterations) == int(ref.iterations)
+
+
+def test_main_paths_go_through_the_kernels_bitwise_repeatable(small):
+    g, p0 = small
+    cfg = SolverConfig(mode="gn_fused", max_iterations=5, cg_max_iterations=25,
+                       use_huber_on_loops=True)
+    before = g6.fused_gn6_solve.launches
+    a, b = lm._gn_loop(p0, g, cfg, "gn_fused", 5), lm._gn_loop(p0, g, cfg, "gn_fused", 5)
+    assert g6.fused_gn6_solve.launches == before + 2
+    assert torch.equal(a, b)
+    before = g6.fused_lm6_solve.launches
+    a, b = lm.lm_solve(p0, g, cfg), lm.lm_solve(p0, g, cfg)
+    assert g6.fused_lm6_solve.launches == before + 2
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_wrappers_refuse_cpu_tensors(small):
+    g, p0 = small
+    with pytest.raises(ValueError, match="CUDA"):
+        g6.Gn6Kernel(p0.cpu(), g.to("cpu"))
+    sysm = lm._linearized_system(p0.cpu(), g.to("cpu"), SolverConfig())
+    with pytest.raises(ValueError, match="CUDA"):
+        p6.Pcg6Kernel(*p6._chain_and_loops(sysm, 0.0, True, g.chain_prefix, T=6), 25)
+    kern = g6.Gn6Kernel(p0, g, cg_max=25)
+    with pytest.raises(ValueError, match="lm=True"):
+        kern.lm_solve(1, 25, 1e-5, 10.0, 1e-10, 1e7, 1e-9, 1e-6)

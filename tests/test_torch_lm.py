@@ -31,7 +31,7 @@ from graphslam_tpu_torch.factors.linearize import linearize
 from graphslam_tpu_torch.ops import gn_kernel as gk
 from graphslam_tpu_torch.solver import lm
 from graphslam_tpu_torch.solver import normal_eq as ne
-from graphslam_tpu_torch.solver.init import chordal_init_se2, chordal_init_se3
+from graphslam_tpu_torch.solver.init import chordal_init_se2
 
 from _torch_port import carry, wrapped_max
 
@@ -135,8 +135,6 @@ def test_chordal_init_and_auto_init_match_jax():
     assert wrapped_max(out.numpy(), jauto) <= 1e-3
     auto = lm.auto_init_poses(torch.from_numpy(data["poses"]), tg)
     assert torch.equal(auto, out)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        chordal_init_se3(tg, 200)
 
 
 def test_damped_diag_without_scaling_and_2x2_block_inv_match_jax(small):
