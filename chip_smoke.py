@@ -3,12 +3,12 @@
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
-It builds csrc/gn_kernel.cu, csrc/icp_kernel.cu and csrc/gn6_kernel.cu with
-nvcc (in parallel), holds every kernel against its plain torch twin, drives
-the slices of the port (SE(2) GN, the online pipeline, LM, SE(3)) through
-the entry points a user calls, and times the kernel paths and the plain
-paths on the card. Phases, each failing with a traceback and
-a nonzero exit:
+It builds csrc/gn_kernel.cu, csrc/icp_kernel.cu, csrc/gn6_kernel.cu and
+csrc/cg_step.cu with nvcc (in parallel), holds every kernel against its
+plain torch twin, drives the slices of the port (SE(2) GN, the online
+pipeline, LM, SE(3), the distributed SE(2) solvers) through the entry
+points a user calls, and times the kernel paths and the plain paths on the
+card. Phases, each failing with a traceback and a nonzero exit:
 
   1. device info: card name and power limit (nvidia-smi), CUDA, nvcc,
      triton; float32 matmuls at "highest" precision, TF32 off
@@ -91,6 +91,32 @@ a nonzero exit:
      _lm_loop(pcg_fused); K5 per call at garage (its C entry on a prepared
      problem, and the whole wrapper) against its twin (CUDA events);
      launches per iteration by source and the idle share (profiler)
+ 15. K6a-c (csrc/cg_step.cu) against their twins on manhattan(260) and
+     m3500, without and with Huber, two ranks in one process (half the loop
+     edges each, the chain on rank 0; the all-reduces summed here): the K6a
+     payload and Aij (rel 5e-5), K6b's damped D and b (rel 5e-5) and PCR
+     factor (rel 1e-4), the K6c state after 1 pass (rel 1e-4) and after 26
+     (rel 1e-3), each on its own line; two K6 sequences bitwise equal
+ 16. the distributed main paths on cuda, m3500, world size 1 over NCCL:
+     dist_fused_gn_solve through K6, 200 iterations at scripts/bench_all.py
+     :207-248's cell (cg 25, pcr_levels 4, edge_tile 512; no page windows),
+     and dist_fused_lm_solve, 50 steps with Huber 1.0 (the K1-LM cell's
+     settings), each with its K6 launch counts above 0, gated on the JAX
+     package's CPU runs (scripts/dist_gate_jax.py, hvp_splits 1): ATE <
+     0.35 m, below half the initial ATE and within 0.02 m of JAX's, chi2
+     within 1%, LM accepted steps equal; two runs bitwise equal; the plain
+     path on the card through the same gates; kernel vs plain path over 5
+     iterations (GN wrapped 2e-3, LM 3e-3); dist_gn_solve (parallel/dist.py,
+     pcg, cg 50, 10 iterations) through the same gate
+ 17. two gloo ranks on the one card (torch.multiprocessing, CUDA tensors):
+     the kernel path on manhattan(1000) in tiles of 32 loop edges, 3 GN
+     iterations and 3 LM steps, against world size 1 within 1e-5 of the
+     largest coordinate, accepted steps equal
+ 18. distributed timing: dist_fused GN it/s through K6 in turns with K1
+     (_gn_loop gn_fused, the same config) and with the plain path on the
+     card; K6a, K6b and K6c per call and their twins (CUDA events); the
+     all_reduce at world size 1; launches per GN iteration by source and
+     the idle share (profiler)
 
 Before the last line it prints one JSON object describing the kernels
 (max_abs_err: gn_kernel the larger of its m3500 and replay-solve pose
@@ -99,7 +125,11 @@ path, nn_kernel the distances at full width, gn_kernel_lm its largest pose
 error against the twin, pcg_kernel its largest dx error against the twin,
 and its "ms" is the C entry's, "ms_wrapper" the whole fused_pcg_solve's;
 gn6_kernel, gn6_kernel_lm and pcg6_kernel likewise from phases 12-14, with
-"ms" per sphere2500 GN solve, per garage LM solve and per K5 C-entry call);
+"ms" per sphere2500 GN solve, per garage LM solve and per K5 C-entry call;
+cg_step_stage_a, cg_step_gn_setup and cg_step_cg_step (K6a-c) from phases
+15-18: "max_abs_err" the largest relative error against the twin (K6c also
+the two-rank check), "ms" per call of the wrapper, "launches" the count in
+the GN main path and "launches_lm" in the LM one);
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, it exits nonzero and prints no result.
@@ -153,6 +183,25 @@ JAX_SE3 = {
     "garage_gn": {"chi2": 1629.3319091796875, "ate": 0.13828694820404053},
     "garage_lm": {"chi2": 1477.469482421875, "ate": 0.1361154317855835, "steps": 20},
 }
+# The JAX package's distributed m3500 solves on one CPU device
+# (scripts/dist_gate_jax.py: the XLA loop, cg_kernel=False, no page-window
+# bucketization; jax 0.9.0). gn/lm at the cell's hvp_splits 1 (bf16 loop
+# gathers), gn_hs3/lm_hs3 at hvp_splits 3 (float32-faithful, as the port
+# multiplies); dist_gn is parallel/dist.py at pcg, cg 50, 10 iterations.
+JAX_DIST = {
+    "gn": {"chi2": 5734.572265625, "ate": 0.15083514153957367},
+    "gn_hs3": {"chi2": 5733.77587890625, "ate": 0.15051093697547913},
+    "lm": {"chi2": 5525.9423828125, "ate": 0.297905296087265, "steps": 50},
+    "lm_hs3": {"chi2": 5527.24169921875, "ate": 0.2979288399219513, "steps": 50},
+    "dist_gn": {"chi2": 6397.5380859375, "ate": 0.3465941846370697},
+}
+TOL_KERNEL_PATH = 2e-4    # the JAX kernel path vs its XLA loop (tests/test_dist_fused.py:170)
+# K6a/K6b against their twins on the card: float32 with FMAs against float32
+# without. Under Huber at m3500 the floor-based angle wrap alone, rounded once
+# as an FMA rounds it, moves b by 8.7e-6 of its largest entry (measured on
+# the CPU); the card measured 1.67e-5 in all.
+TOL_K6_ASSEMBLY_REL = 5e-5
+TOL_MESH = 1e-5           # mesh-size invariance (tests/test_dist_fused.py:55, :188)
 SE3_ATE_GATE_M = 0.2      # scripts/bench_all.py's sphere2500/garage gate
 SE3_CHI2_REL = 2e-2       # chi2 against JAX's XLA run
 TOL_SE3_POSES = 5e-3      # the repo's SE(3) kernel-vs-XLA tolerance (GN)
@@ -217,7 +266,7 @@ def phase_build():
     from graphslam_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    built = _build.build_all(["gn_kernel", "icp_kernel", "gn6_kernel"])
+    built = _build.build_all(["gn_kernel", "icp_kernel", "gn6_kernel", "cg_step"])
     log(f"built {len(built)} kernel libraries in parallel in {time.perf_counter() - t0:.2f} s")
     for lib, ptxas in built.values():
         log(f"  {lib.relative_to(ROOT)}")
@@ -955,13 +1004,14 @@ def _profile_launches(torch, fn, top: int = 0):
         fn()
         torch.cuda.synchronize()
         span = time.perf_counter() - t0
-    groups = {"gn_kernel.cu": (0, 0.0), "gn6_kernel.cu": (0, 0.0), "torch ops": (0, 0.0),
-              "memcpy/memset": (0, 0.0)}
+    groups = {"gn_kernel.cu": (0, 0.0), "gn6_kernel.cu": (0, 0.0), "cg_step.cu": (0, 0.0),
+              "nccl": (0, 0.0), "torch ops": (0, 0.0), "memcpy/memset": (0, 0.0)}
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", 0.0) or 0.0
         if dev_us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
             g = ("gn_kernel.cu" if "GnProblem" in e.key else "gn6_kernel.cu"
-                 if "Gn6Problem" in e.key else "memcpy/memset"
+                 if "Gn6Problem" in e.key else "cg_step.cu" if "CgProblem" in e.key
+                 else "nccl" if "nccl" in e.key.lower() else "memcpy/memset"
                  if e.key.startswith(("Memcpy", "Memset")) else "torch ops")
             c0, d0 = groups[g]
             groups[g] = (c0 + e.count, d0 + dev_us / 1e3)
@@ -970,7 +1020,7 @@ def _profile_launches(torch, fn, top: int = 0):
                 if str(getattr(e, "device_type", "")).endswith("CUDA")
                 and (getattr(e, "self_device_time_total", 0.0) or 0.0) > 0]
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
-            m = re.search(r"(?:^|[^A-Za-z])(k6?_[a-z0-9_]+)", e.key)
+            m = re.search(r"(?:^|[^A-Za-z])((?:k6?|cg)_[a-z0-9_]+)", e.key)
             name = m.group(1) if m else e.key[:60]
             log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:7d}x  "
                 f"{e.self_device_time_total / e.count:8.2f} us each  {name}")
@@ -1407,6 +1457,421 @@ def pcg6_cost(N: int, El: int, K: int, cg: int):
     return nbytes, 2400 * K * N + (cg + 1) * per_cg
 
 
+# ---------------------------------------------------------------------------
+# The distributed SE(2) family: K6a-c on torch.distributed
+# ---------------------------------------------------------------------------
+
+
+def _k6_two_ranks(cs, gk, g, p0, huber=-1.0):
+    """Two ranks' Shards in one process: half the loop edges each, the chain
+    weighted 1 on rank 0 and 0 on rank 1, K = 4."""
+    pk = gk.pack_graph(g, p0.shape[0])
+    half = pk.El // 2
+    return [cs.make_shard(pk, 0, half, 4, 1.0, huber),
+            cs.make_shard(pk, half, pk.El, 4, 0.0, huber)]
+
+
+def _k6_sequence(torch, cs, shs, p0, lam, passes, kernel: bool):
+    """K6a, the payloads summed (the all-reduce), K6b and `passes` K6c
+    passes on two ranks, through the kernels or the twins; returns
+    (per-rank payloads and Aij, rank 0's Setup, rank 0's carry after pass 1
+    and after the last)."""
+    if kernel:
+        kerns = [sh.kernel() for sh in shs]
+        outs = [k.stage_a(p0) for k in kerns]
+        outs = [(pay.clone(), A.clone()) for pay, A in outs]
+        reduced = outs[0][0] + outs[1][0]
+        setups = [k.gn_setup(reduced.clone(), p0, lam) for k in kerns]
+        step = lambda i, A, c: cs.cg_step(shs[i], setups[i], kerns[i].Aij, c)  # noqa: E731
+    else:
+        outs = [cs.stage_a_reference(sh, p0) for sh in shs]
+        reduced = outs[0][0] + outs[1][0]
+        setups = [cs.gn_setup_reference(sh, reduced, p0, lam) for sh in shs]
+        step = lambda i, A, c: cs.cg_step_reference(shs[i], setups[i], A, c)  # noqa: E731
+    carries = [cs.cg_state(setups[0].b) for _ in shs]
+    first = None
+    for it in range(passes):
+        for i, ((_, A), c) in enumerate(zip(outs, carries)):
+            step(i, A, c)
+        big = carries[0].big + carries[1].big
+        for c in carries:
+            c.big.copy_(big)
+        if it == 0:
+            first = cs.CgState(*(t.clone() for t in carries[0]))
+    return outs, setups[0], first, carries[0]
+
+
+def phase_k6_kernels(torch, datasets, from_dataset):
+    log("== phase 15: K6a-c against their twins, two ranks in one process "
+        "(manhattan(260), m3500)")
+    from graphslam_tpu_torch.ops import gn_kernel as gk
+    from graphslam_tpu_torch.parallel import cg_step as cs
+
+    dev = torch.device("cuda")
+    errs = {"stage_a": 0.0, "gn_setup": 0.0, "cg_step_1": 0.0, "cg_step_26": 0.0}
+    lam = torch.tensor([1e-3], device=dev)
+    for name, data in (("manhattan(260)", datasets.manhattan(n_poses=260, loop_prob=0.25, seed=0)),
+                       ("m3500", datasets.m3500())):
+        g = from_dataset(data, device=dev)
+        p0 = torch.from_numpy(data["poses"]).to(dev)
+        for huber in (-1.0, 1.0):
+            shs = _k6_two_ranks(cs, gk, g, p0, huber)
+            ko, ks, k1, kn = _k6_sequence(torch, cs, shs, p0, lam, 26, True)
+            ro, rs, r1, rn = _k6_sequence(torch, cs, shs, p0, lam, 26, False)
+            torch.cuda.synchronize()
+            label = f"{name}, Huber {huber}"
+            e = max(rel_err(a, b) for (pa, Aa), (pb, Ab) in zip(ko, ro)
+                    for a, b in ((pa, pb), (Aa, Ab)) if b.abs().max() > 0)
+            _check(f"{label}: K6a payload and Aij of both ranks, max rel err", e,
+                   TOL_K6_ASSEMBLY_REL)
+            errs["stage_a"] = max(errs["stage_a"], e)
+            e_db = max(rel_err(ks.D, rs.D), rel_err(ks.b, rs.b))
+            _check(f"{label}: K6b damped D and b, max rel err", e_db, TOL_K6_ASSEMBLY_REL)
+            e_f = max(rel_err(ks.A, rs.A), rel_err(ks.G, rs.G), rel_err(ks.Dinv, rs.Dinv))
+            _check(f"{label}: K6b PCR factor (A, G, Dinv), max rel err", e_f, TOL_PCR_REL)
+            errs["gn_setup"] = max(errs["gn_setup"], e_db, e_f)
+            for key, kc, rc, tol in (("cg_step_1", k1, r1, TOL_PCR_REL),
+                                     ("cg_step_26", kn, rn, TOL_CG_REL)):
+                e = max([rel_err(getattr(kc, f), getattr(rc, f)) for f in ("x", "r", "p", "cap",
+                                                                             "big")
+                         if getattr(rc, f).abs().max() > 0] + [rel_err(kc.scal[:2], rc.scal[:2])])
+                _check(f"{label}: K6c state after {key.split('_')[-1]} passes, max rel err", e,
+                       tol)
+                errs[key] = max(errs[key], e)
+        _, _, _, again = _k6_sequence(torch, cs, shs, p0, lam, 26, True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(kn, again)):
+            fail(f"{name}: two K6 sequences differ")
+        log(f"  {name}: two K6 sequences (K6a, K6b, 26 K6c passes) bitwise equal")
+    return errs
+
+
+def _gate_dist(name, ate0, ate, err, ref, steps=None):
+    log(f"  {name}: chi2 {err:.2f} (JAX {ref['chi2']:.2f}), ATE {ate0:.4f} -> {ate:.4f} (JAX "
+        f"{ref['ate']:.4f})" + ("" if steps is None else f", accepted steps {steps} (JAX "
+                                                          f"{ref['steps']})"))
+    if not (ate < ATE_GATE_M and ate < 0.5 * ate0 and abs(ate - ref["ate"]) <= LM_ATE_BAND_M
+            and abs(err - ref["chi2"]) <= TOL_CHI2_REL * ref["chi2"]
+            and (steps is None or steps == ref["steps"])):
+        fail(f"{name}: gate failed (ATE {ate}, chi2 {err}, steps {steps})")
+
+
+def _k6_counts(cs, zero=False):
+    fns = (cs.stage_a, cs.gn_setup, cs.cg_step)
+    if zero:
+        for f in fns:
+            f.launches = 0
+    return {f.__name__: f.launches for f in fns}
+
+
+def phase_dist_main(torch, datasets, from_dataset, chi2, metrics):
+    log("== phase 16: the distributed main paths on cuda, m3500, world size 1 over NCCL")
+    import torch.distributed as tdist
+    from graphslam_tpu_torch.config import SolverConfig
+    from graphslam_tpu_torch.parallel import (
+        cg_step as cs, dist_fused_gn_solve, dist_fused_lm_solve, dist_gn_solve, make_mesh,
+        shard_graph)
+
+    dev = torch.device("cuda")
+    data = datasets.m3500()
+    g = from_dataset(data, device=dev)
+    p0 = torch.from_numpy(data["poses"]).to(dev)
+    gt = torch.from_numpy(data["gt"]).to(dev)
+    ate0 = float(metrics.ate(p0, gt))
+    mesh = make_mesh()
+    log(f"  mesh: {mesh.size} rank over {tdist.get_backend(mesh.group)} on {mesh.device}")
+    out = {"mesh": mesh, "graph": (g, p0, gt)}
+
+    # scripts/bench_all.py:207-248's cell without the CPU page windows;
+    # edge_tile sets the loop-edge partition, hvp_splits is a TPU knob
+    cfg = SolverConfig(cg_max_iterations=25, pcr_levels=4, edge_tile=512, hvp_splits=1)
+    iters = 200
+    _k6_counts(cs, zero=True)
+    res = dist_fused_gn_solve(p0, g, mesh, cfg, iterations=iters)
+    torch.cuda.synchronize()
+    counts = _k6_counts(cs)
+    log(f"  dist_fused_gn_solve ({iters} iterations): launches {counts}")
+    if min(counts.values()) <= 0:
+        fail("the dist_fused GN main path did not launch every K6 kernel")
+    res2 = dist_fused_gn_solve(p0, g, mesh, cfg, iterations=iters)
+    torch.cuda.synchronize()
+    if not torch.isfinite(res).all():
+        fail("dist_fused GN poses are not finite")
+    _gate_dist(f"dist_fused GN ({iters} iterations, cg 25, pcr_levels 4; JAX at hvp_splits 1)",
+               ate0, float(metrics.ate(res, gt)), float(chi2(res, g)), JAX_DIST["gn"])
+    if not torch.equal(res, res2):
+        fail(f"dist_fused GN: two runs differ: max {float((res - res2).abs().max())}")
+    log("  dist_fused GN: two runs bitwise equal")
+    plain = dist_fused_gn_solve(p0, g, mesh, cfg, iterations=iters, cg_kernel=False)
+    _gate_dist(f"dist_fused GN plain path on the card ({iters} iterations)", ate0,
+               float(metrics.ate(plain, gt)), float(chi2(plain, g)), JAX_DIST["gn"])
+    a = dist_fused_gn_solve(p0, g, mesh, cfg, iterations=5)
+    b = dist_fused_gn_solve(p0, g, mesh, cfg, iterations=5, cg_kernel=False)
+    out["gn_err"] = wrapped_max(a, b)
+    # 2e-4 holds on manhattan(300) (tests/test_torch_dist_fused.py); at m3500
+    # from its drifted start the repo's kernel-vs-XLA GN tolerance (phase 4)
+    _check("dist_fused GN 5 iterations, kernel path vs plain path, wrapped max", out["gn_err"],
+           TOL_POSES_WRAPPED)
+    out["gn_counts"] = counts
+
+    # the K1-LM cell's settings (BASELINE config 2), 50 steps
+    lm_cfg = SolverConfig(cg_max_iterations=25, use_huber_on_loops=True, pcr_levels=4,
+                          edge_tile=512, hvp_splits=1)
+    _k6_counts(cs, zero=True)
+    lp, (lerr, llam, lacc) = dist_fused_lm_solve(p0, g, mesh, lm_cfg, iterations=50)
+    torch.cuda.synchronize()
+    counts = _k6_counts(cs)
+    log(f"  dist_fused_lm_solve (50 steps, Huber 1.0): launches {counts}, lam {float(llam):.3g}")
+    if min(counts.values()) <= 0:
+        fail("the dist_fused LM main path did not launch every K6 kernel")
+    lp2, _ = dist_fused_lm_solve(p0, g, mesh, lm_cfg, iterations=50)
+    torch.cuda.synchronize()
+    if not torch.isfinite(lp).all():
+        fail("dist_fused LM poses are not finite")
+    _gate_dist("dist_fused LM (50 steps, Huber 1.0; JAX at hvp_splits 1)", ate0,
+               float(metrics.ate(lp, gt)), float(lerr), JAX_DIST["lm"], int(lacc))
+    if not torch.equal(lp, lp2):
+        fail("dist_fused LM: two runs differ")
+    log("  dist_fused LM: two runs bitwise equal")
+    pl, (perr, _, pacc) = dist_fused_lm_solve(p0, g, mesh, lm_cfg, iterations=50, cg_kernel=False)
+    _gate_dist("dist_fused LM plain path on the card (50 steps)", ate0, float(metrics.ate(pl, gt)),
+               float(perr), JAX_DIST["lm"], int(pacc))
+    a, _ = dist_fused_lm_solve(p0, g, mesh, lm_cfg, iterations=5)
+    b, _ = dist_fused_lm_solve(p0, g, mesh, lm_cfg, iterations=5, cg_kernel=False)
+    out["lm_err"] = wrapped_max(a, b)
+    _check("dist_fused LM 5 steps, kernel path vs plain path, wrapped max", out["lm_err"],
+           TOL_LM_POSES)
+    out["lm_counts"] = counts
+
+    # parallel/dist.py: plain torch, no kernel; scripts/bench_all.py:173-204
+    dcfg = SolverConfig(mode="pcg", cg_max_iterations=50, cg_tol=1e-30)
+    t0 = time.perf_counter()
+    dres = dist_gn_solve(p0, shard_graph(g, mesh), mesh, dcfg, iterations=10)
+    torch.cuda.synchronize()
+    out["dist_gn_s"] = time.perf_counter() - t0
+    _gate_dist(f"dist_gn_solve (pcg, cg 50, 10 iterations; {out['dist_gn_s']:.3f} s)", ate0,
+               float(metrics.ate(dres, gt)), float(chi2(dres, g)), JAX_DIST["dist_gn"])
+    return out
+
+
+def _two_rank_worker(rank: int, port: int, out_path: str, root: str) -> None:
+    """One of two gloo ranks on the one card: the kernel path on
+    manhattan(1000), GN and LM; rank 0 saves the poses."""
+    sys.path.insert(0, root)
+    import torch
+
+    from graphslam_tpu_torch.factors import from_dataset
+    from graphslam_tpu_torch.io import datasets
+    from graphslam_tpu_torch.parallel import (
+        cg_step as cs, dist_fused_gn_solve, dist_fused_lm_solve, multihost)
+
+    multihost.initialize(f"127.0.0.1:{port}", 2, rank, device="cuda", backend="gloo")
+    mesh = multihost.global_mesh(device="cuda")
+    gn, lm_ = _two_rank_problem(torch, datasets, from_dataset, mesh.device)
+    g, p0, cfg, lm_cfg = gn + lm_
+    a = dist_fused_gn_solve(p0, g, mesh, cfg, iterations=3, cg_kernel=True)
+    b, (err, lam, n_acc) = dist_fused_lm_solve(p0, g, mesh, lm_cfg, iterations=3, cg_kernel=True)
+    torch.cuda.synchronize()
+    sizes = torch.tensor([float(cs.stage_a.launches), float(mesh.size)])
+    if multihost.is_coordinator():
+        torch.save({"gn": a.cpu(), "lm": b.cpu(), "stats": torch.stack([err, lam, n_acc]).cpu(),
+                    "el": torch.tensor(float(g.num_edges - g.chain_prefix)), "sizes": sizes},
+                   out_path)
+    torch.distributed.destroy_process_group()
+
+
+def _two_rank_problem(torch, datasets, from_dataset, dev):
+    """manhattan(1000, seed 5) (scripts/bench_all.py's quick size), tiles of
+    32 loop edges so that both ranks hold loop edges."""
+    from graphslam_tpu_torch.config import SolverConfig
+
+    data = datasets.manhattan(n_poses=1000, seed=5)
+    g = from_dataset(data, device=dev)
+    p0 = torch.from_numpy(data["poses"]).to(dev)
+    cfg = SolverConfig(cg_max_iterations=25, pcr_levels=4, edge_tile=32)
+    lm_cfg = SolverConfig(cg_max_iterations=25, pcr_levels=4, edge_tile=32,
+                          use_huber_on_loops=True)
+    return (g, p0), (cfg, lm_cfg)
+
+
+def phase_two_ranks(torch, datasets, from_dataset, mesh):
+    log("== phase 17: two gloo ranks on the one card (CUDA tensors), kernel path, "
+        "manhattan(1000)")
+    import socket
+    import tempfile
+
+    from graphslam_tpu_torch.parallel import dist_fused_gn_solve, dist_fused_lm_solve
+
+    (g, p0), (cfg, lm_cfg) = _two_rank_problem(torch, datasets, from_dataset, mesh.device)
+    one_gn = dist_fused_gn_solve(p0, g, mesh, cfg, iterations=3, cg_kernel=True)
+    one_lm, one_st = dist_fused_lm_solve(p0, g, mesh, lm_cfg, iterations=3, cg_kernel=True)
+    torch.cuda.synchronize()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "two_ranks.pt")
+        procs = [ctx.Process(target=_two_rank_worker, args=(r, port, path, str(ROOT)))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        if hung or any(p.exitcode != 0 for p in procs):
+            fail(f"two-rank run failed: exit codes {[p.exitcode for p in procs]}")
+        res = torch.load(path)
+    log(f"  two ranks ran in {time.perf_counter() - t0:.1f} s; loop edges "
+        f"{int(res['el'])} in tiles of {cfg.edge_tile}; rank 0 launched K6a "
+        f"{int(res['sizes'][0])} times")
+    # relative to the largest coordinate: only the order in which the ranks'
+    # loop partials are summed differs, and at manhattan(1000)'s ~20 m that
+    # is ~10 float32 ulps (1.81e-5 absolute between the twins at one and two
+    # gloo ranks on the CPU)
+    scale = float(one_gn[:, :2].abs().max())
+    e_gn = wrapped_max(res["gn"].to(p0.device), one_gn) / scale
+    e_lm = wrapped_max(res["lm"].to(p0.device), one_lm) / scale
+    _check("two ranks vs one rank, 3 GN iterations, wrapped max over the largest coordinate",
+           e_gn, TOL_MESH)
+    _check("two ranks vs one rank, 3 LM steps, wrapped max over the largest coordinate", e_lm,
+           TOL_MESH)
+    if int(res["stats"][2]) != int(one_st[2]):
+        fail(f"two ranks accepted {int(res['stats'][2])} LM steps, one rank {int(one_st[2])}")
+    return max(e_gn, e_lm)
+
+
+def stage_a_cost(N: int, c: int, El: int):
+    """K6a: poses, chain and loop inputs and the CSR read once, the payload
+    and the Aij stash written once; ~250 operations to linearize an edge
+    (two betweens, the log, Jr^-1, Ad, whitening, three 3x3 products), ~60
+    to assemble a node and 12 per loop-edge term it sums."""
+    nbytes = 12 * N + 48 * c + 56 * El + 4 * (N + 1) + 8 * El + 84 * N + 36 * El
+    return nbytes, 250 * (c + El) + 60 * N + 24 * El
+
+
+def gn_setup_cost(N: int, K: int):
+    """K6b: payload, poses, priors and lam read once; D, the K-level PCR
+    factor, Dinv and b written once; ~150 operations for a node's prior and
+    damping, ~400 per node and PCR level."""
+    nbytes = 84 * N + 12 * N + 48 * N + 4 + 36 * N + 72 * K * N + 36 * N + 12 * N
+    return nbytes, 150 * N + 400 * K * N
+
+
+def cg_step_cost(N: int, El: int, K: int):
+    """K6c, one pass: the carry, D, U, the PCR factor, Aij with its
+    endpoints and the CSR read once; the carry written once; the update,
+    the K-level PCR apply and Dinv, the direction, the chain and loop H@p
+    and the three dots."""
+    nbytes = (48 * N + 16 + 12 * N + 4 + 36 * N + 36 * N + 72 * K * N + 36 * N + 36 * El
+              + 8 * El + 4 * (N + 1) + 8 * El + 48 * N + 16 + 12 * N + 4)
+    return nbytes, N * (108 + 36 * K) + 72 * El
+
+
+def phase_dist_timing(torch, card, main):
+    log("== phase 18: distributed timing (m3500, world size 1 over NCCL)")
+    from graphslam_tpu_torch.config import SolverConfig
+    from graphslam_tpu_torch.ops import gn_kernel as gk
+    from graphslam_tpu_torch.parallel import cg_step as cs, dist_fused, dist_fused_gn_solve
+    from graphslam_tpu_torch.solver import lm
+
+    mesh, (g, p0, _) = main["mesh"], main["graph"]
+    cfg = SolverConfig(mode="gn_fused", cg_max_iterations=25, pcr_levels=4, edge_tile=512,
+                       hvp_splits=1)
+    iters, out = 200, {}
+
+    def k6(p):
+        return dist_fused_gn_solve(p, g, mesh, cfg, iterations=iters)
+
+    def k1(p):
+        return lm._gn_loop(p, g, cfg, "gn_fused", iters)
+
+    plain_iters = 20  # the plain path at ~15 GN it/s: a tenth of the solve
+
+    def plain(p):
+        return dist_fused_gn_solve(p, g, mesh, cfg, iterations=plain_iters, cg_kernel=False)
+
+    class LocalMesh(type(mesh)):
+        """The same rank without the collectives: what NCCL costs at world
+        size 1, where an all-reduce adds nothing."""
+
+        def all_reduce(self, t):
+            return t
+
+    local = LocalMesh(group=None, rank=0, size=1, device=mesh.device)
+
+    def k6_local(p):
+        return dist_fused_gn_solve(p, g, local, cfg, iterations=iters)
+
+    # in turns: plain, K1, K6, K6 without collectives, K6, K1, plain (the
+    # host's speed varies)
+    t_pa = _time_solves(torch, plain, p0, 1, 1)
+    t_1a = _time_solves(torch, k1, p0, 3, 2)
+    t_6a = _time_solves(torch, k6, p0, 3, 2)
+    t_6l = _time_solves(torch, k6_local, p0, 3, 2)
+    t_6b = _time_solves(torch, k6, p0, 3, 2)
+    t_1b = _time_solves(torch, k1, p0, 3, 2)
+    t_pb = _time_solves(torch, plain, p0, 1, 1)
+    out["k6_ms"] = 1e3 * min(t_6a, t_6b) / 2
+    out["k6_local_ms"] = 1e3 * t_6l / 2
+    out["k1_ms"] = 1e3 * min(t_1a, t_1b) / 2
+    out["plain_ms"] = 1e3 * min(t_pa, t_pb) * iters / plain_iters
+    log(f"  card: {card}")
+    log(f"  dist_fused GN through K6 ({iters} iterations, cg 25, pcr_levels 4): "
+        f"{out['k6_ms']:.3f} ms per solve ({1e3 * t_6a / 2:.3f} and {1e3 * t_6b / 2:.3f} in "
+        f"turns), {iters * 1e3 / out['k6_ms']:.1f} GN it/s")
+    log(f"  K1 (_gn_loop gn_fused, same config): {out['k1_ms']:.3f} ms per solve "
+        f"({1e3 * t_1a / 2:.3f} and {1e3 * t_1b / 2:.3f}), {iters * 1e3 / out['k1_ms']:.1f} GN "
+        f"it/s; the 1-device gap K6/K1 = {out['k6_ms'] / out['k1_ms']:.2f}x")
+    log(f"  K6 without the collectives (the same rank, all-reduce skipped): "
+        f"{out['k6_local_ms']:.3f} ms per solve, {iters * 1e3 / out['k6_local_ms']:.1f} GN it/s")
+    log(f"  plain path on the card: {1e3 * t_pa:.3f} ms before, {1e3 * t_pb:.3f} after per "
+        f"{plain_iters}-iteration solve, {iters * 1e3 / out['plain_ms']:.1f} GN it/s "
+        f"({out['plain_ms']:.3f} ms per {iters} iterations)")
+
+    sh = dist_fused._prepare(p0, g, mesh, -1.0, cfg.pcr_levels, cfg.edge_tile)
+    kern = sh.kernel()
+    lam = torch.zeros(1, device=p0.device)
+    payload, Aij = kern.stage_a(p0)
+    st = kern.gn_setup(payload, p0, lam)
+    carry = cs.cg_state(st.b)
+    out["stage_a_us"] = _event_us(torch, lambda: cs.stage_a(sh, p0), 200)
+    out["gn_setup_us"] = _event_us(torch, lambda: cs.gn_setup(sh, payload, p0, lam), 200)
+    out["cg_step_us"] = _event_us(torch, lambda: cs.cg_step(sh, st, Aij, carry), 500)
+    out["stage_a_plain_us"] = _event_us(torch, lambda: cs.stage_a_reference(sh, p0), 20)
+    ref_pay, ref_A = cs.stage_a_reference(sh, p0)
+    out["gn_setup_plain_us"] = _event_us(
+        torch, lambda: cs.gn_setup_reference(sh, ref_pay, p0, lam), 10, warmup=1)
+    ref_st = cs.gn_setup_reference(sh, ref_pay, p0, lam)
+    ref_carry = cs.cg_state(ref_st.b)
+    out["cg_step_plain_us"] = _event_us(
+        torch, lambda: cs.cg_step_reference(sh, ref_st, ref_A, ref_carry), 50)
+    big = torch.zeros(3 * sh.N + 1, device=p0.device)
+    pay = torch.zeros(cs.payload_size(sh.N), device=p0.device)
+    out["allreduce_big_us"] = _event_us(torch, lambda: mesh.all_reduce(big), 500)
+    out["allreduce_payload_us"] = _event_us(torch, lambda: mesh.all_reduce(pay), 200)
+    out["k6_launch_counts_per_call"] = (2, 1 + sh.K, 4 + sh.K)
+    log(f"  per call (CUDA events, the wrapper included): K6a {out['stage_a_us']:.2f} us, K6b "
+        f"{out['gn_setup_us']:.2f} us, K6c {out['cg_step_us']:.2f} us; twins on the card "
+        f"{out['stage_a_plain_us']:.2f}, {out['gn_setup_plain_us']:.2f}, "
+        f"{out['cg_step_plain_us']:.2f} us")
+    log(f"  all_reduce at world size 1 (NCCL): {out['allreduce_big_us']:.2f} us for the "
+        f"[tile_Ap; s1] buffer ({3 * sh.N + 1} floats), {out['allreduce_payload_us']:.2f} us for "
+        f"the payload ({cs.payload_size(sh.N)} floats)")
+
+    n_it = 10
+    groups, span = _profile_launches(torch, lambda: dist_fused_gn_solve(
+        p0, g, mesh, cfg, iterations=n_it), top=10)
+    out["launches_per_it"] = {k: c / n_it for k, (c, _) in groups.items()}
+    out["idle_share"] = _log_profile(f"dist_fused GN through K6 ({n_it} iterations)", groups,
+                                     span, n_it)
+    return out
+
+
 def make_tour(torch):
     """The replay's scans, made on the card with the port's raycaster."""
     from graphslam_tpu_torch.config import SLAMConfig, SolverConfig
@@ -1479,6 +1944,10 @@ def main() -> int:
     se3_graphs = _se3_main(torch, datasets, from_dataset)
     se3_main = phase_se3_main(torch, se3_graphs, chi2, metrics, lm)
     st = phase_se3_timing(torch, card, se3_graphs, lm)
+    k6_err = phase_k6_kernels(torch, datasets, from_dataset)
+    dm = phase_dist_main(torch, datasets, from_dataset, chi2, metrics)
+    two_rank_err = phase_two_ranks(torch, datasets, from_dataset, dm["mesh"])
+    dt = phase_dist_timing(torch, card, dm)
     if "jax" in sys.modules:
         fail("the port imported jax")
 
@@ -1510,6 +1979,15 @@ def main() -> int:
     log(f"  K4 bound per sphere2500 20-iteration solve {gn6_bound:.4f} ms ({gn6_by}, K = {Ks}); "
         f"K4-LM per garage 20-step solve {lm6_bound:.4f} ms ({lm6_by}); K5 per call at garage "
         f"{k5_bound * 1e3:.3f} us ({k5_by}, K = {Kg})")
+    from graphslam_tpu_torch.parallel import dist_fused
+
+    sh = dist_fused._prepare(p0, g, dm["mesh"], -1.0, 4, 512)
+    k6a_bound, k6a_by = _bound(*stage_a_cost(sh.N, sh.c, sh.El))
+    k6b_bound, k6b_by = _bound(*gn_setup_cost(sh.N, sh.K))
+    k6c_bound, k6c_by = _bound(*cg_step_cost(sh.N, sh.El, sh.K))
+    log(f"  K6 bounds per call at m3500 (K = {sh.K}): K6a {k6a_bound * 1e3:.3f} us ({k6a_by}), "
+        f"K6b {k6b_bound * 1e3:.3f} us ({k6b_by}), K6c {k6c_bound * 1e3:.3f} us ({k6c_by})")
+    k6_common = dict(route="cuda", source="graphslam_tpu_torch/csrc/cg_step.cu", library_ms=None)
     print(json.dumps({"kernels": [
         {
             "name": "gn_kernel",
@@ -1624,7 +2102,50 @@ def main() -> int:
             "bound_by": k5_by,
             "library_ms": None,
         },
+        {
+            "name": "cg_step_stage_a",
+            **k6_common,
+            "replaces": "graphslam_tpu/parallel/cg_step.py:200",
+            "launches": dm["gn_counts"]["stage_a"],
+            "launches_lm": dm["lm_counts"]["stage_a"],
+            "max_abs_err": k6_err["stage_a"],
+            "ms": dt["stage_a_us"] / 1e3,
+            "plain_ms": dt["stage_a_plain_us"] / 1e3,
+            "bound_ms": k6a_bound,
+            "bound_by": k6a_by,
+        },
+        {
+            "name": "cg_step_gn_setup",
+            **k6_common,
+            "replaces": "graphslam_tpu/parallel/cg_step.py:323",
+            "launches": dm["gn_counts"]["gn_setup"],
+            "launches_lm": dm["lm_counts"]["gn_setup"],
+            "max_abs_err": k6_err["gn_setup"],
+            "ms": dt["gn_setup_us"] / 1e3,
+            "plain_ms": dt["gn_setup_plain_us"] / 1e3,
+            "bound_ms": k6b_bound,
+            "bound_by": k6b_by,
+        },
+        {
+            "name": "cg_step_cg_step",
+            **k6_common,
+            "replaces": "graphslam_tpu/parallel/cg_step.py:90",
+            "launches": dm["gn_counts"]["cg_step"],
+            "launches_lm": dm["lm_counts"]["cg_step"],
+            "max_abs_err": max(k6_err["cg_step_26"], two_rank_err),
+            "max_abs_err_1_pass": k6_err["cg_step_1"],
+            "max_abs_err_two_ranks": two_rank_err,
+            "ms": dt["cg_step_us"] / 1e3,
+            "plain_ms": dt["cg_step_plain_us"] / 1e3,
+            "bound_ms": k6c_bound,
+            "bound_by": k6c_by,
+            "dist_fused_gn_ms_per_solve": dt["k6_ms"],
+        },
     ]}), flush=True)
+    import torch.distributed as tdist
+
+    if tdist.is_initialized():
+        tdist.destroy_process_group()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,8 @@ its module paths and public names so each counterpart is found at once:
   frontend/            scan projection, keyframe gates, GICP matching
   slam/                the online pipeline's state, step and replays
   ops/                 hand-written CUDA kernels with their plain twins
+  parallel/            the distributed solvers on torch.distributed, with
+                       the kernels of a distributed GN iteration
   metrics.py, utils.py ATE/RPE, device sync and card info
 
 It imports torch and never jax. All math is float32; TF32 is switched off

@@ -115,7 +115,7 @@ class SLAMConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout for the distributed solver (not ported yet)."""
+    """Device-mesh layout for the distributed solver."""
 
     axis: str = "dev"
     num_devices: Optional[int] = None

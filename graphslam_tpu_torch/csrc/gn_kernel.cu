@@ -52,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "se2_blocks.cuh"
+
 extern "C" {
 
 struct GnProblem {
@@ -82,15 +84,6 @@ struct GnProblem {
 }  // extern "C"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr float kPi = 3.14159265358979f;
-constexpr float kTwoPi = 6.28318530717959f;
-constexpr float kTiny = 1e-30f;
-
-__host__ __device__ inline int n_blocks(long long n) {
-  return (int)((n + kThreads - 1) / kThreads);
-}
 
 // Workspace carve-up (floats).
 struct Ws {
@@ -152,97 +145,8 @@ Ws layout(int N, int c, int El, int K, int cg_max, float* base) {
   return w;
 }
 
-// ---------------------------------------------------------------------------
-// 3-vectors and row-major 3x3 blocks in registers
-// ---------------------------------------------------------------------------
-
-struct V3 { float v[3]; };
-struct M3 { float m[9]; };
-
-__device__ __forceinline__ V3 ld3(const float* a, long long i) {
-  return V3{{a[3 * i], a[3 * i + 1], a[3 * i + 2]}};
-}
-__device__ __forceinline__ void st3(float* a, long long i, const V3& x) {
-  a[3 * i] = x.v[0]; a[3 * i + 1] = x.v[1]; a[3 * i + 2] = x.v[2];
-}
-__device__ __forceinline__ M3 ld9(const float* a, long long i) {
-  M3 r;
-#pragma unroll
-  for (int e = 0; e < 9; ++e) r.m[e] = a[9 * i + e];
-  return r;
-}
-__device__ __forceinline__ void st9(float* a, long long i, const M3& x) {
-#pragma unroll
-  for (int e = 0; e < 9; ++e) a[9 * i + e] = x.m[e];
-}
-__device__ __forceinline__ V3 v3zero() { return V3{{0.f, 0.f, 0.f}}; }
-__device__ __forceinline__ M3 m3zero() {
-  M3 r;
-#pragma unroll
-  for (int e = 0; e < 9; ++e) r.m[e] = 0.f;
-  return r;
-}
-__device__ __forceinline__ M3 mmul(const M3& A, const M3& B) {
-  M3 r;
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      r.m[3 * a + c] = A.m[3 * a] * B.m[c] + A.m[3 * a + 1] * B.m[3 + c] +
-                       A.m[3 * a + 2] * B.m[6 + c];
-  return r;
-}
-__device__ __forceinline__ M3 mT(const M3& A) {
-  return M3{{A.m[0], A.m[3], A.m[6], A.m[1], A.m[4], A.m[7], A.m[2], A.m[5], A.m[8]}};
-}
-__device__ __forceinline__ V3 mvec(const M3& A, const V3& x) {
-  V3 r;
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-    r.v[a] = A.m[3 * a] * x.v[0] + A.m[3 * a + 1] * x.v[1] + A.m[3 * a + 2] * x.v[2];
-  return r;
-}
-__device__ __forceinline__ V3 mTvec(const M3& A, const V3& x) {
-  V3 r;
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-    r.v[a] = A.m[a] * x.v[0] + A.m[3 + a] * x.v[1] + A.m[6 + a] * x.v[2];
-  return r;
-}
-__device__ __forceinline__ void madd(M3& A, const M3& B) {
-#pragma unroll
-  for (int e = 0; e < 9; ++e) A.m[e] += B.m[e];
-}
-__device__ __forceinline__ void vadd(V3& a, const V3& b) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) a.v[i] += b.v[i];
-}
-__device__ __forceinline__ float vdot(const V3& a, const V3& b) {
-  return a.v[0] * b.v[0] + a.v[1] * b.v[1] + a.v[2] * b.v[2];
-}
-
-// ---------------------------------------------------------------------------
-// SE(2) in the TPU kernel's form (gn_kernel.py:72-185)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float wrapf(float x) {
-  return x - kTwoPi * floorf((x + kPi) / kTwoPi);
-}
-
-__device__ V3 se2_between(const V3& a, const V3& b) {
-  const float c = cosf(a.v[2]), s = sinf(a.v[2]);
-  const float dx = b.v[0] - a.v[0], dy = b.v[1] - a.v[1];
-  return V3{{c * dx + s * dy, -s * dx + c * dy, wrapf(b.v[2] - a.v[2])}};
-}
-
-__device__ V3 se2_log(const V3& p) {
-  const float w = wrapf(p.v[2]);
-  const bool small = fabsf(w) < 1e-6f;
-  const float halfs = (small ? 1.f : w) / 2.f;
-  const float A = small ? 1.f - w * w / 12.f : halfs * cosf(halfs) / sinf(halfs);
-  const float half = w / 2.f;
-  return V3{{A * p.v[0] + half * p.v[1], -half * p.v[0] + A * p.v[1], w}};
-}
+// SE(2) exp, compose and the whitened residual (the rest of the SE(2) code
+// is in se2_blocks.cuh, shared with csrc/cg_step.cu).
 
 __device__ V3 se2_exp(const V3& v) {
   const float w = v.v[2];
@@ -261,134 +165,10 @@ __device__ V3 se2_compose(const V3& a, const V3& b) {
              wrapf(a.v[2] + b.v[2])}};
 }
 
-// Inverse left Jacobian at (vx, vy, w); the right one is Jl^{-1}(-xi).
-__device__ M3 se2_jl_inv(float vx, float vy, float w) {
-  const bool small = fabsf(w) < 1e-4f;
-  const float ws = small ? 1.f : w;
-  const float half = ws / 2.f;
-  const float sw = sinf(ws), cw = cosf(ws), sh = sinf(half);
-  const float a = small ? 1.f - w * w / 6.f : sw / ws;
-  const float b = small ? w / 2.f - w * w * w / 24.f : 2.f * sh * sh / ws;
-  const float da = small ? -w / 3.f + w * w * w / 30.f : (ws * cw - sw) / (ws * ws);
-  const float db = small ? 0.5f - w * w / 8.f : (ws * sw - 2.f * sh * sh) / (ws * ws);
-  const float Vv_x = a * vx - b * vy, Vv_y = b * vx + a * vy;
-  const float dVv_x = da * vx - db * vy, dVv_y = db * vx + da * vy;
-  const float D_x = dVv_x + Vv_y, D_y = dVv_y - Vv_x;
-  const float A = small ? 1.f - w * w / 12.f : half * cosf(half) / sinf(half);
-  const float B = w / 2.f;
-  const float E_x = -(A * D_x + B * D_y);
-  const float E_y = -(-B * D_x + A * D_y);
-  return M3{{A, B, E_x, -B, A, E_y, 0.f, 0.f, 1.f}};
-}
-
-__device__ __forceinline__ M3 se2_jr_inv(const V3& r) {
-  return se2_jl_inv(-r.v[0], -r.v[1], -r.v[2]);
-}
-
-__device__ M3 se2_adjoint(const V3& p) {
-  const float c = cosf(p.v[2]), s = sinf(p.v[2]);
-  return M3{{c, -s, p.v[1], s, c, -p.v[0], 0.f, 0.f, 1.f}};
-}
-
-__device__ V3 se2_inverse(const V3& p) {
-  const float c = cosf(p.v[2]), s = sinf(p.v[2]);
-  return V3{{-(c * p.v[0] + s * p.v[1]), -(-s * p.v[0] + c * p.v[1]), -p.v[2]}};
-}
-
-// Whitened between factor (gn_kernel.py:187-214): rw, Jiw, Jjw.
-__device__ void linearize_edge(const V3& xi, const V3& xj, const V3& z, const M3& R,
-                               float huber_delta, V3& rw, M3& Jiw, M3& Jjw) {
-  const V3 h = se2_between(xi, xj);
-  const V3 r = se2_log(se2_between(z, h));
-  const M3 Jr_inv = se2_jr_inv(r);
-  M3 Ji = mmul(Jr_inv, se2_adjoint(se2_inverse(h)));
-#pragma unroll
-  for (int e = 0; e < 9; ++e) Ji.m[e] = -Ji.m[e];
-  rw = mvec(R, r);
-  Jiw = mmul(R, Ji);
-  Jjw = mmul(R, Jr_inv);
-  if (huber_delta > 0.f) {
-    const float n = sqrtf(fmaxf(vdot(rw, rw), 1e-24f));
-    const float sw = sqrtf(fminf(1.f, huber_delta / n));
-#pragma unroll
-    for (int i = 0; i < 3; ++i) rw.v[i] *= sw;
-#pragma unroll
-    for (int e = 0; e < 9; ++e) {
-      Jiw.m[e] *= sw;
-      Jjw.m[e] *= sw;
-    }
-  }
-}
-
 // Whitened residual only (gn_kernel.py:582-587), for the cost.
 __device__ __forceinline__ V3 residual_edge(const V3& xi, const V3& xj, const V3& z,
                                             const M3& R) {
   return mvec(R, se2_log(se2_between(z, se2_between(xi, xj))));
-}
-
-// PCR ridge and inverse of the TPU kernel (gn_kernel.py:282-300).
-__device__ __forceinline__ M3 ridge(M3 D, float eps3) {
-  const float r = eps3 * fabsf(D.m[0] + D.m[4] + D.m[8]) + 1e-8f;
-  D.m[0] += r;
-  D.m[4] += r;
-  D.m[8] += r;
-  return D;
-}
-
-// Row a of the inverse is adj row a times 1/det_a, det_a = sum_s M[a,s]
-// adj[a,s] (s = a, a+1, a+2), with |det| clamped to 1e-20 as on the TPU.
-__device__ M3 binv(const M3& M) {
-  M3 adj;
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-#pragma unroll
-    for (int s = 0; s < 3; ++s) {
-      const int s1 = (s + 1) % 3, s2 = (s + 2) % 3;
-      const int a1 = (a + 1) % 3, a2 = (a + 2) % 3;
-      adj.m[3 * a + s] = M.m[3 * s1 + a1] * M.m[3 * s2 + a2] - M.m[3 * s1 + a2] * M.m[3 * s2 + a1];
-    }
-  M3 inv;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    float det = 0.f;
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const int s = (a + d) % 3;
-      det += M.m[3 * a + s] * adj.m[3 * a + s];
-    }
-    const float id = 1.f / (fabsf(det) < 1e-20f ? 1e-20f : det);
-#pragma unroll
-    for (int s = 0; s < 3; ++s) inv.m[3 * a + s] = adj.m[3 * a + s] * id;
-  }
-  return inv;
-}
-
-// ---------------------------------------------------------------------------
-// Deterministic reductions: a fixed shared-memory tree per block, then every
-// block sums the per-block partials in index order.
-// ---------------------------------------------------------------------------
-
-__device__ void block_sum_to(float val, float* part) {
-  __shared__ float s[kThreads];
-  const int t = threadIdx.x;
-  s[t] = val;
-  __syncthreads();
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if (t < stride) s[t] += s[t + stride];
-    __syncthreads();
-  }
-  if (t == 0) part[blockIdx.x] = s[0];
-}
-
-__device__ float sum_partials(const float* part, int n) {
-  __shared__ float total;
-  if (threadIdx.x == 0) {
-    float acc = 0.f;
-    for (int i = 0; i < n; ++i) acc += part[i];
-    total = acc;
-  }
-  __syncthreads();
-  return total;
 }
 
 // ---------------------------------------------------------------------------
@@ -471,72 +251,23 @@ __global__ void k_assemble(GnProblem p, Ws w) {
   st9(p.U, n, n < p.c ? ld9(w.Aij, n) : m3zero());
 }
 
-// Chain sub-diagonal L[m] = U[m-1]^T at level 0; the level's own L after.
-__device__ __forceinline__ M3 load_L(const float* Ls, const float* U0, int m) {
-  if (Ls) return ld9(Ls, m);
-  return m >= 1 ? mT(ld9(U0, m - 1)) : m3zero();
-}
-
-// One PCR level (gn_kernel.py:340-368): with h = 2^k,
-//   alpha = L[n] Dinv[n-h], gamma = U[n] Dinv[n+h]   (zero off the ends)
-//   D' = D - alpha U[n-h] - gamma L[n+h], L' = -alpha L[n-h], U' = -gamma U[n+h]
-// where D is the ridged block. Each thread inverts its neighbours' blocks
-// itself, so one launch per level suffices. The last level writes the
-// final inverse instead of D', L', U'.
+// One PCR level (pcr_factor_row in se2_blocks.cuh); the last level writes
+// the final inverse instead of D', L', U'.
 __global__ void k_pcr_factor(GnProblem p, Ws w, int k, const float* Ds, const float* Us,
                              const float* Ls, float* Dd, float* Ud, float* Ld, int last) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= p.N) return;
-  const int h = 1 << k;
-  const float eps3 = p.eps / 3.f;
-  const bool has_m = n - h >= 0, has_p = n + h < p.N;
-  const M3 Dn = ridge(ld9(Ds, n), eps3);
-  const M3 Ln = load_L(Ls, p.U, n);
-  const M3 Un = ld9(Us, n);
-  const M3 alpha = has_m ? mmul(Ln, binv(ridge(ld9(Ds, n - h), eps3))) : m3zero();
-  const M3 gamma = has_p ? mmul(Un, binv(ridge(ld9(Ds, n + h), eps3))) : m3zero();
-  const long long kn = (long long)k * p.N + n;
-  st9(w.A, kn, alpha);
-  st9(w.G, kn, gamma);
-  const M3 aU = has_m ? mmul(alpha, ld9(Us, n - h)) : m3zero();
-  const M3 gL = has_p ? mmul(gamma, load_L(Ls, p.U, n + h)) : m3zero();
-  M3 Dnew;
-#pragma unroll
-  for (int e = 0; e < 9; ++e) Dnew.m[e] = (Dn.m[e] - aU.m[e]) - gL.m[e];
-  if (last) {
-    st9(w.DinvF, n, binv(ridge(Dnew, eps3)));
-    return;
-  }
-  M3 Lnew = has_m ? mmul(alpha, load_L(Ls, p.U, n - h)) : m3zero();
-  M3 Unew = has_p ? mmul(gamma, ld9(Us, n + h)) : m3zero();
-#pragma unroll
-  for (int e = 0; e < 9; ++e) {
-    Lnew.m[e] = -Lnew.m[e];
-    Unew.m[e] = -Unew.m[e];
-  }
-  st9(Dd, n, Dnew);
-  st9(Ld, n, Lnew);
-  st9(Ud, n, Unew);
+  pcr_factor_row(n, p.N, k, p.eps, Ds, Us, Ls, p.U, w.A, w.G, w.DinvF, Dd, Ud, Ld, last);
 }
 
-// One PCR apply level (gn_kernel.py:371-389): b' = b - A[k] b[n-h] - G[k]
-// b[n+h]; the last level also applies Dinv and, with rdot, adds the
-// partial sums of rdot.out per block to part.
+// One PCR apply level (pcr_apply_row); the last level also applies Dinv
+// and, with rdot, adds the partial sums of rdot.out per block to part.
 __global__ void k_pcr_apply(GnProblem p, Ws w, int k, const float* in, float* out, int last,
                             const float* rdot, float* part) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   float val = 0.f;
   if (n < p.N) {
-    const int h = 1 << k;
-    const long long kn = (long long)k * p.N + n;
-    const V3 bn = ld3(in, n);
-    const V3 am = n - h >= 0 ? mvec(ld9(w.A, kn), ld3(in, n - h)) : v3zero();
-    const V3 gp = n + h < p.N ? mvec(ld9(w.G, kn), ld3(in, n + h)) : v3zero();
-    V3 o;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) o.v[a] = (bn.v[a] - am.v[a]) - gp.v[a];
-    if (last) o = mvec(ld9(w.DinvF, n), o);
-    st3(out, n, o);
+    const V3 o = pcr_apply_row(n, p.N, k, w.A, w.G, w.DinvF, in, out, last);
     if (rdot) val = vdot(ld3(rdot, n), o);
   }
   if (part) block_sum_to(val, part);

@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` has a plain C interface (no PyTorch headers), so one
 nvcc call builds it in seconds, and several sources build in parallel. The
 library lands in the package's `build/` directory (listed in .gitignore)
-under a name that carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. A failed build
+under a name that carries a hash of the flags, the source and the csrc/
+headers it includes, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is. A failed build
 raises with nvcc's output.
 """
 
@@ -14,10 +15,11 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -40,12 +42,32 @@ def nvcc() -> str:
     return str(path)
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> List[Path]:
+    """csrc/<name>.cu and every csrc/ file it includes with #include "...",
+    recursively, in the order first reached."""
+    seen: List[Path] = []
+    todo = [SRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / m.decode() for m in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _target(name: str) -> Tuple[Path, Path, Path]:
-    """(source, library, compiler log) of csrc/<name>.cu under its hash."""
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{name}-{digest}.so"
-    return src, lib, lib.with_suffix(".log")
+    """(source, library, compiler log) of csrc/<name>.cu under a hash of the
+    flags, the source and the headers it includes, so an edited header
+    rebuilds every library that includes it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    lib = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return SRC_DIR / f"{name}.cu", lib, lib.with_suffix(".log")
 
 
 def build_all(names: Sequence[str]) -> Dict[str, Tuple[Path, str]]:

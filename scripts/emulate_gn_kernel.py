@@ -3,6 +3,7 @@
 
 Usage:  python scripts/emulate_gn_kernel.py [--poses N]
         python scripts/emulate_gn_kernel.py --se3 [--rings R --per-ring P]
+        python scripts/emulate_gn_kernel.py --dist [--poses N]
 
 Rewrites every `k<<<grid, block, 0, s>>>(` launch of the CUDA source into a
 call of a C++ emulation (blocks in turn, the threads of a block as
@@ -17,6 +18,12 @@ plain torch twin:
            its GN mode plain, chain-only, masked and warm, its LM mode and
            cost pass, and K5 (Pcg6Kernel) on sphere(R, P); a few minutes at
            sphere(6, 8)
+  --dist   cg_step.cu: K6a, K6b and K6c (CgStepKernel) on two ranks'
+           shards of manhattan(N) (half the loop edges each, the chain
+           weighted 1 on rank 0 and 0 on rank 1; without and with Huber;
+           the all-reduces summed here), K6c after 1 and 26 passes,
+           and the kernel path of dist_fused_gn_solve / dist_fused_lm_solve
+           on a one-rank gloo mesh against the plain path
 
 Prints one JSON line of max errors (poses wrapped or over the 12 entries,
 stages and K3/K5 relative to the largest entry) and the LM stats of kernel
@@ -82,7 +89,8 @@ def build(name: str = "gn_kernel") -> Path:
     src = re.sub(r"(\w+)<<<([^,]+),\s*([^,]+),\s*0,\s*s>>>\(", r"emu_launch(\2, \3, \1, ", src)
     (out / f"{name}_emu.cpp").write_text(src)
     lib = out / f"lib{name}_emu.so"
-    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{out}", "-o", str(lib),
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{out}",
+                    f"-I{ROOT / 'graphslam_tpu_torch' / 'csrc'}", "-o", str(lib),
                     str(out / f"{name}_emu.cpp")], check=True)
     return lib
 
@@ -107,6 +115,96 @@ def load_ops(libs, names=("gn_kernel", "pcg_kernel")):
         exec(compile(code, str(path), "exec"), mod.__dict__)
         mods.append(mod)
     return mods
+
+
+def load_cg_step(lib):
+    """parallel/cg_step.py with the emulated cg_step library in place of the
+    nvcc build: its wrappers launch the kernels for CPU tensors too."""
+    import graphslam_tpu_torch.parallel as par_pkg
+    from graphslam_tpu_torch.ops import _build
+    from graphslam_tpu_torch.parallel import dist_fused
+
+    prev = _build.load
+    _build.load = lambda name: ctypes.CDLL(str(lib)) if name == "cg_step" else prev(name)
+    torch.cuda.current_stream = lambda dev=None: types.SimpleNamespace(cuda_stream=0)
+    path = ROOT / "graphslam_tpu_torch" / "parallel" / "cg_step.py"
+    mod = types.ModuleType("graphslam_tpu_torch.parallel.cg_step")
+    mod.__file__ = str(path)
+    code = path.read_text().replace('.type != "cuda"', '.type == "never"').replace(
+        '.device.type == "cpu"', '.device.type == "never"')
+    exec(compile(code, str(path), "exec"), mod.__dict__)
+    sys.modules[mod.__name__] = mod
+    par_pkg.cg_step = mod
+    dist_fused.cs = mod
+    return mod, dist_fused
+
+
+def main_dist(n: int) -> None:
+    """cg_step.cu: K6a, K6b and K6c against their twins on one rank's
+    shards of manhattan(n), and the kernel path of dist_fused_gn_solve /
+    dist_fused_lm_solve (one rank) against the twins' path."""
+    cs, df = load_cg_step(build("cg_step"))
+    from graphslam_tpu_torch.config import SolverConfig
+    from graphslam_tpu_torch.factors import from_dataset
+    from graphslam_tpu_torch.io import datasets
+    from graphslam_tpu_torch.ops import gn_kernel as gk
+    from graphslam_tpu_torch.parallel import make_mesh
+
+    data = datasets.manhattan(n_poses=n, loop_prob=0.25, seed=0)
+    g = from_dataset(data, device="cpu")
+    p0 = torch.from_numpy(data["poses"])
+    pk = gk.pack_graph(g, n)
+    out = {"poses": n, "loop_edges": pk.El}
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    half = pk.El // 2
+    for label, huber in (("plain", -1.0), ("huber", 1.0)):
+        # two ranks: half the loop edges each, the chain on rank 0; the
+        # all-reduces are sums of the two ranks' buffers
+        shs = [cs.make_shard(pk, 0, half, 4, 1.0, huber), cs.make_shard(pk, half, pk.El, 4, 0.0,
+                                                                        huber)]
+        kerns = [cs.CgStepKernel(sh) for sh in shs]
+        got = [k.stage_a(p0) for k in kerns]
+        refs = [cs.stage_a_reference(sh, p0) for sh in shs]
+        for r, ((pay, A), (pay_r, A_r)) in enumerate(zip(got, refs)):
+            out[f"stage_a_{label}_rank{r}"] = rel(pay, pay_r)
+            out[f"aij_{label}_rank{r}"] = rel(A, A_r)
+        reduced = got[0][0] + got[1][0]
+        reduced_r = refs[0][0] + refs[1][0]
+        lam = torch.tensor([1e-3])
+        sts = [k.gn_setup(reduced.clone(), p0, lam) for k in kerns]
+        srs = [cs.gn_setup_reference(sh, reduced_r, p0, lam) for sh in shs]
+        out[f"setup_{label}"] = max(rel(a, b) for a, b in zip(sts[0], srs[0]))
+        cks = [cs.cg_state(srs[0].b) for _ in kerns]
+        crs = [cs.cg_state(srs[0].b) for _ in kerns]
+        for it in range(26):
+            for k, (_, A), ck in zip(kerns, got, cks):
+                k.cg_step(A, ck)
+            for sh, sr, (_, A_r), cr in zip(shs, srs, refs, crs):
+                cs.cg_step_reference(sh, sr, A_r, cr)
+            for carry in (cks, crs):
+                big = carry[0].big + carry[1].big
+                for c in carry:
+                    c.big.copy_(big)
+            if it in (0, 25):  # scal[2] is the kernel's scratch slot
+                out[f"cg{it + 1}_{label}"] = max(
+                    rel(a, b) for a, b in zip(cks[0]._replace(scal=cks[0].scal[:2]),
+                                              crs[0]._replace(scal=crs[0].scal[:2])))
+    mesh = make_mesh(device="cpu")
+    cfg = SolverConfig(cg_max_iterations=25, pcr_levels=4)
+    kern_out = df.dist_fused_gn_solve(p0, g, mesh, cfg, iterations=3, cg_kernel=True)
+    twin_out = df._dist_fused(p0, g, mesh, 3, 25, -1.0, 4, cfg.edge_tile, False, 0.0, 10.0,
+                              1e-10, 1e7, False)[0]
+    out["gn_vs_plain"] = wrapped_max(kern_out, twin_out)
+    lm_cfg = SolverConfig(cg_max_iterations=25, pcr_levels=4, use_huber_on_loops=True)
+    a, sa = df.dist_fused_lm_solve(p0, g, mesh, lm_cfg, iterations=3, cg_kernel=True)
+    b, sb = df.dist_fused_lm_solve(p0, g, mesh, lm_cfg, iterations=3, cg_kernel=False)
+    out["lm_vs_plain"] = wrapped_max(a, b)
+    out["lm_stats"] = [[float(t) for t in sa], [float(t) for t in sb]]
+    out["launches"] = [cs.stage_a.launches, cs.gn_setup.launches, cs.cg_step.launches]
+    print(json.dumps(out))
 
 
 def wrapped_max(a, b) -> float:
@@ -174,11 +272,14 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--poses", type=int, default=260)
     ap.add_argument("--se3", action="store_true")
+    ap.add_argument("--dist", action="store_true")
     ap.add_argument("--rings", type=int, default=6)
     ap.add_argument("--per-ring", type=int, default=8)
     args = ap.parse_args()
     if args.se3:
         return main_se3(args.rings, args.per_ring)
+    if args.dist:
+        return main_dist(args.poses)
     n = args.poses
     gk, pk = load_ops({"gn_kernel": build()})
     from graphslam_tpu_torch.factors import from_dataset

@@ -29,3 +29,35 @@ def se3_max(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     assert a.shape == b.shape and a.shape[-1] == 12, (a.shape, b.shape)
     return float(np.abs(a - b).max())
+
+
+def run_ranks(world: int, scenario: str, out_dir, timeout: float = 240.0) -> dict:
+    """Run tests/_torch_dist_worker.py SCENARIO in `world` gloo processes
+    (one per rank, on the CPU) and return rank 0's saved arrays."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    worker = os.path.join(repo, "tests", "_torch_dist_worker.py")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = os.path.join(str(out_dir), f"{scenario}_{world}.npz")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, worker, str(r), str(world), str(port), out, scenario],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              cwd=repo, env=env)
+             for r in range(world)]
+    try:
+        results = [p.communicate(timeout=timeout) + (p.returncode,) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (stdout, stderr, rc) in enumerate(results):
+        assert rc == 0, f"rank {rank} of {world} exited {rc}:\n{stderr[-3000:]}"
+    with np.load(out) as f:
+        return {k: f[k] for k in f.files}
