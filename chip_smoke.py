@@ -3,16 +3,17 @@
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
-It builds csrc/gn_kernel.cu, csrc/icp_kernel.cu, csrc/gn6_kernel.cu and
-csrc/cg_step.cu with nvcc (in parallel), holds every kernel against its
-plain torch twin, drives the slices of the port (SE(2) GN, the online
-pipeline, LM, SE(3), the distributed SE(2) solvers) through the entry
-points a user calls, and times the kernel paths and the plain paths on the
-card. Phases, each failing with a traceback and a nonzero exit:
+It builds csrc/gn_kernel.cu, csrc/icp_kernel.cu, csrc/gn6_kernel.cu,
+csrc/cg_step.cu and csrc/cg_step6.cu with nvcc (in parallel), holds every
+kernel against its plain torch twin, drives the slices of the port (SE(2)
+GN, the online pipeline, LM, SE(3), the distributed SE(2) and SE(3)
+solvers) through the entry points a user calls, and times the kernel paths
+and the plain paths on the card. Phases, each failing with a traceback and
+a nonzero exit:
 
   1. device info: card name and power limit (nvidia-smi), CUDA, nvcc,
      triton; float32 matmuls at "highest" precision, TF32 off
-  2. build the three kernel sources from the checkout
+  2. build the five kernel sources from the checkout
   3. fused GN kernel (K1) against its plain twin on manhattan(260):
      assembled D and b after one linearization (rel 1e-5), one PCR apply
      (rel 1e-4), one CG solve (rel 1e-3), and 5 whole GN iterations (wrapped
@@ -117,6 +118,29 @@ card. Phases, each failing with a traceback and a nonzero exit:
      card; K6a, K6b and K6c per call and their twins (CUDA events); the
      all_reduce at world size 1; launches per GN iteration by source and
      the idle share (profiler)
+ 19. K7a-c (csrc/cg_step6.cu) against their twins as phase 15 holds K6, on
+     sphere(10, 10) and the garage at exact PCR, without and with Huber,
+     two ranks in one process, at phase 15's tolerances; two K7 sequences
+     bitwise equal
+ 20. the distributed SE(3) main paths on cuda, world size 1 over NCCL:
+     sphere2500 and garage through dist_fused6_gn_solve (K7, 20 iterations
+     at scripts/bench_all.py:251-283's cell: cg 25, edge_tile 256, exact
+     PCR; no page windows) and the garage through dist_fused6_lm_solve (20
+     steps, Huber 1.0), each with its K7 launch counts above 0, gated on the
+     JAX package's CPU runs (scripts/dist6_gate_jax.py, hvp_splits 1): ATE
+     < 0.2 m and within 0.02 m of JAX's, chi2 within 2%, LM accepted steps
+     equal; two runs bitwise equal; over 5 iterations the kernel path
+     against the plain path on the card and against K4 (max |d| 5e-3 GN,
+     8e-3 LM, accepted steps equal)
+ 21. two gloo ranks on the one card (CUDA tensors): the SE(3) kernel path on
+     the garage in tiles of 64 loop edges, 3 GN iterations and 3 LM steps,
+     against world size 1 within 1e-5 of the largest coordinate, accepted
+     steps equal
+ 22. distributed SE(3) timing at sphere2500: dist_fused6 GN it/s through K7
+     in turns with K4 (_gn_loop gn_fused, the same config) and with the
+     plain path on the card; K7a, K7b and K7c per call and their twins
+     (CUDA events); the all_reduce at world size 1; launches per GN
+     iteration by source and the idle share (profiler)
 
 Before the last line it prints one JSON object describing the kernels
 (max_abs_err: gn_kernel the larger of its m3500 and replay-solve pose
@@ -129,7 +153,10 @@ gn6_kernel, gn6_kernel_lm and pcg6_kernel likewise from phases 12-14, with
 cg_step_stage_a, cg_step_gn_setup and cg_step_cg_step (K6a-c) from phases
 15-18: "max_abs_err" the largest relative error against the twin (K6c also
 the two-rank check), "ms" per call of the wrapper, "launches" the count in
-the GN main path and "launches_lm" in the LM one);
+the GN main path and "launches_lm" in the LM one; cg_step6_stage_a,
+cg_step6_gn_setup and cg_step6_cg_step (K7a-c) likewise from phases 19-22,
+"launches" in the sphere2500 GN main path, "launches_garage" in the garage
+one, "launches_lm" in the garage LM one, "ms" at sphere2500);
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, it exits nonzero and prints no result.
@@ -194,6 +221,20 @@ JAX_DIST = {
     "lm": {"chi2": 5525.9423828125, "ate": 0.297905296087265, "steps": 50},
     "lm_hs3": {"chi2": 5527.24169921875, "ate": 0.2979288399219513, "steps": 50},
     "dist_gn": {"chi2": 6397.5380859375, "ate": 0.3465941846370697},
+}
+# The JAX package's distributed SE(3) solves on one CPU device
+# (scripts/dist6_gate_jax.py: the XLA loop, cg_kernel=False, no page-window
+# bucketization; cg 25, edge_tile 256, exact PCR, 20 iterations; jax 0.9.0).
+# *_gn and garage_lm at the cell's hvp_splits 1 (bf16 loop gathers), *_hs3 at
+# hvp_splits 3 (float32-faithful, as the port multiplies); GN chi2 without a
+# robust kernel, LM chi2 with Huber 1.0 on the loops.
+JAX_DIST6 = {
+    "sphere2500_gn": {"chi2": 15147.064453125, "ate": 0.19013607501983643},
+    "sphere2500_gn_hs3": {"chi2": 15144.9326171875, "ate": 0.1898946762084961},
+    "garage_gn": {"chi2": 1630.5450439453125, "ate": 0.13992086052894592},
+    "garage_gn_hs3": {"chi2": 1630.15673828125, "ate": 0.13934338092803955},
+    "garage_lm": {"chi2": 1477.664306640625, "ate": 0.13682299852371216, "steps": 20},
+    "garage_lm_hs3": {"chi2": 1477.659423828125, "ate": 0.13640356063842773, "steps": 20},
 }
 TOL_KERNEL_PATH = 2e-4    # the JAX kernel path vs its XLA loop (tests/test_dist_fused.py:170)
 # K6a/K6b against their twins on the card: float32 with FMAs against float32
@@ -266,7 +307,7 @@ def phase_build():
     from graphslam_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    built = _build.build_all(["gn_kernel", "icp_kernel", "gn6_kernel", "cg_step"])
+    built = _build.build_all(["gn_kernel", "icp_kernel", "gn6_kernel", "cg_step", "cg_step6"])
     log(f"built {len(built)} kernel libraries in parallel in {time.perf_counter() - t0:.2f} s")
     for lib, ptxas in built.values():
         log(f"  {lib.relative_to(ROOT)}")
@@ -1005,13 +1046,14 @@ def _profile_launches(torch, fn, top: int = 0):
         torch.cuda.synchronize()
         span = time.perf_counter() - t0
     groups = {"gn_kernel.cu": (0, 0.0), "gn6_kernel.cu": (0, 0.0), "cg_step.cu": (0, 0.0),
-              "nccl": (0, 0.0), "torch ops": (0, 0.0), "memcpy/memset": (0, 0.0)}
+              "cg_step6.cu": (0, 0.0), "nccl": (0, 0.0), "torch ops": (0, 0.0),
+              "memcpy/memset": (0, 0.0)}
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", 0.0) or 0.0
         if dev_us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
             g = ("gn_kernel.cu" if "GnProblem" in e.key else "gn6_kernel.cu"
                  if "Gn6Problem" in e.key else "cg_step.cu" if "CgProblem" in e.key
-                 else "nccl" if "nccl" in e.key.lower() else "memcpy/memset"
+                 else "cg_step6.cu" if "Cg6Problem" in e.key else "nccl" if "nccl" in e.key.lower() else "memcpy/memset"
                  if e.key.startswith(("Memcpy", "Memset")) else "torch ops")
             c0, d0 = groups[g]
             groups[g] = (c0 + e.count, d0 + dev_us / 1e3)
@@ -1020,7 +1062,7 @@ def _profile_launches(torch, fn, top: int = 0):
                 if str(getattr(e, "device_type", "")).endswith("CUDA")
                 and (getattr(e, "self_device_time_total", 0.0) or 0.0) > 0]
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
-            m = re.search(r"(?:^|[^A-Za-z])((?:k6?|cg)_[a-z0-9_]+)", e.key)
+            m = re.search(r"(?:^|[^A-Za-z])((?:k6?|cg6?)_[a-z0-9_]+)", e.key)
             name = m.group(1) if m else e.key[:60]
             log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:7d}x  "
                 f"{e.self_device_time_total / e.count:8.2f} us each  {name}")
@@ -1471,23 +1513,26 @@ def _k6_two_ranks(cs, gk, g, p0, huber=-1.0):
             cs.make_shard(pk, half, pk.El, 4, 0.0, huber)]
 
 
-def _k6_sequence(torch, cs, shs, p0, lam, passes, kernel: bool):
-    """K6a, the payloads summed (the all-reduce), K6b and `passes` K6c
-    passes on two ranks, through the kernels or the twins; returns
-    (per-rank payloads and Aij, rank 0's Setup, rank 0's carry after pass 1
-    and after the last)."""
+def _k_sequence(torch, cs, shs, p0, lam, passes, kernel: bool, sfx: str = ""):
+    """K6a (K7a with sfx "6" and cs parallel/cg_step6.py), the payloads
+    summed (the all-reduce), K6b and `passes` K6c passes on two ranks,
+    through the kernels or the twins; returns (per-rank payloads and Aij,
+    rank 0's Setup, rank 0's carry after pass 1 and after the last)."""
+    stage_ref, setup_ref, step_ref = (getattr(cs, f"{n}{sfx}_reference")
+                                      for n in ("stage_a", "gn_setup", "cg_step"))
+    step_kern = getattr(cs, f"cg_step{sfx}")
     if kernel:
         kerns = [sh.kernel() for sh in shs]
         outs = [k.stage_a(p0) for k in kerns]
         outs = [(pay.clone(), A.clone()) for pay, A in outs]
         reduced = outs[0][0] + outs[1][0]
         setups = [k.gn_setup(reduced.clone(), p0, lam) for k in kerns]
-        step = lambda i, A, c: cs.cg_step(shs[i], setups[i], kerns[i].Aij, c)  # noqa: E731
+        step = lambda i, A, c: step_kern(shs[i], setups[i], kerns[i].Aij, c)  # noqa: E731
     else:
-        outs = [cs.stage_a_reference(sh, p0) for sh in shs]
+        outs = [stage_ref(sh, p0) for sh in shs]
         reduced = outs[0][0] + outs[1][0]
-        setups = [cs.gn_setup_reference(sh, reduced, p0, lam) for sh in shs]
-        step = lambda i, A, c: cs.cg_step_reference(shs[i], setups[i], A, c)  # noqa: E731
+        setups = [setup_ref(sh, reduced, p0, lam) for sh in shs]
+        step = lambda i, A, c: step_ref(shs[i], setups[i], A, c)  # noqa: E731
     carries = [cs.cg_state(setups[0].b) for _ in shs]
     first = None
     for it in range(passes):
@@ -1501,6 +1546,46 @@ def _k6_sequence(torch, cs, shs, p0, lam, passes, kernel: bool):
     return outs, setups[0], first, carries[0]
 
 
+def _k_family_checks(torch, cs, sfx, tag, graphs, two_ranks):
+    """K6a-c (tag "K6", sfx "") or K7a-c (tag "K7", sfx "6") against their
+    twins, two ranks in one process, on each (name, graph, poses) of
+    `graphs`, without and with Huber; two kernel sequences bitwise equal.
+    two_ranks(g, p0, huber) gives the two ranks' shards."""
+    errs = {"stage_a": 0.0, "gn_setup": 0.0, "cg_step_1": 0.0, "cg_step_26": 0.0}
+    lam = torch.tensor([1e-3], device=torch.device("cuda"))
+    for name, g, p0 in graphs:
+        for huber in (-1.0, 1.0):
+            shs = two_ranks(g, p0, huber)
+            ko, ks, k1, kn = _k_sequence(torch, cs, shs, p0, lam, 26, True, sfx)
+            ro, rs, r1, rn = _k_sequence(torch, cs, shs, p0, lam, 26, False, sfx)
+            torch.cuda.synchronize()
+            label = f"{name}, Huber {huber}"
+            e = max(rel_err(a, b) for (pa, Aa), (pb, Ab) in zip(ko, ro)
+                    for a, b in ((pa, pb), (Aa, Ab)) if b.abs().max() > 0)
+            _check(f"{label}: {tag}a payload and Aij of both ranks, max rel err", e,
+                   TOL_K6_ASSEMBLY_REL)
+            errs["stage_a"] = max(errs["stage_a"], e)
+            e_db = max(rel_err(ks.D, rs.D), rel_err(ks.b, rs.b))
+            _check(f"{label}: {tag}b damped D and b, max rel err", e_db, TOL_K6_ASSEMBLY_REL)
+            e_f = max(rel_err(ks.A, rs.A), rel_err(ks.G, rs.G), rel_err(ks.Dinv, rs.Dinv))
+            _check(f"{label}: {tag}b PCR factor (A, G, Dinv), max rel err", e_f, TOL_PCR_REL)
+            errs["gn_setup"] = max(errs["gn_setup"], e_db, e_f)
+            for key, kc, rc, tol in (("cg_step_1", k1, r1, TOL_PCR_REL),
+                                     ("cg_step_26", kn, rn, TOL_CG_REL)):
+                e = max([rel_err(getattr(kc, f), getattr(rc, f)) for f in ("x", "r", "p", "cap",
+                                                                             "big")
+                         if getattr(rc, f).abs().max() > 0] + [rel_err(kc.scal[:2], rc.scal[:2])])
+                _check(f"{label}: {tag}c state after {key.split('_')[-1]} passes, max rel err",
+                       e, tol)
+                errs[key] = max(errs[key], e)
+        _, _, _, again = _k_sequence(torch, cs, shs, p0, lam, 26, True, sfx)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(kn, again)):
+            fail(f"{name}: two {tag} sequences differ")
+        log(f"  {name}: two {tag} sequences ({tag}a, {tag}b, 26 {tag}c passes) bitwise equal")
+    return errs
+
+
 def phase_k6_kernels(torch, datasets, from_dataset):
     log("== phase 15: K6a-c against their twins, two ranks in one process "
         "(manhattan(260), m3500)")
@@ -1508,42 +1593,13 @@ def phase_k6_kernels(torch, datasets, from_dataset):
     from graphslam_tpu_torch.parallel import cg_step as cs
 
     dev = torch.device("cuda")
-    errs = {"stage_a": 0.0, "gn_setup": 0.0, "cg_step_1": 0.0, "cg_step_26": 0.0}
-    lam = torch.tensor([1e-3], device=dev)
+    graphs = []
     for name, data in (("manhattan(260)", datasets.manhattan(n_poses=260, loop_prob=0.25, seed=0)),
                        ("m3500", datasets.m3500())):
-        g = from_dataset(data, device=dev)
-        p0 = torch.from_numpy(data["poses"]).to(dev)
-        for huber in (-1.0, 1.0):
-            shs = _k6_two_ranks(cs, gk, g, p0, huber)
-            ko, ks, k1, kn = _k6_sequence(torch, cs, shs, p0, lam, 26, True)
-            ro, rs, r1, rn = _k6_sequence(torch, cs, shs, p0, lam, 26, False)
-            torch.cuda.synchronize()
-            label = f"{name}, Huber {huber}"
-            e = max(rel_err(a, b) for (pa, Aa), (pb, Ab) in zip(ko, ro)
-                    for a, b in ((pa, pb), (Aa, Ab)) if b.abs().max() > 0)
-            _check(f"{label}: K6a payload and Aij of both ranks, max rel err", e,
-                   TOL_K6_ASSEMBLY_REL)
-            errs["stage_a"] = max(errs["stage_a"], e)
-            e_db = max(rel_err(ks.D, rs.D), rel_err(ks.b, rs.b))
-            _check(f"{label}: K6b damped D and b, max rel err", e_db, TOL_K6_ASSEMBLY_REL)
-            e_f = max(rel_err(ks.A, rs.A), rel_err(ks.G, rs.G), rel_err(ks.Dinv, rs.Dinv))
-            _check(f"{label}: K6b PCR factor (A, G, Dinv), max rel err", e_f, TOL_PCR_REL)
-            errs["gn_setup"] = max(errs["gn_setup"], e_db, e_f)
-            for key, kc, rc, tol in (("cg_step_1", k1, r1, TOL_PCR_REL),
-                                     ("cg_step_26", kn, rn, TOL_CG_REL)):
-                e = max([rel_err(getattr(kc, f), getattr(rc, f)) for f in ("x", "r", "p", "cap",
-                                                                             "big")
-                         if getattr(rc, f).abs().max() > 0] + [rel_err(kc.scal[:2], rc.scal[:2])])
-                _check(f"{label}: K6c state after {key.split('_')[-1]} passes, max rel err", e,
-                       tol)
-                errs[key] = max(errs[key], e)
-        _, _, _, again = _k6_sequence(torch, cs, shs, p0, lam, 26, True)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(kn, again)):
-            fail(f"{name}: two K6 sequences differ")
-        log(f"  {name}: two K6 sequences (K6a, K6b, 26 K6c passes) bitwise equal")
-    return errs
+        graphs.append((name, from_dataset(data, device=dev),
+                       torch.from_numpy(data["poses"]).to(dev)))
+    return _k_family_checks(torch, cs, "", "K6", graphs,
+                            lambda g, p0, huber: _k6_two_ranks(cs, gk, g, p0, huber))
 
 
 def _gate_dist(name, ate0, ate, err, ref, steps=None):
@@ -1556,8 +1612,8 @@ def _gate_dist(name, ate0, ate, err, ref, steps=None):
         fail(f"{name}: gate failed (ATE {ate}, chi2 {err}, steps {steps})")
 
 
-def _k6_counts(cs, zero=False):
-    fns = (cs.stage_a, cs.gn_setup, cs.cg_step)
+def _launch_counts(fns, zero=False):
+    """{name: launches} of the wrappers fns, set to 0 first with zero."""
     if zero:
         for f in fns:
             f.launches = 0
@@ -1573,6 +1629,7 @@ def phase_dist_main(torch, datasets, from_dataset, chi2, metrics):
         shard_graph)
 
     dev = torch.device("cuda")
+    k6 = (cs.stage_a, cs.gn_setup, cs.cg_step)
     data = datasets.m3500()
     g = from_dataset(data, device=dev)
     p0 = torch.from_numpy(data["poses"]).to(dev)
@@ -1586,10 +1643,10 @@ def phase_dist_main(torch, datasets, from_dataset, chi2, metrics):
     # edge_tile sets the loop-edge partition, hvp_splits is a TPU knob
     cfg = SolverConfig(cg_max_iterations=25, pcr_levels=4, edge_tile=512, hvp_splits=1)
     iters = 200
-    _k6_counts(cs, zero=True)
+    _launch_counts(k6, zero=True)
     res = dist_fused_gn_solve(p0, g, mesh, cfg, iterations=iters)
     torch.cuda.synchronize()
-    counts = _k6_counts(cs)
+    counts = _launch_counts(k6)
     log(f"  dist_fused_gn_solve ({iters} iterations): launches {counts}")
     if min(counts.values()) <= 0:
         fail("the dist_fused GN main path did not launch every K6 kernel")
@@ -1617,10 +1674,10 @@ def phase_dist_main(torch, datasets, from_dataset, chi2, metrics):
     # the K1-LM cell's settings (BASELINE config 2), 50 steps
     lm_cfg = SolverConfig(cg_max_iterations=25, use_huber_on_loops=True, pcr_levels=4,
                           edge_tile=512, hvp_splits=1)
-    _k6_counts(cs, zero=True)
+    _launch_counts(k6, zero=True)
     lp, (lerr, llam, lacc) = dist_fused_lm_solve(p0, g, mesh, lm_cfg, iterations=50)
     torch.cuda.synchronize()
-    counts = _k6_counts(cs)
+    counts = _launch_counts(k6)
     log(f"  dist_fused_lm_solve (50 steps, Huber 1.0): launches {counts}, lam {float(llam):.3g}")
     if min(counts.values()) <= 0:
         fail("the dist_fused LM main path did not launch every K6 kernel")
@@ -1654,25 +1711,31 @@ def phase_dist_main(torch, datasets, from_dataset, chi2, metrics):
     return out
 
 
-def _two_rank_worker(rank: int, port: int, out_path: str, root: str) -> None:
+def _two_rank_worker(rank: int, port: int, out_path: str, root: str, se3: bool = False) -> None:
     """One of two gloo ranks on the one card: the kernel path on
-    manhattan(1000), GN and LM; rank 0 saves the poses."""
+    manhattan(1000) (se3: dist_fused6 on the garage), GN and LM; rank 0
+    saves the poses."""
     sys.path.insert(0, root)
     import torch
 
     from graphslam_tpu_torch.factors import from_dataset
     from graphslam_tpu_torch.io import datasets
-    from graphslam_tpu_torch.parallel import (
-        cg_step as cs, dist_fused_gn_solve, dist_fused_lm_solve, multihost)
+    from graphslam_tpu_torch.parallel import cg_step, cg_step6, multihost
+    from graphslam_tpu_torch.parallel import dist_fused_gn_solve, dist_fused_lm_solve
+    from graphslam_tpu_torch.parallel import dist_fused6_gn_solve, dist_fused6_lm_solve
 
     multihost.initialize(f"127.0.0.1:{port}", 2, rank, device="cuda", backend="gloo")
     mesh = multihost.global_mesh(device="cuda")
-    gn, lm_ = _two_rank_problem(torch, datasets, from_dataset, mesh.device)
+    problem = _two_rank_problem6 if se3 else _two_rank_problem
+    gn, lm_ = problem(torch, datasets, from_dataset, mesh.device)
     g, p0, cfg, lm_cfg = gn + lm_
-    a = dist_fused_gn_solve(p0, g, mesh, cfg, iterations=3, cg_kernel=True)
-    b, (err, lam, n_acc) = dist_fused_lm_solve(p0, g, mesh, lm_cfg, iterations=3, cg_kernel=True)
+    gn_solve, lm_solve = ((dist_fused6_gn_solve, dist_fused6_lm_solve) if se3
+                          else (dist_fused_gn_solve, dist_fused_lm_solve))
+    a = gn_solve(p0, g, mesh, cfg, iterations=3, cg_kernel=True)
+    b, (err, lam, n_acc) = lm_solve(p0, g, mesh, lm_cfg, iterations=3, cg_kernel=True)
     torch.cuda.synchronize()
-    sizes = torch.tensor([float(cs.stage_a.launches), float(mesh.size)])
+    launches = cg_step6.stage_a6.launches if se3 else cg_step.stage_a.launches
+    sizes = torch.tensor([float(launches), float(mesh.size)])
     if multihost.is_coordinator():
         torch.save({"gn": a.cpu(), "lm": b.cpu(), "stats": torch.stack([err, lam, n_acc]).cpu(),
                     "el": torch.tensor(float(g.num_edges - g.chain_prefix)), "sizes": sizes},
@@ -1694,25 +1757,32 @@ def _two_rank_problem(torch, datasets, from_dataset, dev):
     return (g, p0), (cfg, lm_cfg)
 
 
-def phase_two_ranks(torch, datasets, from_dataset, mesh):
-    log("== phase 17: two gloo ranks on the one card (CUDA tensors), kernel path, "
-        "manhattan(1000)")
+def _two_rank_problem6(torch, datasets, from_dataset, dev):
+    """The garage in tiles of 64 loop edges (5 tiles: 3 on rank 0, 2 on
+    rank 1), cg 25, exact PCR; LM with Huber 1.0."""
+    from graphslam_tpu_torch.config import SolverConfig
+
+    data = datasets.garage()
+    g = from_dataset(data, device=dev)
+    p0 = torch.from_numpy(data["poses"]).to(dev)
+    cfg = SolverConfig(cg_max_iterations=25, edge_tile=64)
+    lm_cfg = SolverConfig(cg_max_iterations=25, edge_tile=64, use_huber_on_loops=True)
+    return (g, p0), (cfg, lm_cfg)
+
+
+def _spawn_two_ranks(torch, se3: bool):
+    """The two gloo ranks of _two_rank_worker on the one card; rank 0's
+    saved results and the wall seconds."""
     import socket
     import tempfile
 
-    from graphslam_tpu_torch.parallel import dist_fused_gn_solve, dist_fused_lm_solve
-
-    (g, p0), (cfg, lm_cfg) = _two_rank_problem(torch, datasets, from_dataset, mesh.device)
-    one_gn = dist_fused_gn_solve(p0, g, mesh, cfg, iterations=3, cg_kernel=True)
-    one_lm, one_st = dist_fused_lm_solve(p0, g, mesh, lm_cfg, iterations=3, cg_kernel=True)
-    torch.cuda.synchronize()
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     ctx = torch.multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "two_ranks.pt")
-        procs = [ctx.Process(target=_two_rank_worker, args=(r, port, path, str(ROOT)))
+        procs = [ctx.Process(target=_two_rank_worker, args=(r, port, path, str(ROOT), se3))
                  for r in range(2)]
         t0 = time.perf_counter()
         for p in procs:
@@ -1725,8 +1795,20 @@ def phase_two_ranks(torch, datasets, from_dataset, mesh):
             p.join()
         if hung or any(p.exitcode != 0 for p in procs):
             fail(f"two-rank run failed: exit codes {[p.exitcode for p in procs]}")
-        res = torch.load(path)
-    log(f"  two ranks ran in {time.perf_counter() - t0:.1f} s; loop edges "
+        return torch.load(path), time.perf_counter() - t0
+
+
+def phase_two_ranks(torch, datasets, from_dataset, mesh):
+    log("== phase 17: two gloo ranks on the one card (CUDA tensors), kernel path, "
+        "manhattan(1000)")
+    from graphslam_tpu_torch.parallel import dist_fused_gn_solve, dist_fused_lm_solve
+
+    (g, p0), (cfg, lm_cfg) = _two_rank_problem(torch, datasets, from_dataset, mesh.device)
+    one_gn = dist_fused_gn_solve(p0, g, mesh, cfg, iterations=3, cg_kernel=True)
+    one_lm, one_st = dist_fused_lm_solve(p0, g, mesh, lm_cfg, iterations=3, cg_kernel=True)
+    torch.cuda.synchronize()
+    res, secs = _spawn_two_ranks(torch, se3=False)
+    log(f"  two ranks ran in {secs:.1f} s; loop edges "
         f"{int(res['el'])} in tiles of {cfg.edge_tile}; rank 0 launched K6a "
         f"{int(res['sizes'][0])} times")
     # relative to the largest coordinate: only the order in which the ranks'
@@ -1872,6 +1954,257 @@ def phase_dist_timing(torch, card, main):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The distributed SE(3) family: K7a-c on torch.distributed
+# ---------------------------------------------------------------------------
+
+
+def _k7_two_ranks(cs6, g6, g, p0, huber=-1.0):
+    """Two ranks' Shard6s in one process: half the loop edges each, the
+    chain weighted 1 on rank 0 and 0 on rank 1, exact K = ceil(log2 N)."""
+    from graphslam_tpu_torch.ops.pcg_kernel import pcr_levels_for
+
+    N = p0.shape[0]
+    pk = g6.pack_graph6(g, N)
+    K = pcr_levels_for(N, None)
+    half = pk.El // 2
+    return [cs6.make_shard6(pk, 0, half, K, 1.0, huber),
+            cs6.make_shard6(pk, half, pk.El, K, 0.0, huber)]
+
+
+def phase_k7_kernels(torch, graphs):
+    log("== phase 19: K7a-c against their twins, two ranks in one process "
+        "(sphere(10, 10), garage)")
+    from graphslam_tpu_torch.ops import gn6_kernel as g6
+    from graphslam_tpu_torch.parallel import cg_step6 as cs6
+
+    return _k_family_checks(torch, cs6, "6", "K7", graphs,
+                            lambda g, p0, huber: _k7_two_ranks(cs6, g6, g, p0, huber))
+
+
+def phase_dist6_main(torch, graphs, chi2, metrics, mesh):
+    log("== phase 20: the distributed SE(3) main paths on cuda (sphere2500, garage), world size "
+        "1 over NCCL")
+    from graphslam_tpu_torch.config import SolverConfig
+    from graphslam_tpu_torch.ops import gn6_kernel as g6
+    from graphslam_tpu_torch.parallel import cg_step6 as cs6
+    from graphslam_tpu_torch.parallel import dist_fused6_gn_solve, dist_fused6_lm_solve
+
+    out, k7 = {}, (cs6.stage_a6, cs6.gn_setup6, cs6.cg_step6)
+    # scripts/bench_all.py:251-283's cell without the CPU page windows, cut
+    # from 80 to 20 iterations; edge_tile sets the loop-edge partition,
+    # hvp_splits is a TPU knob
+    cfg = SolverConfig(cg_max_iterations=25, edge_tile=256, hvp_splits=1)
+    for name in ("sphere2500", "garage"):
+        g, p0, gt = graphs[name]
+        _launch_counts(k7, zero=True)
+        res = dist_fused6_gn_solve(p0, g, mesh, cfg, iterations=20)
+        torch.cuda.synchronize()
+        counts = _launch_counts(k7)
+        log(f"  {name} dist_fused6_gn_solve (20 iterations): launches {counts}")
+        if min(counts.values()) <= 0:
+            fail(f"the {name} dist_fused6 GN main path did not launch every K7 kernel")
+        res2 = dist_fused6_gn_solve(p0, g, mesh, cfg, iterations=20)
+        torch.cuda.synchronize()
+        if not torch.isfinite(res).all():
+            fail(f"{name} dist_fused6 GN poses are not finite")
+        hs3 = JAX_DIST6[f"{name}_gn_hs3"]
+        log(f"  JAX at hvp_splits 3: chi2 {hs3['chi2']:.2f}, ATE {hs3['ate']:.4f}")
+        _gate_se3(f"{name} dist_fused6 GN (20 iterations, cg 25, exact PCR; JAX at hvp_splits 1)",
+                  float(metrics.ate(p0, gt)), float(metrics.ate(res, gt)), float(chi2(res, g)),
+                  JAX_DIST6[f"{name}_gn"])
+        if not torch.equal(res, res2):
+            fail(f"{name} dist_fused6 GN: two runs differ: max {float((res - res2).abs().max())}")
+        log(f"  {name} dist_fused6 GN: two runs bitwise equal")
+        a = dist_fused6_gn_solve(p0, g, mesh, cfg, iterations=5)
+        b = dist_fused6_gn_solve(p0, g, mesh, cfg, iterations=5, cg_kernel=False)
+        k4 = g6.fused_gn6_solve(p0, g, iterations=5, cg_iters=25)
+        torch.cuda.synchronize()
+        out[f"{name}_plain_err"], out[f"{name}_k4_err"] = pose_max(a, b), pose_max(a, k4)
+        _check(f"{name} dist_fused6 GN 5 iterations, kernel path vs plain path, max |d|",
+               out[f"{name}_plain_err"], TOL_SE3_POSES)
+        _check(f"{name} dist_fused6 GN 5 iterations, kernel path vs K4, max |d|",
+               out[f"{name}_k4_err"], TOL_SE3_POSES)
+        out[f"{name}_counts"] = counts
+
+    g, p0, gt = graphs["garage"]
+    lm_cfg = SolverConfig(cg_max_iterations=25, edge_tile=256, hvp_splits=1,
+                          use_huber_on_loops=True, huber_delta=1.0)
+    _launch_counts(k7, zero=True)
+    lp, (lerr, llam, lacc) = dist_fused6_lm_solve(p0, g, mesh, lm_cfg, iterations=20)
+    torch.cuda.synchronize()
+    counts = _launch_counts(k7)
+    log(f"  garage dist_fused6_lm_solve (20 steps, Huber 1.0): launches {counts}, lam "
+        f"{float(llam):.3g}")
+    if min(counts.values()) <= 0:
+        fail("the garage dist_fused6 LM main path did not launch every K7 kernel")
+    lp2, _ = dist_fused6_lm_solve(p0, g, mesh, lm_cfg, iterations=20)
+    torch.cuda.synchronize()
+    if not torch.isfinite(lp).all():
+        fail("garage dist_fused6 LM poses are not finite")
+    ref = JAX_DIST6["garage_lm"]
+    _gate_se3("garage dist_fused6 LM (20 steps, Huber 1.0; JAX at hvp_splits 1)",
+              float(metrics.ate(p0, gt)), float(metrics.ate(lp, gt)), float(lerr), ref,
+              int(lacc))
+    if int(lacc) != ref["steps"]:
+        fail(f"garage dist_fused6 LM accepted {int(lacc)} steps, JAX {ref['steps']}")
+    if not torch.equal(lp, lp2):
+        fail("garage dist_fused6 LM: two runs differ")
+    log("  garage dist_fused6 LM: two runs bitwise equal")
+    a, sa = dist_fused6_lm_solve(p0, g, mesh, lm_cfg, iterations=5)
+    b, sb = dist_fused6_lm_solve(p0, g, mesh, lm_cfg, iterations=5, cg_kernel=False)
+    k4 = g6.fused_lm6_solve(p0, g, iterations=5, cg_iters=25, huber_delta=1.0)
+    torch.cuda.synchronize()
+    out["lm_plain_err"], out["lm_k4_err"] = pose_max(a, b), pose_max(a, k4[0])
+    _check("garage dist_fused6 LM 5 steps, kernel path vs plain path, max |d|",
+           out["lm_plain_err"], TOL_SE3_LM_POSES)
+    _check("garage dist_fused6 LM 5 steps, kernel path vs K4-LM, max |d|", out["lm_k4_err"],
+           TOL_SE3_LM_POSES)
+    if not int(sa[2]) == int(sb[2]) == int(k4[3]):
+        fail(f"accepted steps differ: kernel path {int(sa[2])}, plain path {int(sb[2])}, "
+             f"K4-LM {int(k4[3])}")
+    out["lm_counts"] = counts
+    return out
+
+
+def phase_two_ranks6(torch, datasets, from_dataset, mesh):
+    log("== phase 21: two gloo ranks on the one card (CUDA tensors), SE(3) kernel path, garage")
+    from graphslam_tpu_torch.parallel import dist_fused6_gn_solve, dist_fused6_lm_solve
+
+    (g, p0), (cfg, lm_cfg) = _two_rank_problem6(torch, datasets, from_dataset, mesh.device)
+    one_gn = dist_fused6_gn_solve(p0, g, mesh, cfg, iterations=3, cg_kernel=True)
+    one_lm, one_st = dist_fused6_lm_solve(p0, g, mesh, lm_cfg, iterations=3, cg_kernel=True)
+    torch.cuda.synchronize()
+    res, secs = _spawn_two_ranks(torch, se3=True)
+    el, tile = int(res["el"]), cfg.edge_tile
+    first = math.ceil(math.ceil(el / tile) / 2) * tile  # rank 1's first loop edge
+    log(f"  two ranks ran in {secs:.1f} s; loop edges {el} in tiles of {tile} (rank 1 from edge "
+        f"{first}); rank 0 launched K7a {int(res['sizes'][0])} times")
+    if not first < el:
+        fail("rank 1 holds no loop edge")
+    # relative to the largest coordinate: only the order in which the ranks'
+    # loop partials are summed differs
+    scale = float(one_gn[:, 9:].abs().max())
+    e_gn = pose_max(res["gn"].to(p0.device), one_gn) / scale
+    e_lm = pose_max(res["lm"].to(p0.device), one_lm) / scale
+    _check("two ranks vs one rank, 3 GN iterations, max |d| over the largest coordinate", e_gn,
+           TOL_MESH)
+    _check("two ranks vs one rank, 3 LM steps, max |d| over the largest coordinate", e_lm,
+           TOL_MESH)
+    if int(res["stats"][2]) != int(one_st[2]):
+        fail(f"two ranks accepted {int(res['stats'][2])} LM steps, one rank {int(one_st[2])}")
+    return max(e_gn, e_lm)
+
+
+def stage_a6_cost(N: int, c: int, El: int):
+    """K7a: poses, chain and loop inputs and the CSR read once, the payload
+    and the Aij stash written once; ~3500 operations to linearize an edge
+    (as gn6_cost counts them), ~160 to assemble a node's chain blocks and
+    weight them, and 84 per loop-edge term it sums."""
+    nbytes = 4 * (12 * N + 48 * c + 48 * El + 2 * El + (N + 1) + 2 * El + 78 * N + 36 * El)
+    return nbytes, 3500 * (c + El) + 160 * N + 84 * El
+
+
+def gn_setup6_cost(N: int, K: int):
+    """K7b: payload, poses, priors and lam read once; D, the K-level PCR
+    factor, Dinv and b written once; ~1500 operations for a node's prior
+    and damping, ~2400 per node and PCR level (two 6x6 inverses, four 6x6
+    products)."""
+    nbytes = 4 * (78 * N + 12 * N + 48 * N + 1 + 36 * N + 72 * K * N + 36 * N + 6 * N)
+    return nbytes, 1500 * N + 2400 * K * N
+
+
+def cg_step6_cost(N: int, El: int, K: int):
+    """K7c, one pass: the carry, D, U, the PCR factor, Aij with its
+    endpoints and the CSR read once; the carry written once; the update (30
+    a node), the K-level PCR apply (156 a node and level) and Dinv (72),
+    the direction and the dots (36), the chain H@p (228) and the loop H@p
+    (156 an edge)."""
+    nbytes = 4 * (2 * (24 * N + 4 + 6 * N + 1) + 36 * N + 36 * N + 72 * K * N + 36 * N
+                  + 36 * El + 2 * El + (N + 1) + 2 * El)
+    return nbytes, N * (30 + 156 * K + 72 + 36 + 228) + 156 * El
+
+
+def phase_dist6_timing(torch, card, graphs, mesh):
+    log("== phase 22: distributed SE(3) timing (sphere2500, world size 1 over NCCL)")
+    from graphslam_tpu_torch.config import SolverConfig
+    from graphslam_tpu_torch.parallel import cg_step6 as cs6, dist_fused6, dist_fused6_gn_solve
+    from graphslam_tpu_torch.solver import lm
+
+    g, p0, _ = graphs["sphere2500"]
+    cfg = SolverConfig(mode="gn_fused", cg_max_iterations=25, edge_tile=256, hvp_splits=1)
+    iters, out = 20, {}
+
+    def k7(p):
+        return dist_fused6_gn_solve(p, g, mesh, cfg, iterations=iters)
+
+    def k4(p):
+        return lm._gn_loop(p, g, cfg, "gn_fused", iters)
+
+    plain_iters = 2  # the plain path: a tenth of the solve
+
+    def plain(p):
+        return dist_fused6_gn_solve(p, g, mesh, cfg, iterations=plain_iters, cg_kernel=False)
+
+    # in turns: plain, K4, K7, K7, K4, plain (the host's speed varies)
+    t_pa = _time_solves(torch, plain, p0, 1, 1)
+    t_4a = _time_solves(torch, k4, p0, 3, 2)
+    t_7a = _time_solves(torch, k7, p0, 3, 2)
+    t_7b = _time_solves(torch, k7, p0, 3, 2)
+    t_4b = _time_solves(torch, k4, p0, 3, 2)
+    t_pb = _time_solves(torch, plain, p0, 1, 1)
+    out["k7_ms"] = 1e3 * min(t_7a, t_7b) / 2
+    out["k4_ms"] = 1e3 * min(t_4a, t_4b) / 2
+    out["plain_ms"] = 1e3 * min(t_pa, t_pb) * iters / plain_iters
+    log(f"  card: {card}")
+    log(f"  sphere2500 dist_fused6 GN through K7 ({iters} iterations, cg 25, exact PCR): "
+        f"{out['k7_ms']:.3f} ms per solve ({1e3 * t_7a / 2:.3f} and {1e3 * t_7b / 2:.3f} in "
+        f"turns), {iters * 1e3 / out['k7_ms']:.1f} GN it/s")
+    log(f"  K4 (_gn_loop gn_fused, same config): {out['k4_ms']:.3f} ms per solve "
+        f"({1e3 * t_4a / 2:.3f} and {1e3 * t_4b / 2:.3f}), {iters * 1e3 / out['k4_ms']:.1f} GN "
+        f"it/s; the SE(3) 1-device gap K7/K4 = {out['k7_ms'] / out['k4_ms']:.2f}x")
+    log(f"  plain path on the card: {1e3 * t_pa:.3f} ms before, {1e3 * t_pb:.3f} after per "
+        f"{plain_iters}-iteration solve, {iters * 1e3 / out['plain_ms']:.1f} GN it/s")
+
+    sh = dist_fused6._prepare6(p0, g, mesh, -1.0, cfg.pcr_levels, cfg.edge_tile)
+    kern = sh.kernel()
+    lam = torch.zeros(1, device=p0.device)
+    payload, Aij = kern.stage_a(p0)
+    st = kern.gn_setup(payload, p0, lam)
+    carry = cs6.cg_state(st.b)
+    out["stage_a_us"] = _event_us(torch, lambda: cs6.stage_a6(sh, p0), 200)
+    out["gn_setup_us"] = _event_us(torch, lambda: cs6.gn_setup6(sh, payload, p0, lam), 100)
+    out["cg_step_us"] = _event_us(torch, lambda: cs6.cg_step6(sh, st, Aij, carry), 500)
+    out["stage_a_plain_us"] = _event_us(torch, lambda: cs6.stage_a6_reference(sh, p0), 10)
+    ref_pay, ref_A = cs6.stage_a6_reference(sh, p0)
+    out["gn_setup_plain_us"] = _event_us(
+        torch, lambda: cs6.gn_setup6_reference(sh, ref_pay, p0, lam), 5, warmup=1)
+    ref_st = cs6.gn_setup6_reference(sh, ref_pay, p0, lam)
+    ref_carry = cs6.cg_state(ref_st.b)
+    out["cg_step_plain_us"] = _event_us(
+        torch, lambda: cs6.cg_step6_reference(sh, ref_st, ref_A, ref_carry), 20)
+    big = torch.zeros(6 * sh.N + 1, device=p0.device)
+    pay = torch.zeros(cs6.payload_size6(sh.N), device=p0.device)
+    out["allreduce_big_us"] = _event_us(torch, lambda: mesh.all_reduce(big), 500)
+    out["allreduce_payload_us"] = _event_us(torch, lambda: mesh.all_reduce(pay), 200)
+    out["k7_launch_counts_per_call"] = (2, 1 + sh.K, 4 + sh.K)
+    log(f"  per call at sphere2500 (K = {sh.K}; CUDA events, the wrapper included): K7a "
+        f"{out['stage_a_us']:.2f} us, K7b {out['gn_setup_us']:.2f} us, K7c "
+        f"{out['cg_step_us']:.2f} us; twins on the card {out['stage_a_plain_us']:.2f}, "
+        f"{out['gn_setup_plain_us']:.2f}, {out['cg_step_plain_us']:.2f} us")
+    log(f"  all_reduce at world size 1 (NCCL): {out['allreduce_big_us']:.2f} us for the "
+        f"[tile_Ap; s1] buffer ({6 * sh.N + 1} floats), {out['allreduce_payload_us']:.2f} us for "
+        f"the payload ({cs6.payload_size6(sh.N)} floats)")
+
+    n_it = 5
+    groups, span = _profile_launches(torch, lambda: dist_fused6_gn_solve(
+        p0, g, mesh, cfg, iterations=n_it), top=10)
+    out["launches_per_it"] = {k: c / n_it for k, (c, _) in groups.items()}
+    out["idle_share"] = _log_profile(f"sphere2500 dist_fused6 GN through K7 ({n_it} iterations)",
+                                     groups, span, n_it)
+    return out, sh
+
+
 def make_tour(torch):
     """The replay's scans, made on the card with the port's raycaster."""
     from graphslam_tpu_torch.config import SLAMConfig, SolverConfig
@@ -1948,6 +2281,10 @@ def main() -> int:
     dm = phase_dist_main(torch, datasets, from_dataset, chi2, metrics)
     two_rank_err = phase_two_ranks(torch, datasets, from_dataset, dm["mesh"])
     dt = phase_dist_timing(torch, card, dm)
+    k7_err = phase_k7_kernels(torch, _se3_graphs(torch, datasets, from_dataset))
+    d6 = phase_dist6_main(torch, se3_graphs, chi2, metrics, dm["mesh"])
+    two_rank6_err = phase_two_ranks6(torch, datasets, from_dataset, dm["mesh"])
+    t6, sh6 = phase_dist6_timing(torch, card, se3_graphs, dm["mesh"])
     if "jax" in sys.modules:
         fail("the port imported jax")
 
@@ -1987,7 +2324,14 @@ def main() -> int:
     k6c_bound, k6c_by = _bound(*cg_step_cost(sh.N, sh.El, sh.K))
     log(f"  K6 bounds per call at m3500 (K = {sh.K}): K6a {k6a_bound * 1e3:.3f} us ({k6a_by}), "
         f"K6b {k6b_bound * 1e3:.3f} us ({k6b_by}), K6c {k6c_bound * 1e3:.3f} us ({k6c_by})")
+    k7a_bound, k7a_by = _bound(*stage_a6_cost(sh6.N, sh6.c, sh6.El))
+    k7b_bound, k7b_by = _bound(*gn_setup6_cost(sh6.N, sh6.K))
+    k7c_bound, k7c_by = _bound(*cg_step6_cost(sh6.N, sh6.El, sh6.K))
+    log(f"  K7 bounds per call at sphere2500 (K = {sh6.K}): K7a {k7a_bound * 1e3:.3f} us "
+        f"({k7a_by}), K7b {k7b_bound * 1e3:.3f} us ({k7b_by}), K7c {k7c_bound * 1e3:.3f} us "
+        f"({k7c_by})")
     k6_common = dict(route="cuda", source="graphslam_tpu_torch/csrc/cg_step.cu", library_ms=None)
+    k7_common = dict(route="cuda", source="graphslam_tpu_torch/csrc/cg_step6.cu", library_ms=None)
     print(json.dumps({"kernels": [
         {
             "name": "gn_kernel",
@@ -2140,6 +2484,48 @@ def main() -> int:
             "bound_ms": k6c_bound,
             "bound_by": k6c_by,
             "dist_fused_gn_ms_per_solve": dt["k6_ms"],
+        },
+        {
+            "name": "cg_step6_stage_a",
+            **k7_common,
+            "replaces": "graphslam_tpu/parallel/cg_step6.py:111",
+            "launches": d6["sphere2500_counts"]["stage_a6"],
+            "launches_garage": d6["garage_counts"]["stage_a6"],
+            "launches_lm": d6["lm_counts"]["stage_a6"],
+            "max_abs_err": k7_err["stage_a"],
+            "ms": t6["stage_a_us"] / 1e3,
+            "plain_ms": t6["stage_a_plain_us"] / 1e3,
+            "bound_ms": k7a_bound,
+            "bound_by": k7a_by,
+        },
+        {
+            "name": "cg_step6_gn_setup",
+            **k7_common,
+            "replaces": "graphslam_tpu/parallel/cg_step6.py:240",
+            "launches": d6["sphere2500_counts"]["gn_setup6"],
+            "launches_garage": d6["garage_counts"]["gn_setup6"],
+            "launches_lm": d6["lm_counts"]["gn_setup6"],
+            "max_abs_err": k7_err["gn_setup"],
+            "ms": t6["gn_setup_us"] / 1e3,
+            "plain_ms": t6["gn_setup_plain_us"] / 1e3,
+            "bound_ms": k7b_bound,
+            "bound_by": k7b_by,
+        },
+        {
+            "name": "cg_step6_cg_step",
+            **k7_common,
+            "replaces": "graphslam_tpu/parallel/cg_step6.py:341",
+            "launches": d6["sphere2500_counts"]["cg_step6"],
+            "launches_garage": d6["garage_counts"]["cg_step6"],
+            "launches_lm": d6["lm_counts"]["cg_step6"],
+            "max_abs_err": max(k7_err["cg_step_26"], two_rank6_err),
+            "max_abs_err_1_pass": k7_err["cg_step_1"],
+            "max_abs_err_two_ranks": two_rank6_err,
+            "ms": t6["cg_step_us"] / 1e3,
+            "plain_ms": t6["cg_step_plain_us"] / 1e3,
+            "bound_ms": k7c_bound,
+            "bound_by": k7c_by,
+            "dist_fused6_gn_ms_per_solve": t6["k7_ms"],
         },
     ]}), flush=True)
     import torch.distributed as tdist

@@ -13,6 +13,10 @@ import torch
 from graphslam_tpu_torch.geometry import so2
 
 
+def identity(batch_shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.zeros((*batch_shape, 3), dtype=dtype, device=device)
+
+
 def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a * b: apply b in a's frame."""
     t = a[..., :2] + so2.rotate(a[..., 2], b[..., :2])

@@ -4,8 +4,8 @@ Port of graphslam_tpu/parallel/. The JAX package's `jax.sharding.Mesh` over
 all chips becomes a process group with one process per rank
 (parallel/dist.py::Mesh): factors sharded across ranks, poses replicated,
 and each `psum` of the JAX code one all-reduce (NCCL between GPUs, gloo
-between CPU processes). The SE(3) fused family (dist_fused6) and the Schur
-solver (dist_schur) are not ported yet.
+between CPU processes). The fused families run SE(2) (dist_fused) and SE(3)
+(dist_fused6) graphs; the Schur solver (dist_schur) is not ported yet.
 """
 
 from graphslam_tpu_torch.parallel.dist import (  # noqa: F401
@@ -18,4 +18,8 @@ from graphslam_tpu_torch.parallel.dist import (  # noqa: F401
 from graphslam_tpu_torch.parallel.dist_fused import (  # noqa: F401
     dist_fused_gn_solve,
     dist_fused_lm_solve,
+)
+from graphslam_tpu_torch.parallel.dist_fused6 import (  # noqa: F401
+    dist_fused6_gn_solve,
+    dist_fused6_lm_solve,
 )

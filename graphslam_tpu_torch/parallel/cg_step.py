@@ -74,6 +74,9 @@ class Shard:
     csr_ent: torch.Tensor    # (2 El,) int32
     _kernel: Optional["CgStepKernel"] = None
 
+    T = 3  # tangent dimension; the SE(3) Shard6 (parallel/cg_step6.py) sets 6
+    linearize = staticmethod(gk._linearize_rows)  # whitened (rw, Jiw, Jjw) of edges
+
     @property
     def El(self) -> int:
         return self.loop_i.shape[0]
@@ -90,12 +93,13 @@ class Shard:
 
 
 def make_shard(pk: gk.PackedGraph, lo: int, hi: int, K: int, w_chain: float,
-               huber_delta: float) -> Shard:
-    """The Shard of a packed graph whose loop edges [lo, hi) this rank owns."""
+               huber_delta: float, cls=Shard) -> Shard:
+    """The Shard (or `cls`, its SE(3) subclass with a PackedGraph6) of a
+    packed graph whose loop edges [lo, hi) this rank owns."""
     li, lj = pk.loop_i[lo:hi].contiguous(), pk.loop_j[lo:hi].contiguous()
     live = pk.loop_mask[lo:hi]
     ptr, ent = gk.edge_csr(li, lj, live, pk.N)
-    return Shard(
+    return cls(
         N=pk.N, c=pk.c, K=K, w_chain=float(w_chain), huber_delta=float(huber_delta),
         chain_z=pk.chain_z, chain_R=pk.chain_R, prior_z=pk.prior_z, prior_R=pk.prior_R,
         loop_i=li, loop_j=lj, loop_z=pk.loop_z[lo:hi].contiguous(),
@@ -105,8 +109,9 @@ def make_shard(pk: gk.PackedGraph, lo: int, hi: int, K: int, w_chain: float,
 
 
 class Setup(NamedTuple):
-    """K6b's output: damped diagonal blocks D and chain blocks U (N,3,3),
-    the PCR factor A, G (K,N,3,3) and Dinv (N,3,3), and b = -g (N,3)."""
+    """K6b's (and K7b's) output: damped diagonal blocks D and chain blocks U
+    (N,T,T), the PCR factor A, G (K,N,T,T) and Dinv (N,T,T), and b = -g
+    (N,T)."""
 
     D: torch.Tensor
     U: torch.Tensor
@@ -118,7 +123,7 @@ class Setup(NamedTuple):
 
 class CgState(NamedTuple):
     """The CG carry, updated in place by each cg_step: x, r, p and chain_Ap
-    (N,3), scal (4,) = [rz, s0, -, -], and big (3N+1,) = [tile_Ap; s1],
+    (N,T), scal (4,) = [rz, s0, -, -], and big (TN+1,) = [tile_Ap; s1],
     all-reduced between passes."""
 
     x: torch.Tensor
@@ -131,22 +136,22 @@ class CgState(NamedTuple):
 
 def cg_state(b: torch.Tensor) -> CgState:
     """The zero carry with r = b: the first cg_step is the CG prologue."""
-    N = b.shape[0]
     z = torch.zeros_like(b)
     return CgState(x=z, r=b.clone(), p=torch.zeros_like(b), cap=torch.zeros_like(b),
                    scal=torch.zeros(4, dtype=b.dtype, device=b.device),
-                   big=torch.zeros(3 * N + 1, dtype=b.dtype, device=b.device))
+                   big=torch.zeros(b.numel() + 1, dtype=b.dtype, device=b.device))
 
 
-def payload_size(N: int) -> int:
-    """Floats of stage_a's payload: D (9N), U (9N), g (3N)."""
-    return 21 * N
+def payload_size(N: int, T: int = 3) -> int:
+    """Floats of stage_a's payload: D (T^2 N), U (T^2 N), g (TN)."""
+    return (2 * T + 1) * T * N
 
 
-def unpack_payload(payload: torch.Tensor, N: int):
-    """(D (N,3,3), U (N,3,3), g (N,3)) views of a payload."""
-    return (payload[: 9 * N].view(N, 3, 3), payload[9 * N: 18 * N].view(N, 3, 3),
-            payload[18 * N: 21 * N].view(N, 3))
+def unpack_payload(payload: torch.Tensor, N: int, T: int = 3):
+    """(D (N,T,T), U (N,T,T), g (N,T)) views of a payload."""
+    M = T * T * N
+    return (payload[:M].view(N, T, T), payload[M: 2 * M].view(N, T, T),
+            payload[2 * M: 2 * M + T * N].view(N, T))
 
 
 # ---------------------------------------------------------------------------
@@ -170,14 +175,14 @@ def _node_sum(sh: Shard, vi: torch.Tensor, vj: torch.Tensor) -> torch.Tensor:
 def chain_blocks(poses: torch.Tensor, sh: Shard, lo: int = 0, hi: Optional[int] = None):
     """(D, U, g) of the chain edges n = lo..hi-1 (n -> n+1) alone, on N
     nodes: D[n] = Aii[n] + Ajj[n-1], U[n] = Aij[n], g likewise."""
-    N, c = sh.N, sh.c
+    N, c, T = sh.N, sh.c, sh.T
     hi = c if hi is None else min(hi, c)
-    D = torch.zeros((N, 3, 3), dtype=poses.dtype, device=poses.device)
+    D = torch.zeros((N, T, T), dtype=poses.dtype, device=poses.device)
     U = torch.zeros_like(D)
-    g = torch.zeros((N, 3), dtype=poses.dtype, device=poses.device)
+    g = torch.zeros((N, T), dtype=poses.dtype, device=poses.device)
     if hi > lo:
-        rw, Jiw, Jjw = gk._linearize_rows(poses[lo:hi], poses[lo + 1: hi + 1],
-                                          sh.chain_z[lo:hi], sh.chain_R[lo:hi], -1.0)
+        rw, Jiw, Jjw = sh.linearize(poses[lo:hi], poses[lo + 1: hi + 1],
+                                    sh.chain_z[lo:hi], sh.chain_R[lo:hi], -1.0)
         Aii, Aij, Ajj, gi, gj = gk._outer(Jiw, Jjw, rw)
         D[lo:hi] += Aii
         D[lo + 1: hi + 1] += Ajj
@@ -189,16 +194,15 @@ def chain_blocks(poses: torch.Tensor, sh: Shard, lo: int = 0, hi: Optional[int] 
 
 def loop_blocks(poses: torch.Tensor, sh: Shard):
     """(D, g) sums of this rank's loop edges on their nodes, and the
-    per-edge Aij (El,3,3)."""
+    per-edge Aij (El,T,T)."""
     li, lj = sh.loop_i.long(), sh.loop_j.long()
-    rw, Jiw, Jjw = gk._linearize_rows(poses[li], poses[lj], sh.loop_z, sh.loop_R,
-                                      sh.huber_delta)
+    rw, Jiw, Jjw = sh.linearize(poses[li], poses[lj], sh.loop_z, sh.loop_R, sh.huber_delta)
     Aii, Aij, Ajj, gi, gj = gk._outer(Jiw, Jjw, rw)
     return _node_sum(sh, Aii, Ajj), _node_sum(sh, gi, gj), Aij
 
 
 def stage_a_reference(sh: Shard, poses: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain twin of K6a: (payload (21N,), Aij (El,3,3))."""
+    """Plain twin of K6a (and K7a): (payload ((2T+1)TN,), Aij (El,T,T))."""
     D, U, g = chain_blocks(poses, sh)
     Dl, gl, Aij = loop_blocks(poses, sh)
     w = sh.w_chain
@@ -239,13 +243,13 @@ def loop_hvp(sh: Shard, Aij: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def cg_step_reference(sh: Shard, st: Setup, Aij: torch.Tensor, cs: CgState) -> None:
-    """Plain twin of K6c: one pass on the carry `cs`, in place; cs.big then
-    holds this rank's [tile_Ap; s1] partial."""
-    N = sh.N
+    """Plain twin of K6c (and K7c): one pass on the carry `cs`, in place;
+    cs.big then holds this rank's [tile_Ap; s1] partial."""
+    N, T = cs.x.shape
     tiny = torch.tensor(gk._TINY, dtype=cs.x.dtype, device=cs.x.device)
     zero = torch.zeros((), dtype=cs.x.dtype, device=cs.x.device)
-    rz, s0, s1 = cs.scal[0], cs.scal[1], cs.big[3 * N]
-    tile_ap = cs.big[: 3 * N].view(N, 3)
+    rz, s0, s1 = cs.scal[0], cs.scal[1], cs.big[T * N]
+    tile_ap = cs.big[: T * N].view(N, T)
     pHp = s0 + s1
     alpha = torch.where(pHp > tiny, rz / torch.maximum(pHp, tiny), zero)
     x = cs.x + alpha * cs.p
@@ -262,8 +266,8 @@ def cg_step_reference(sh: Shard, st: Setup, Aij: torch.Tensor, cs: CgState) -> N
     cs.cap.copy_(cap)
     cs.scal[0] = rz_new
     cs.scal[1] = torch.sum(p * cap)
-    cs.big[: 3 * N] = tile.reshape(-1)
-    cs.big[3 * N] = torch.sum(p * tile)
+    cs.big[: T * N] = tile.reshape(-1)
+    cs.big[T * N] = torch.sum(p * tile)
 
 
 # ---------------------------------------------------------------------------
@@ -272,8 +276,10 @@ def cg_step_reference(sh: Shard, st: Setup, Aij: torch.Tensor, cs: CgState) -> N
 
 
 class _Problem(ctypes.Structure):
-    """Mirror of `struct CgProblem` in csrc/cg_step.cu (same field order;
-    checked against the C side's cg_problem_size() at load)."""
+    """Mirror of `struct CgProblem` in csrc/cg_step.cu and of `struct
+    Cg6Problem` in csrc/cg_step6.cu (same field order, R the sqrt-
+    information; checked against the C side's <prefix>_problem_size() at
+    load)."""
 
     _fields_ = [(f, ctypes.c_void_p) for f in (
         "poses", "cz", "cR", "pz", "pR", "li", "lj", "lz", "lR", "csr_ptr", "csr_ent",
@@ -283,25 +289,24 @@ class _Problem(ctypes.Structure):
     ]
 
 
-def _lib() -> ctypes.CDLL:
+def _lib(name: str = "cg_step", prefix: str = "cg") -> ctypes.CDLL:
     from graphslam_tpu_torch.ops import _build
 
-    lib = _build.load("cg_step")
+    lib = _build.load(name)
     P = ctypes.POINTER(_Problem)
     vp = ctypes.c_void_p
-    for fn, args in (("cg_stage_a", [P]), ("cg_gn_setup", [P, vp]),
-                     ("cg_step", [P] + [vp] * 6)):
-        getattr(lib, fn).argtypes = args
-        getattr(lib, fn).restype = ctypes.c_int
-    lib.cg_ws_floats.argtypes = [ctypes.c_int] * 4
-    lib.cg_ws_floats.restype = ctypes.c_longlong
-    lib.cg_problem_size.argtypes = []
-    lib.cg_problem_size.restype = ctypes.c_int
-    lib.cg_error_string.argtypes = [ctypes.c_int]
-    lib.cg_error_string.restype = ctypes.c_char_p
-    if lib.cg_problem_size() != ctypes.sizeof(_Problem):
+    for fn, args in (("stage_a", [P]), ("gn_setup", [P, vp]), ("step", [P] + [vp] * 6)):
+        getattr(lib, f"{prefix}_{fn}").argtypes = args
+        getattr(lib, f"{prefix}_{fn}").restype = ctypes.c_int
+    for fn, args, res in (("ws_floats", [ctypes.c_int] * 4, ctypes.c_longlong),
+                          ("problem_size", [], ctypes.c_int),
+                          ("error_string", [ctypes.c_int], ctypes.c_char_p)):
+        getattr(lib, f"{prefix}_{fn}").argtypes = args
+        getattr(lib, f"{prefix}_{fn}").restype = res
+    size = getattr(lib, f"{prefix}_problem_size")()
+    if size != ctypes.sizeof(_Problem):
         raise RuntimeError(
-            f"struct CgProblem is {lib.cg_problem_size()} bytes in csrc/cg_step.cu but "
+            f"the problem struct is {size} bytes in csrc/{name}.cu but "
             f"{ctypes.sizeof(_Problem)} in its ctypes mirror: the fields differ")
     return lib
 
@@ -309,17 +314,20 @@ def _lib() -> ctypes.CDLL:
 class CgStepKernel:
     """One rank's Shard on the card with K6's buffers: the payload (21N,),
     the Aij stash (El,3,3) and the Setup tensors, each written in place by
-    the launch that produces it."""
+    the launch that produces it. CgStep6Kernel (parallel/cg_step6.py) is
+    the same over SE(3) poses (P = 12 entries) and 6x6 blocks."""
+
+    T, P, NAME, PREFIX = 3, 3, "cg_step", "cg"
 
     def __init__(self, sh: Shard):
         dev = sh.device
         if dev.type != "cuda":
-            raise ValueError(f"CgStepKernel needs CUDA tensors, got {dev}")
-        N, c, El, K = sh.N, sh.c, sh.El, sh.K
+            raise ValueError(f"{type(self).__name__} needs CUDA tensors, got {dev}")
+        N, c, El, K, T, P = sh.N, sh.c, sh.El, sh.K, self.T, self.P
         for label, t, shape in (
-            ("chain z", sh.chain_z, (c, 3)), ("chain R", sh.chain_R, (c, 3, 3)),
-            ("prior z", sh.prior_z, (N, 3)), ("prior R", sh.prior_R, (N, 3, 3)),
-            ("loop z", sh.loop_z, (El, 3)), ("loop R", sh.loop_R, (El, 3, 3)),
+            ("chain z", sh.chain_z, (c, P)), ("chain R", sh.chain_R, (c, T, T)),
+            ("prior z", sh.prior_z, (N, P)), ("prior R", sh.prior_R, (N, T, T)),
+            ("loop z", sh.loop_z, (El, P)), ("loop R", sh.loop_R, (El, T, T)),
         ):
             gk._check_f32(label, t, shape, dev)
             if not t.is_contiguous():
@@ -327,15 +335,15 @@ class CgStepKernel:
         # the kernels index by these without bounds checks
         li, lj = sh.loop_i, sh.loop_j
         torch._assert_async(((li >= 0) & (li < N) & (lj >= 0) & (lj < N)).all())
-        self.lib, self.sh, self.device = _lib(), sh, dev
+        self.lib, self.sh, self.device = _lib(self.NAME, self.PREFIX), sh, dev
         f32 = dict(dtype=torch.float32, device=dev)
-        self.payload = torch.empty(payload_size(N), **f32)
-        self.Aij = torch.empty((El, 3, 3), **f32)
-        self.setup = Setup(D=torch.empty((N, 3, 3), **f32),
-                           U=unpack_payload(self.payload, N)[1],
-                           A=torch.empty((K, N, 3, 3), **f32), G=torch.empty((K, N, 3, 3), **f32),
-                           Dinv=torch.empty((N, 3, 3), **f32), b=torch.empty((N, 3), **f32))
-        self.ws = torch.empty(int(self.lib.cg_ws_floats(N, c, El, K)), **f32)
+        self.payload = torch.empty(payload_size(N, T), **f32)
+        self.Aij = torch.empty((El, T, T), **f32)
+        self.setup = Setup(D=torch.empty((N, T, T), **f32),
+                           U=unpack_payload(self.payload, N, T)[1],
+                           A=torch.empty((K, N, T, T), **f32), G=torch.empty((K, N, T, T), **f32),
+                           Dinv=torch.empty((N, T, T), **f32), b=torch.empty((N, T), **f32))
+        self.ws = torch.empty(int(self._fn("ws_floats")(N, c, El, K)), **f32)
         s = self.setup
         self.prob = _Problem(
             None, *(t.data_ptr() for t in (
@@ -345,42 +353,46 @@ class CgStepKernel:
             None, N, c, El, K, gk._EPS, sh.huber_delta, sh.w_chain,
         )
 
+    def _fn(self, fn: str):
+        return getattr(self.lib, f"{self.PREFIX}_{fn}")
+
     def _call(self, fn: str, *args) -> None:
         self.prob.stream = torch.cuda.current_stream(self.device).cuda_stream
-        rc = getattr(self.lib, fn)(ctypes.byref(self.prob), *args)
+        rc = self._fn(fn)(ctypes.byref(self.prob), *args)
         if rc != 0:
-            raise RuntimeError(f"{fn} failed: CUDA error {rc} "
-                               f"({self.lib.cg_error_string(rc).decode()})")
+            raise RuntimeError(f"{self.PREFIX}_{fn} failed: CUDA error {rc} "
+                               f"({self._fn('error_string')(rc).decode()})")
 
     def stage_a(self, poses: torch.Tensor):
-        gk._check_f32("poses", poses, (self.sh.N, 3), self.device)
+        gk._check_f32("poses", poses, (self.sh.N, self.P), self.device)
         poses = poses.contiguous()
         self.prob.poses = poses.data_ptr()
-        self._call("cg_stage_a")
+        self._call("stage_a")
         return self.payload, self.Aij
 
     def gn_setup(self, payload: torch.Tensor, poses: torch.Tensor, lam: torch.Tensor) -> Setup:
         N = self.sh.N
-        gk._check_f32("payload", payload, (payload_size(N),), self.device)
+        gk._check_f32("payload", payload, (payload_size(N, self.T),), self.device)
         gk._check_f32("lam", lam, (1,), self.device)
+        gk._check_f32("poses", poses, (N, self.P), self.device)
         poses = poses.contiguous()
         if payload.data_ptr() != self.payload.data_ptr():
             self.payload.copy_(payload)
         self.prob.poses = poses.data_ptr()
-        self._call("cg_gn_setup", lam.data_ptr())
+        self._call("gn_setup", lam.data_ptr())
         return self.setup
 
     def cg_step(self, Aij: torch.Tensor, cs: CgState) -> None:
-        N = self.sh.N
+        N, T = self.sh.N, self.T
         if Aij.data_ptr() != self.Aij.data_ptr():
             raise ValueError("cg_step takes the Aij stash of this kernel's own stage_a")
-        for name, t, shape in (("x", cs.x, (N, 3)), ("r", cs.r, (N, 3)), ("p", cs.p, (N, 3)),
-                               ("cap", cs.cap, (N, 3)), ("scal", cs.scal, (4,)),
-                               ("big", cs.big, (3 * N + 1,))):
+        for name, t, shape in (("x", cs.x, (N, T)), ("r", cs.r, (N, T)), ("p", cs.p, (N, T)),
+                               ("cap", cs.cap, (N, T)), ("scal", cs.scal, (4,)),
+                               ("big", cs.big, (T * N + 1,))):
             gk._check_f32(name, t, shape, self.device)
             if not t.is_contiguous():
                 raise ValueError(f"{name} is not contiguous")
-        self._call("cg_step", *(t.data_ptr() for t in cs))
+        self._call("step", *(t.data_ptr() for t in cs))
 
 
 def stage_a(sh: Shard, poses: torch.Tensor):

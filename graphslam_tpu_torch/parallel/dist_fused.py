@@ -59,20 +59,30 @@ def _prepare(poses0, graph: FactorGraph, mesh: Mesh, huber_delta: float,
     N, T = poses0.shape
     if T != 3 or graph.tangent_dim != 3:
         raise ValueError("dist_fused supports T=3 (SE2) only")
+    return shard_of(poses0, graph, mesh, huber_delta, pcr_levels, edge_tile, gk.pack_graph,
+                    cs.make_shard)
+
+
+def shard_of(poses0, graph, mesh: Mesh, huber_delta: float, pcr_levels: Optional[int],
+             edge_tile: int, pack, make_shard):
+    """The Shard that `make_shard` builds from `pack`(graph, N): the loop
+    edges are cut into tiles of `edge_tile`, the tile count is padded to a
+    multiple of the world size and this rank takes its run of tiles."""
+    N = poses0.shape[0]
     if getattr(graph, "page_window", 0):
         raise ValueError("page-windowed graphs (ops/bucketize.py) are not ported: the port "
                          "gathers loop edges by index and runs page_window = 0 only")
     if poses0.device != mesh.device or graph.device != mesh.device:
         raise ValueError(f"poses on {poses0.device} and graph on {graph.device}, "
                          f"but the mesh holds its tensors on {mesh.device}")
-    pk = gk.pack_graph(graph, N)
+    pk = pack(graph, N)
     tile = int(edge_tile)
     n_tiles = _ceil_div(pk.El, tile)
     tiles_per_dev = _ceil_div(max(n_tiles, 1), mesh.size)
     lo = min(mesh.rank * tiles_per_dev * tile, pk.El)
     hi = min((mesh.rank + 1) * tiles_per_dev * tile, pk.El)
-    return cs.make_shard(pk, lo, hi, pcr_levels_for(N, pcr_levels),
-                         1.0 if mesh.rank == 0 else 0.0, huber_delta)
+    return make_shard(pk, lo, hi, pcr_levels_for(N, pcr_levels),
+                      1.0 if mesh.rank == 0 else 0.0, huber_delta)
 
 
 def _chain_block(sh: cs.Shard, mesh: Mesh):
@@ -82,20 +92,24 @@ def _chain_block(sh: cs.Shard, mesh: Mesh):
     return min(mesh.rank * per, sh.N), min((mesh.rank + 1) * per, sh.N)
 
 
-def _chi2(poses, sh: cs.Shard, mesh: Mesh):
+def _prior_rows(poses, sh: cs.Shard):
+    """The whitened prior residuals R Log(z^-1 x) of every node."""
+    return gk._mv(sh.prior_R, gk._log(gk._between(sh.prior_z, poses)))
+
+
+def chi2(poses, sh: cs.Shard, mesh: Mesh, residual=gk._residual, prior_rows=_prior_rows):
     """The robustified cost (dist_fused.py:319-362): this rank's chain block
     and loop edges (Huber rho when huber_delta > 0), one all-reduce, plus
-    the replicated prior squares."""
+    the replicated prior squares. `residual` and `prior_rows` are the SE(2)
+    ones; parallel/dist_fused6.py passes the SE(3) ones."""
     lo, hi = _chain_block(sh, mesh)
     hi = min(hi, sh.c)
     e = torch.zeros((), dtype=poses.dtype, device=poses.device)
     if hi > lo:
-        rw = gk._residual(poses[lo:hi], poses[lo + 1: hi + 1], sh.chain_z[lo:hi],
-                          sh.chain_R[lo:hi])
+        rw = residual(poses[lo:hi], poses[lo + 1: hi + 1], sh.chain_z[lo:hi], sh.chain_R[lo:hi])
         e = e + torch.sum(rw * rw)
     if sh.El:
-        rw = gk._residual(poses[sh.loop_i.long()], poses[sh.loop_j.long()], sh.loop_z,
-                          sh.loop_R)
+        rw = residual(poses[sh.loop_i.long()], poses[sh.loop_j.long()], sh.loop_z, sh.loop_R)
         et = torch.sum(rw * rw, -1)
         if sh.huber_delta > 0.0:
             d = sh.huber_delta
@@ -103,19 +117,21 @@ def _chi2(poses, sh: cs.Shard, mesh: Mesh):
             et = torch.where(n <= d, et, 2.0 * d * n - d * d)
         e = e + torch.sum(et)
     e = mesh.all_reduce(e.reshape(1))[0]
-    rp = gk._mv(sh.prior_R, gk._log(gk._between(sh.prior_z, poses)))
+    rp = prior_rows(poses, sh)
     return e + torch.sum(rp * rp)
 
 
-def _solve_dx_kernels(poses, lam, sh: cs.Shard, mesh: Mesh, cg_iters: int):
-    """The kernel path's inner solve (dist_fused.py:364-423): K6a, one
-    all-reduce, K6b, cg_iters + 1 passes of K6c and one all-reduce."""
-    payload, Aij = cs.stage_a(sh, poses)
+def solve_dx_kernels(poses, lam, sh: cs.Shard, mesh: Mesh, cg_iters: int, stage_a, gn_setup,
+                     cg_step):
+    """The kernel path's inner solve (dist_fused.py:364-423): stage_a (K6a,
+    or K7a from parallel/dist_fused6.py), one all-reduce, gn_setup, then
+    cg_iters + 1 passes of cg_step, each followed by one all-reduce."""
+    payload, Aij = stage_a(sh, poses)
     mesh.all_reduce(payload)
-    st = cs.gn_setup(sh, payload, poses, lam)
+    st = gn_setup(sh, payload, poses, lam)
     carry = cs.cg_state(st.b)
     for _ in range(cg_iters + 1):
-        cs.cg_step(sh, st, Aij, carry)
+        cg_step(sh, st, Aij, carry)
         mesh.all_reduce(carry.big)
     return carry.x
 
@@ -163,6 +179,12 @@ def _solve_dx_plain(poses, lam, sh: cs.Shard, mesh: Mesh, cg_iters: int):
         def hvp(v):
             return cs.chain_hvp(D, U, v) + mesh.all_reduce(cs.loop_hvp(sh, Aij, v))
 
+    return pcg(b, apply_z, hvp, cg_iters)
+
+
+def pcg(b, apply_z, hvp, cg_iters: int):
+    """cg_iters guarded CG iterations on H x = b from x = 0, with the
+    preconditioner apply_z (the XLA loop's CG, dist_fused.py:632-660)."""
     tiny = torch.tensor(gk._TINY, dtype=b.dtype, device=b.device)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     r = b
@@ -185,27 +207,25 @@ def _solve_dx_plain(poses, lam, sh: cs.Shard, mesh: Mesh, cg_iters: int):
     return x
 
 
-def _dist_fused(poses0, graph: FactorGraph, mesh: Mesh, iterations: int, cg_iters: int,
-                huber_delta: float, pcr_levels: Optional[int], edge_tile: int, lm: bool,
-                lam0: float, lam_factor: float, lam_min: float, lam_max: float,
-                cg_kernel: Optional[bool]):
-    sh = _prepare(poses0, graph, mesh, huber_delta, pcr_levels, edge_tile)
-    if cg_kernel is None:
-        cg_kernel = poses0.device.type == "cuda"
-    solve_dx = _solve_dx_kernels if cg_kernel else _solve_dx_plain
+def iterate(poses0, solve_dx, chi2_of, retract, iterations: int, lm: bool, lam0: float,
+            lam_factor: float, lam_min: float, lam_max: float):
+    """GN (lm False) or LM iterations of x <- retract(x, solve_dx(x, lam)):
+    LM accepts a candidate whose chi2_of is lower, with the lambda schedule
+    (dist_fused.py:676-699), all on the device. Returns (poses, None) or
+    (poses, (chi2, lambda, accepted_steps))."""
     dtype, dev = poses0.dtype, poses0.device
     poses = poses0
     if not lm:
         lam = torch.zeros(1, dtype=dtype, device=dev)
         for _ in range(iterations):
-            poses = gk.retract_reference(poses, solve_dx(poses, lam, sh, mesh, cg_iters))
+            poses = retract(poses, solve_dx(poses, lam))
         return poses, None
     lam = torch.full((1,), lam0, dtype=dtype, device=dev)
-    err = _chi2(poses, sh, mesh)
+    err = chi2_of(poses)
     n_acc = torch.zeros((), dtype=dtype, device=dev)
     for _ in range(iterations):
-        cand = gk.retract_reference(poses, solve_dx(poses, lam, sh, mesh, cg_iters))
-        new_err = _chi2(cand, sh, mesh)
+        cand = retract(poses, solve_dx(poses, lam))
+        new_err = chi2_of(cand)
         accepted = new_err < err
         poses = torch.where(accepted, cand, poses)
         lam = torch.where(accepted, torch.clamp(lam / lam_factor, min=lam_min),
@@ -213,6 +233,24 @@ def _dist_fused(poses0, graph: FactorGraph, mesh: Mesh, iterations: int, cg_iter
         err = torch.where(accepted, new_err, err)
         n_acc = n_acc + accepted.to(dtype)
     return poses, (err, lam[0], n_acc)
+
+
+def _dist_fused(poses0, graph: FactorGraph, mesh: Mesh, iterations: int, cg_iters: int,
+                huber_delta: float, pcr_levels: Optional[int], edge_tile: int, lm: bool,
+                lam0: float, lam_factor: float, lam_min: float, lam_max: float,
+                cg_kernel: Optional[bool]):
+    sh = _prepare(poses0, graph, mesh, huber_delta, pcr_levels, edge_tile)
+    if cg_kernel is None:
+        cg_kernel = poses0.device.type == "cuda"
+    if cg_kernel:
+        def solve(p, lam):
+            return solve_dx_kernels(p, lam, sh, mesh, cg_iters, cs.stage_a, cs.gn_setup,
+                                    cs.cg_step)
+    else:
+        def solve(p, lam):
+            return _solve_dx_plain(p, lam, sh, mesh, cg_iters)
+    return iterate(poses0, solve, lambda p: chi2(p, sh, mesh), gk.retract_reference, iterations,
+                   lm, lam0, lam_factor, lam_min, lam_max)
 
 
 def dist_fused_gn_solve(

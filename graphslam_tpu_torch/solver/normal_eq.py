@@ -14,7 +14,7 @@ live in ops/gn_kernel.py (SE(2)) and ops/gn6_kernel.py (SE(3)).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -203,8 +203,9 @@ def pcg_solve(
     lm_diag_scaling: bool = True,
     preconditioner: str = "tridiag",
     chain_prefix: int = 0,
+    x0: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Preconditioned CG on (H + damping) dx = -g.
+    """Preconditioned CG on (H + damping) dx = -g, from x0 (zero if None).
 
     preconditioner "tridiag" solves the block-tridiagonal odometry-chain part
     of H by cyclic reduction (solver/tridiag.py); "jacobi" inverts the block
@@ -230,8 +231,11 @@ def pcg_solve(
         def precond(r):
             return torch.einsum("nij,nj->ni", Minv, r)
 
-    x = torch.zeros_like(b)
-    r = b
+    if x0 is None:
+        x, r = torch.zeros_like(b), b
+    else:
+        x = x0
+        r = b - hvp(sys, damped, x0, chain_prefix)
     z = precond(r)
     p = z
     rz = torch.sum(r * z)

@@ -1,7 +1,9 @@
-"""Device helpers: synchronize, and name the card a number was taken on."""
+"""Device helpers: synchronize, name the card a number was taken on, and
+capture a profiler trace."""
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
 
 import torch
@@ -24,3 +26,16 @@ def device_info() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip()
+
+
+@contextlib.contextmanager
+def profiler_trace(logdir: str):
+    """Capture a torch.profiler trace (TensorBoard format, the card's
+    kernels too when CUDA is available) around a block, into logdir."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts, on_trace_ready=tensorboard_trace_handler(str(logdir))):
+        yield

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Rehearse csrc/gn_kernel.cu or csrc/gn6_kernel.cu on the CPU, without a GPU or nvcc.
+"""Rehearse the CUDA sources in graphslam_tpu_torch/csrc/ on the CPU, without a GPU or nvcc.
 
 Usage:  python scripts/emulate_gn_kernel.py [--poses N]
         python scripts/emulate_gn_kernel.py --se3 [--rings R --per-ring P]
         python scripts/emulate_gn_kernel.py --dist [--poses N]
+        python scripts/emulate_gn_kernel.py --dist6 [--rings R --per-ring P]
 
 Rewrites every `k<<<grid, block, 0, s>>>(` launch of the CUDA source into a
 call of a C++ emulation (blocks in turn, the threads of a block as
@@ -24,6 +25,10 @@ plain torch twin:
            the all-reduces summed here), K6c after 1 and 26 passes,
            and the kernel path of dist_fused_gn_solve / dist_fused_lm_solve
            on a one-rank gloo mesh against the plain path
+  --dist6  cg_step6.cu: the same for K7a, K7b and K7c (CgStep6Kernel) on
+           two ranks' shards of sphere(R, P) at exact PCR, and the kernel
+           path of dist_fused6_gn_solve / dist_fused6_lm_solve; about a
+           minute at sphere(6, 8)
 
 Prints one JSON line of max errors (poses wrapped or over the 12 entries,
 stages and K3/K5 relative to the largest entry) and the LM stats of kernel
@@ -117,33 +122,84 @@ def load_ops(libs, names=("gn_kernel", "pcg_kernel")):
     return mods
 
 
-def load_cg_step(lib):
-    """parallel/cg_step.py with the emulated cg_step library in place of the
-    nvcc build: its wrappers launch the kernels for CPU tensors too."""
+def load_cg_step(libs):
+    """parallel/cg_step.py and, with "cg_step6" in libs, parallel/cg_step6.py,
+    with the emulated libraries `libs` ({source name: path}) in place of the
+    nvcc builds: their wrappers launch the kernels for CPU tensors too.
+    Returns (cg_step, cg_step6 or None, dist_fused, dist_fused6)."""
     import graphslam_tpu_torch.parallel as par_pkg
     from graphslam_tpu_torch.ops import _build
-    from graphslam_tpu_torch.parallel import dist_fused
+    from graphslam_tpu_torch.parallel import dist_fused, dist_fused6
 
     prev = _build.load
-    _build.load = lambda name: ctypes.CDLL(str(lib)) if name == "cg_step" else prev(name)
+    _build.load = lambda name: ctypes.CDLL(str(libs[name])) if name in libs else prev(name)
     torch.cuda.current_stream = lambda dev=None: types.SimpleNamespace(cuda_stream=0)
-    path = ROOT / "graphslam_tpu_torch" / "parallel" / "cg_step.py"
-    mod = types.ModuleType("graphslam_tpu_torch.parallel.cg_step")
-    mod.__file__ = str(path)
-    code = path.read_text().replace('.type != "cuda"', '.type == "never"').replace(
-        '.device.type == "cpu"', '.device.type == "never"')
-    exec(compile(code, str(path), "exec"), mod.__dict__)
-    sys.modules[mod.__name__] = mod
-    par_pkg.cg_step = mod
-    dist_fused.cs = mod
-    return mod, dist_fused
+    mods = []
+    for name in ("cg_step", "cg_step6"):
+        path = ROOT / "graphslam_tpu_torch" / "parallel" / f"{name}.py"
+        mod = types.ModuleType(f"graphslam_tpu_torch.parallel.{name}")
+        mod.__file__ = str(path)
+        code = path.read_text().replace('.type != "cuda"', '.type == "never"').replace(
+            '.device.type == "cpu"', '.device.type == "never"')
+        sys.modules[mod.__name__] = mod
+        setattr(par_pkg, name, mod)
+        exec(compile(code, str(path), "exec"), mod.__dict__)
+        mods.append(mod)
+    dist_fused.cs = dist_fused6.cs = mods[0]
+    dist_fused6.cs6 = mods[1]
+    return mods[0], mods[1], dist_fused, dist_fused6
+
+
+def kernel_checks(out, make_shard, Kernel, twins, pk, K, p0):
+    """The kernels against their twins on two ranks' shards of the packed
+    graph pk (half the loop edges each, the chain on rank 0; the
+    all-reduces are sums of the two ranks' buffers), without and with
+    Huber: stage A per rank, the setup, the CG carry after 1 and 26 passes.
+    twins = (stage_a_reference, gn_setup_reference, cg_step_reference)."""
+    from graphslam_tpu_torch.parallel.cg_step import cg_state
+
+    stage_ref, setup_ref, step_ref = twins
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    half = pk.El // 2
+    for label, huber in (("plain", -1.0), ("huber", 1.0)):
+        shs = [make_shard(pk, 0, half, K, 1.0, huber), make_shard(pk, half, pk.El, K, 0.0, huber)]
+        kerns = [Kernel(sh) for sh in shs]
+        got = [tuple(t.clone() for t in k.stage_a(p0)) for k in kerns]
+        refs = [stage_ref(sh, p0) for sh in shs]
+        for r, ((pay, A), (pay_r, A_r)) in enumerate(zip(got, refs)):
+            out[f"stage_a_{label}_rank{r}"] = rel(pay, pay_r)
+            out[f"aij_{label}_rank{r}"] = rel(A, A_r)
+        reduced = got[0][0] + got[1][0]
+        reduced_r = refs[0][0] + refs[1][0]
+        lam = torch.tensor([1e-3])
+        sts = [k.gn_setup(reduced.clone(), p0, lam) for k in kerns]
+        srs = [setup_ref(sh, reduced_r, p0, lam) for sh in shs]
+        out[f"setup_{label}"] = max(rel(a, b) for a, b in zip(sts[0], srs[0]))
+        cks = [cg_state(srs[0].b) for _ in kerns]
+        crs = [cg_state(srs[0].b) for _ in kerns]
+        for it in range(26):
+            for k, ck in zip(kerns, cks):
+                k.cg_step(k.Aij, ck)
+            for sh, sr, (_, A_r), cr in zip(shs, srs, refs, crs):
+                step_ref(sh, sr, A_r, cr)
+            for carry in (cks, crs):
+                big = carry[0].big + carry[1].big
+                for c in carry:
+                    c.big.copy_(big)
+            if it in (0, 25):  # scal[2] is the kernel's scratch slot
+                out[f"cg{it + 1}_{label}"] = max(
+                    rel(a, b) for a, b in zip(cks[0]._replace(scal=cks[0].scal[:2]),
+                                              crs[0]._replace(scal=crs[0].scal[:2])))
 
 
 def main_dist(n: int) -> None:
-    """cg_step.cu: K6a, K6b and K6c against their twins on one rank's
+    """cg_step.cu: K6a, K6b and K6c against their twins on two ranks'
     shards of manhattan(n), and the kernel path of dist_fused_gn_solve /
     dist_fused_lm_solve (one rank) against the twins' path."""
-    cs, df = load_cg_step(build("cg_step"))
+    cs, _, df, _ = load_cg_step({"cg_step": build("cg_step")})
     from graphslam_tpu_torch.config import SolverConfig
     from graphslam_tpu_torch.factors import from_dataset
     from graphslam_tpu_torch.io import datasets
@@ -155,43 +211,8 @@ def main_dist(n: int) -> None:
     p0 = torch.from_numpy(data["poses"])
     pk = gk.pack_graph(g, n)
     out = {"poses": n, "loop_edges": pk.El}
-
-    def rel(a, b):
-        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-
-    half = pk.El // 2
-    for label, huber in (("plain", -1.0), ("huber", 1.0)):
-        # two ranks: half the loop edges each, the chain on rank 0; the
-        # all-reduces are sums of the two ranks' buffers
-        shs = [cs.make_shard(pk, 0, half, 4, 1.0, huber), cs.make_shard(pk, half, pk.El, 4, 0.0,
-                                                                        huber)]
-        kerns = [cs.CgStepKernel(sh) for sh in shs]
-        got = [k.stage_a(p0) for k in kerns]
-        refs = [cs.stage_a_reference(sh, p0) for sh in shs]
-        for r, ((pay, A), (pay_r, A_r)) in enumerate(zip(got, refs)):
-            out[f"stage_a_{label}_rank{r}"] = rel(pay, pay_r)
-            out[f"aij_{label}_rank{r}"] = rel(A, A_r)
-        reduced = got[0][0] + got[1][0]
-        reduced_r = refs[0][0] + refs[1][0]
-        lam = torch.tensor([1e-3])
-        sts = [k.gn_setup(reduced.clone(), p0, lam) for k in kerns]
-        srs = [cs.gn_setup_reference(sh, reduced_r, p0, lam) for sh in shs]
-        out[f"setup_{label}"] = max(rel(a, b) for a, b in zip(sts[0], srs[0]))
-        cks = [cs.cg_state(srs[0].b) for _ in kerns]
-        crs = [cs.cg_state(srs[0].b) for _ in kerns]
-        for it in range(26):
-            for k, (_, A), ck in zip(kerns, got, cks):
-                k.cg_step(A, ck)
-            for sh, sr, (_, A_r), cr in zip(shs, srs, refs, crs):
-                cs.cg_step_reference(sh, sr, A_r, cr)
-            for carry in (cks, crs):
-                big = carry[0].big + carry[1].big
-                for c in carry:
-                    c.big.copy_(big)
-            if it in (0, 25):  # scal[2] is the kernel's scratch slot
-                out[f"cg{it + 1}_{label}"] = max(
-                    rel(a, b) for a, b in zip(cks[0]._replace(scal=cks[0].scal[:2]),
-                                              crs[0]._replace(scal=crs[0].scal[:2])))
+    kernel_checks(out, cs.make_shard, cs.CgStepKernel,
+                  (cs.stage_a_reference, cs.gn_setup_reference, cs.cg_step_reference), pk, 4, p0)
     mesh = make_mesh(device="cpu")
     cfg = SolverConfig(cg_max_iterations=25, pcr_levels=4)
     kern_out = df.dist_fused_gn_solve(p0, g, mesh, cfg, iterations=3, cg_kernel=True)
@@ -204,6 +225,43 @@ def main_dist(n: int) -> None:
     out["lm_vs_plain"] = wrapped_max(a, b)
     out["lm_stats"] = [[float(t) for t in sa], [float(t) for t in sb]]
     out["launches"] = [cs.stage_a.launches, cs.gn_setup.launches, cs.cg_step.launches]
+    print(json.dumps(out))
+
+
+def main_dist6(rings: int, per_ring: int) -> None:
+    """cg_step6.cu: K7a, K7b and K7c against their twins on two ranks'
+    shards of sphere(rings, per_ring) at exact PCR, and the kernel path of
+    dist_fused6_gn_solve / dist_fused6_lm_solve (one rank) against the plain
+    path."""
+    _, cs6, _, df6 = load_cg_step({"cg_step6": build("cg_step6")})
+    from graphslam_tpu_torch.config import SolverConfig
+    from graphslam_tpu_torch.factors import from_dataset
+    from graphslam_tpu_torch.io import datasets
+    from graphslam_tpu_torch.ops import gn6_kernel as g6
+    from graphslam_tpu_torch.ops.pcg_kernel import pcr_levels_for
+    from graphslam_tpu_torch.parallel import make_mesh
+
+    data = datasets.sphere(n_rings=rings, poses_per_ring=per_ring, seed=1)
+    g = from_dataset(data, device="cpu")
+    p0 = torch.from_numpy(data["poses"])
+    n = p0.shape[0]
+    pk = g6.pack_graph6(g, n)
+    K = pcr_levels_for(n, None)
+    out = {"poses": n, "loop_edges": pk.El, "K": K}
+    kernel_checks(out, cs6.make_shard6, cs6.CgStep6Kernel,
+                  (cs6.stage_a6_reference, cs6.gn_setup6_reference, cs6.cg_step6_reference),
+                  pk, K, p0)
+    mesh = make_mesh(device="cpu")
+    cfg = SolverConfig(cg_max_iterations=25)
+    a = df6.dist_fused6_gn_solve(p0, g, mesh, cfg, iterations=3, cg_kernel=True)
+    b = df6.dist_fused6_gn_solve(p0, g, mesh, cfg, iterations=3, cg_kernel=False)
+    out["gn_vs_plain"] = float((a - b).abs().max())
+    lm_cfg = SolverConfig(cg_max_iterations=25, use_huber_on_loops=True)
+    a, sa = df6.dist_fused6_lm_solve(p0, g, mesh, lm_cfg, iterations=3, cg_kernel=True)
+    b, sb = df6.dist_fused6_lm_solve(p0, g, mesh, lm_cfg, iterations=3, cg_kernel=False)
+    out["lm_vs_plain"] = float((a - b).abs().max())
+    out["lm_stats"] = [[float(t) for t in sa], [float(t) for t in sb]]
+    out["launches"] = [cs6.stage_a6.launches, cs6.gn_setup6.launches, cs6.cg_step6.launches]
     print(json.dumps(out))
 
 
@@ -273,6 +331,7 @@ def main() -> None:
     ap.add_argument("--poses", type=int, default=260)
     ap.add_argument("--se3", action="store_true")
     ap.add_argument("--dist", action="store_true")
+    ap.add_argument("--dist6", action="store_true")
     ap.add_argument("--rings", type=int, default=6)
     ap.add_argument("--per-ring", type=int, default=8)
     args = ap.parse_args()
@@ -280,6 +339,8 @@ def main() -> None:
         return main_se3(args.rings, args.per_ring)
     if args.dist:
         return main_dist(args.poses)
+    if args.dist6:
+        return main_dist6(args.rings, args.per_ring)
     n = args.poses
     gk, pk = load_ops({"gn_kernel": build()})
     from graphslam_tpu_torch.factors import from_dataset

@@ -1,0 +1,162 @@
+"""K7a-c (csrc/cg_step6.cu) against their plain torch twins on the card.
+
+Needs an NVIDIA GPU and nvcc; without a card every case skips. The file
+imports no JAX, so it also runs where JAX is not installed:
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cg_step6_cuda.py
+Two ranks are emulated in one process on sphere(10, 10) and on the garage:
+each holds half the loop edges, rank 0 the chain (w_chain 1), rank 1 none
+(w_chain 0), and the all-reduces are sums of the two ranks' buffers; PCR
+at the exact K = ceil(log2 N). Tolerances are K6's (float32 on both sides;
+the kernels sum in another order and use FMAs): the payload, Aij, D and b
+rel 5e-5; the PCR factor rel 1e-4; the CG state after one pass rel 1e-4,
+after 26 passes rel 1e-3; the kernel path of dist_fused6_gn_solve against
+the plain path on the card max |d| 5e-3 over the 12 pose entries, LM 8e-3
+with accepted steps equal (tests/test_dist_fused6.py:38, :51).
+"""
+
+import ctypes
+
+import pytest
+import torch
+
+from graphslam_tpu_torch.config import SolverConfig
+from graphslam_tpu_torch.factors import from_dataset
+from graphslam_tpu_torch.io import datasets
+from graphslam_tpu_torch.ops import gn6_kernel as g6
+from graphslam_tpu_torch.ops.pcg_kernel import pcr_levels_for
+from graphslam_tpu_torch.parallel import cg_step as cs
+from graphslam_tpu_torch.parallel import cg_step6 as cs6
+from graphslam_tpu_torch.parallel import dist_fused6_gn_solve, dist_fused6_lm_solve, make_mesh
+
+pytestmark = pytest.mark.cuda
+TOL_AB = 5e-5
+TOL_GN = 5e-3
+TOL_LM = 8e-3
+
+
+def rel_err(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def pose_max(a, b) -> float:
+    return float((a - b).double().abs().max())
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module", params=["sphere10x10", "garage"])
+def graph(dev, request):
+    data = (datasets.sphere(n_rings=10, poses_per_ring=10, seed=1)
+            if request.param == "sphere10x10" else datasets.garage())
+    return from_dataset(data, device=dev), torch.from_numpy(data["poses"]).to(dev)
+
+
+def _ranks(g, p0, huber=-1.0):
+    N = p0.shape[0]
+    pk = g6.pack_graph6(g, N)
+    K = pcr_levels_for(N, None)
+    half = pk.El // 2
+    return [cs6.make_shard6(pk, 0, half, K, 1.0, huber),
+            cs6.make_shard6(pk, half, pk.El, K, 0.0, huber)]
+
+
+def test_problem_struct_matches_the_c_side(dev):
+    assert cs._lib("cg_step6", "cg6").cg6_problem_size() == ctypes.sizeof(cs._Problem)
+
+
+@pytest.mark.parametrize("huber", [-1.0, 1.0])
+def test_stage_a6_matches_twin(graph, huber):
+    g, p0 = graph
+    for sh in _ranks(g, p0, huber):
+        payload, Aij = cs6.CgStep6Kernel(sh).stage_a(p0)
+        ref, Aref = cs6.stage_a6_reference(sh, p0)
+        torch.cuda.synchronize()
+        for a, b in zip(cs6.unpack_payload6(payload, sh.N), cs6.unpack_payload6(ref, sh.N)):
+            if sh.w_chain or b.abs().max() > 0:
+                assert rel_err(a, b) <= TOL_AB
+        assert rel_err(Aij, Aref) <= TOL_AB
+
+
+def test_gn_setup6_and_cg_step6_match_twin(graph):
+    g, p0 = graph
+    shs = _ranks(g, p0)
+    kerns = [sh.kernel() for sh in shs]
+    got = [k.stage_a(p0) for k in kerns]
+    refs = [cs6.stage_a6_reference(sh, p0) for sh in shs]
+    reduced = got[0][0] + got[1][0]
+    reduced_ref = refs[0][0] + refs[1][0]
+    lam = torch.tensor([1e-3], device=p0.device)
+    sts = [k.gn_setup(reduced.clone(), p0, lam) for k in kerns]
+    srs = [cs6.gn_setup6_reference(sh, reduced_ref, p0, lam) for sh in shs]
+    torch.cuda.synchronize()
+    st, sr = sts[0], srs[0]
+    assert rel_err(st.D, sr.D) <= TOL_AB and rel_err(st.b, sr.b) <= TOL_AB
+    assert max(rel_err(st.A, sr.A), rel_err(st.G, sr.G), rel_err(st.Dinv, sr.Dinv)) <= 1e-4
+    cks = [cs6.cg_state(sr.b) for _ in shs]
+    crs = [cs6.cg_state(sr.b) for _ in shs]
+    for it in range(26):
+        for k, (_, A), ck in zip(kerns, got, cks):
+            cs6.cg_step6(k.sh, k.setup, A, ck)
+        for sh, s, (_, A), cr in zip(shs, srs, refs, crs):
+            cs6.cg_step6_reference(sh, s, A, cr)
+        for carry in (cks, crs):
+            big = carry[0].big + carry[1].big
+            for c in carry:
+                c.big.copy_(big)
+        if it in (0, 25):
+            tol = 1e-4 if it == 0 else 1e-3
+            for name in ("x", "r", "p", "cap", "big"):
+                a, b = getattr(cks[0], name), getattr(crs[0], name)
+                if b.abs().max() > 0:
+                    assert rel_err(a, b) <= tol, (it, name)
+            assert rel_err(cks[0].scal[:2], crs[0].scal[:2]) <= tol
+
+
+def test_two_calls_bitwise_equal(graph):
+    g, p0 = graph
+    mesh = make_mesh()
+    cfg = SolverConfig(cg_max_iterations=25)
+    a = dist_fused6_gn_solve(p0, g, mesh, cfg, iterations=3)
+    b = dist_fused6_gn_solve(p0, g, mesh, cfg, iterations=3)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_kernel_path_matches_plain_path(graph):
+    g, p0 = graph
+    mesh = make_mesh()
+    cfg = SolverConfig(cg_max_iterations=25)
+    n = cs6.cg_step6.launches
+    a = dist_fused6_gn_solve(p0, g, mesh, cfg, iterations=3, cg_kernel=True)
+    assert cs6.cg_step6.launches - n == 3 * 26
+    b = dist_fused6_gn_solve(p0, g, mesh, cfg, iterations=3, cg_kernel=False)
+    assert pose_max(a, b) <= TOL_GN
+    lm_cfg = SolverConfig(cg_max_iterations=25, use_huber_on_loops=True)
+    a, sa = dist_fused6_lm_solve(p0, g, mesh, lm_cfg, iterations=3, cg_kernel=True)
+    b, sb = dist_fused6_lm_solve(p0, g, mesh, lm_cfg, iterations=3, cg_kernel=False)
+    assert pose_max(a, b) <= TOL_LM and int(sa[2]) == int(sb[2])
+
+
+def test_chain_only_graph(dev):
+    data = datasets.sphere(n_rings=4, poses_per_ring=10, seed=2)
+    g = from_dataset(data, device=dev)
+    g = g.replace(edge_mask=g.edge_mask & (torch.arange(g.num_edges, device=dev) < g.chain_prefix))
+    p0 = torch.from_numpy(data["poses"]).to(dev)
+    cfg = SolverConfig(cg_max_iterations=12, pcr_levels=3)
+    mesh = make_mesh()
+    a = dist_fused6_gn_solve(p0, g, mesh, cfg, iterations=3, cg_kernel=True)
+    b = dist_fused6_gn_solve(p0, g, mesh, cfg, iterations=3, cg_kernel=False)
+    assert torch.isfinite(a).all() and pose_max(a, b) <= TOL_GN
+
+
+def test_cpu_tensors_are_refused(dev):
+    data = datasets.sphere(n_rings=3, poses_per_ring=6, seed=1)
+    g = from_dataset(data, device="cpu")
+    pk = g6.pack_graph6(g, 18)
+    with pytest.raises(ValueError, match="CUDA"):
+        cs6.CgStep6Kernel(cs6.make_shard6(pk, 0, pk.El, 3, 1.0, -1.0))
