@@ -46,16 +46,21 @@ a nonzero exit:
      from the same state: decisions and factor counts equal, keyframe
      poses wrapped atol 2e-3.
   8. timing: replay frames/s through the kernels (median of 3), the plain
-     path on the card over the first 60 scans, K2 and K8 per launch against
-     their twins and K8 against torch.cdist, and one profiled replay
-     (device busy share, kernels and host synchronizations per scan)
+     path on the card over the first 60 scans, the K2 IRLS rounds that ran
+     over a replay (the sum of each match's ctrl[1]) beside those enqueued,
+     K2 and K8 per launch against their twins and K8 against torch.cdist,
+     and one profiled replay (device busy share, kernels and host
+     synchronizations per scan)
   9. LM kernels against their twins on manhattan(260): K1's LM mode, 5
      Huber iterations at pcr_levels 4 and exact (poses wrapped atol 3e-3,
      chi2 within 1%, accepted steps and converged equal; its cost pass
      alone rel 1e-5); K3 (the fused PCG) at lam 0 and 1e-3 (rel 1e-3); 5
      iterations of _lm_loop(pcg_fused) through K3 against the same loop
      through the twin (wrapped atol 3e-3); K3 on the replay's online graph
-     at bucket 128 (rel 1e-3, its CSR holding only the live loop slots)
+     at bucket 128 (rel 1e-3, its CSR holding only the live loop slots);
+     K3 (one persistent launch on a thread-block cluster) bitwise equal to
+     the staged gn_factor + gn_cg it replaced, and two calls bitwise, at
+     lam 0 and 1e-3 and on the online graph (and at m3500 in phase 10)
  10. the m3500 LM main paths on cuda: lm_solve in mode gn_fused (K1-LM,
      50 steps, cg 25, Huber, pcr_levels 4: scripts/bench_all.py's LM
      config) and in mode pcg_fused (_lm_loop through K3, 50 iterations).
@@ -65,9 +70,11 @@ a nonzero exit:
      wrapped 3e-3 of its twin over 5 steps, K3 within rel 1e-3 at m3500
  11. LM timing: m3500 LM it/s through K1-LM, in turns with its twin on
      the card and with K1's GN mode; _lm_loop(pcg_fused) it/s; K3 per call
-     (its C entry on a prepared problem, and the whole wrapper) against its
-     twin (CUDA events); launches per LM iteration by source and the idle
-     share (profiler); host synchronizations per _lm_loop iteration
+     (its C entry on a prepared problem, in turns with the staged gn_factor
+     + gn_cg, and the whole wrapper) against its twin (CUDA events), and
+     its launches a call (profiler: 1); launches per LM iteration by source
+     and the idle share (profiler); host synchronizations per _lm_loop
+     iteration
  12. SE(3) kernels against their twins (csrc/gn6_kernel.cu) on
      sphere(10, 10) and on garage: K4's assembled D, U and b after one
      linearization (rel 1e-5), one PCR apply (rel 1e-4), one CG solve (rel
@@ -97,7 +104,9 @@ a nonzero exit:
      edges each, the chain on rank 0; the all-reduces summed here): the K6a
      payload and Aij (rel 5e-5), K6b's damped D and b (rel 5e-5) and PCR
      factor (rel 1e-4), the K6c state after 1 pass (rel 1e-4) and after 26
-     (rel 1e-3), each on its own line; two K6 sequences bitwise equal
+     (rel 1e-3), each on its own line; two K6 sequences bitwise equal; K6c
+     (one persistent launch a pass) bitwise equal to cg_step_staged, the
+     carry after 1 and 26 passes, without and with Huber
  16. the distributed main paths on cuda, m3500, world size 1 over NCCL:
      dist_fused_gn_solve through K6, 200 iterations at scripts/bench_all.py
      :207-248's cell (cg 25, pcr_levels 4, edge_tile 512; no page windows),
@@ -115,9 +124,10 @@ a nonzero exit:
      largest coordinate, accepted steps equal
  18. distributed timing: dist_fused GN it/s through K6 in turns with K1
      (_gn_loop gn_fused, the same config) and with the plain path on the
-     card; K6a, K6b and K6c per call and their twins (CUDA events); the
-     all_reduce at world size 1; launches per GN iteration by source and
-     the idle share (profiler)
+     card; K6a, K6b and K6c per call and their twins (CUDA events), K6c in
+     turns with cg_step_staged and its launches a pass (profiler: 1); the
+     all_reduce at world size 1; launches per GN iteration by source (at
+     most 2 + (K + 1) + 26 from cg_step.cu) and the idle share (profiler)
  19. K7a-c (csrc/cg_step6.cu) against their twins as phase 15 holds K6, on
      sphere(10, 10) and the garage at exact PCR, without and with Huber,
      two ranks in one process, at phase 15's tolerances; two K7 sequences
@@ -147,12 +157,14 @@ Before the last line it prints one JSON object describing the kernels
 errors, icp_kernel gicp_match's delta through the kernel against the plain
 path, nn_kernel the distances at full width, gn_kernel_lm its largest pose
 error against the twin, pcg_kernel its largest dx error against the twin,
-and its "ms" is the C entry's, "ms_wrapper" the whole fused_pcg_solve's;
+and its "ms" is the C entry's, "ms_staged" the staged gn_factor + gn_cg's
+in turns, "ms_wrapper" the whole fused_pcg_solve's;
 gn6_kernel, gn6_kernel_lm and pcg6_kernel likewise from phases 12-14, with
 "ms" per sphere2500 GN solve, per garage LM solve and per K5 C-entry call;
 cg_step_stage_a, cg_step_gn_setup and cg_step_cg_step (K6a-c) from phases
 15-18: "max_abs_err" the largest relative error against the twin (K6c also
-the two-rank check), "ms" per call of the wrapper, "launches" the count in
+the two-rank check), "ms" per call of the wrapper (K6c's "ms_staged" that of
+cg_step_staged in turns), "launches" the count in
 the GN main path and "launches_lm" in the LM one; cg_step6_stage_a,
 cg_step6_gn_setup and cg_step6_cg_step (K7a-c) likewise from phases 19-22,
 "launches" in the sphere2500 GN main path, "launches_garage" in the garage
@@ -788,6 +800,29 @@ def phase_timing_frontend(torch, tour, k2_full):
     log(f"  first {n60} scans: kernels {out['fps_60']:.2f} frames/s (median of 3), plain twins "
         f"on the card {plain:.2f} frames/s (one run)")
 
+    # K2's IRLS rounds that ran over one replay (the sum of each match's
+    # ctrl[1]) beside those enqueued (icp_iterations a match): under early exit a round
+    # after convergence returns at its first line.
+    ctrls, problem = [], ik._problem
+
+    def counting(*a, **kw):
+        prob, keep = problem(*a, **kw)
+        ctrls.append(keep[9])
+        return prob, keep
+
+    ik._problem = counting
+    try:
+        kern_full(init_state(cfg), tour["scans"], tour["odom"])
+    finally:
+        ik._problem = problem
+    rounds = cfg.frontend.icp_iterations
+    out["k2_matches"] = len(ctrls)
+    out["k2_rounds_enqueued"] = rounds * len(ctrls)
+    out["k2_rounds_run"] = int(torch.stack(ctrls)[:, 1].sum()) if ctrls else 0
+    log(f"  K2 IRLS rounds over the replay: {out['k2_rounds_run']} run of "
+        f"{out['k2_rounds_enqueued']} enqueued ({out['k2_matches']} matches, {rounds} rounds "
+        f"each)")
+
     # K2: one IRLS iteration at full width, the C entry on a prepared problem
     # (two launches) against the twin; the whole device loop per match.
     args = k2_full
@@ -918,6 +953,22 @@ def _k3_pair(torch, pk, sysm, lam, chain_prefix):
     return rel_err(x, xr), float((x - xr).abs().max())
 
 
+def _k3_bitwise(torch, pk, sysm, lam, chain_prefix, label):
+    """K3 (one persistent launch) against the staged gn_factor + gn_cg it
+    replaced, on the same prepared problem, and two K3 calls: bitwise."""
+    kern = pk.PcgKernel(*pk._chain_and_loops(sysm, lam, True, chain_prefix), 25)
+    a = kern.solve().clone()
+    b = kern.staged().clone()
+    again = kern.solve().clone()
+    torch.cuda.synchronize()
+    same = torch.equal(a, b) and torch.equal(a, again)
+    log(f"  K3 {label}: persistent vs staged gn_factor + gn_cg, and two calls: "
+        f"{'bitwise equal' if same else 'DIFFERENT'} (max |x| {float(a.abs().max()):.4g})")
+    if not same:
+        fail(f"K3 {label}: the persistent kernel differs from its staged sequence "
+             f"(max |d| {float((a - b).abs().max()):.3e})")
+
+
 def phase_lm_kernels(torch, datasets, from_dataset, lm, gk, tour, state):
     log("== phase 9: LM kernels against their plain twins, manhattan(260)")
     from graphslam_tpu_torch.config import SolverConfig
@@ -947,6 +998,7 @@ def phase_lm_kernels(torch, datasets, from_dataset, lm, gk, tour, state):
         log(f"  K3 at lam {lam}: rel err {e:.3e} (tol {TOL_CG_REL})")
         if not e <= TOL_CG_REL:
             fail(f"K3 differs from its twin at lam {lam}: {e}")
+        _k3_bitwise(torch, pk, sysm, lam, g.chain_prefix, f"manhattan(260), lam {lam}")
 
     cfg = SolverConfig(mode="pcg_fused", max_iterations=5, cg_max_iterations=25,
                        use_huber_on_loops=True)
@@ -977,6 +1029,7 @@ def phase_lm_kernels(torch, datasets, from_dataset, lm, gk, tour, state):
         f"{int(ptr[-1])}")
     if not e <= TOL_CG_REL:
         fail(f"K3 on the online graph differs from its twin: {e}")
+    _k3_bitwise(torch, pk, so, 0.0, c, f"on the replay's online graph (bucket {B})")
     if not (int(ptr[-1]) == 2 * n_live and torch.equal(live, go.edge_mask[c:])):
         fail("K3's CSR does not hold exactly the live loop slots")
     return lm_err, k3_err
@@ -1030,6 +1083,7 @@ def phase_lm_main(torch, datasets, from_dataset, chi2, metrics, lm, gk):
     log(f"  K3 at m3500 (lam {cfg_k3.init_lambda}): rel err {e3:.3e} (tol {TOL_CG_REL})")
     if not e3 <= TOL_CG_REL:
         fail(f"K3 differs from its twin at m3500: {e3}")
+    _k3_bitwise(torch, pk, sysm, cfg_k3.init_lambda, g.chain_prefix, "at m3500")
     return p0, g, sysm, out, e, ea3
 
 
@@ -1067,6 +1121,27 @@ def _profile_launches(torch, fn, top: int = 0):
             log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:7d}x  "
                 f"{e.self_device_time_total / e.count:8.2f} us each  {name}")
     return groups, span * 1e3
+
+
+def _launches_per_call(torch, fn, tag: str, calls: int = 10):
+    """Launches a call of fn over `calls` profiled calls: (host launch API
+    calls -- cudaLaunchKernel / cudaLaunchKernelExC --, device kernels whose
+    name holds `tag`), each divided by `calls`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    host = dev = 0
+    for e in prof.key_averages():
+        if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
+            host += e.count
+        elif tag in e.key and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            dev += e.count
+    return host / calls, dev / calls
 
 
 def _log_profile(name, groups, span, n_it):
@@ -1146,7 +1221,24 @@ def phase_lm_timing(torch, lm, gk, card, p0, g, sysm, main):
 
     lam = torch.tensor(cfg_k3.init_lambda, device=p0.device)
     kern3 = pk.PcgKernel(*pk._chain_and_loops(sysm, lam, True, g.chain_prefix), 25)
-    out["k3_us"] = _event_us(torch, kern3.solve, 100)
+    # in turns: staged, persistent, persistent, staged
+    t_sa = _event_us(torch, kern3.staged, 50)
+    t_k3a = _event_us(torch, kern3.solve, 100)
+    t_k3b = _event_us(torch, kern3.solve, 100)
+    t_sb = _event_us(torch, kern3.staged, 50)
+    out["k3_us"] = min(t_k3a, t_k3b)
+    out["k3_staged_us"] = min(t_sa, t_sb)
+    host, dev = _launches_per_call(torch, kern3.solve, "GnProblem")
+    host_s, dev_s = _launches_per_call(torch, kern3.staged, "GnProblem")
+    out["k3_launches_per_call"] = host
+    out["k3_staged_launches_per_call"] = host_s
+    log(f"  K3 per call of its C entry (CUDA events, in turns): persistent {t_k3a:.2f} and "
+        f"{t_k3b:.2f} us, staged gn_factor + gn_cg {t_sa:.2f} and {t_sb:.2f} us "
+        f"({out['k3_staged_us'] / out['k3_us']:.2f}x); launches a call (profiler, 10 calls; "
+        f"host launch calls / device kernels): {host:g} / {dev:g} persistent, {host_s:g} / "
+        f"{dev_s:g} staged")
+    if host != 1:
+        fail(f"K3 made {host} launches a call, not 1")
     out["k3_wrapper_us"] = _event_us(torch, lambda: pk.fused_pcg_solve(
         sysm, lam, max_iters=25, chain_prefix=g.chain_prefix), 50)
     out["k3_plain_us"] = _event_us(torch, lambda: pk.fused_pcg_solve_reference(
@@ -1513,11 +1605,13 @@ def _k6_two_ranks(cs, gk, g, p0, huber=-1.0):
             cs.make_shard(pk, half, pk.El, 4, 0.0, huber)]
 
 
-def _k_sequence(torch, cs, shs, p0, lam, passes, kernel: bool, sfx: str = ""):
+def _k_sequence(torch, cs, shs, p0, lam, passes, kernel: bool, sfx: str = "",
+                staged: bool = False):
     """K6a (K7a with sfx "6" and cs parallel/cg_step6.py), the payloads
     summed (the all-reduce), K6b and `passes` K6c passes on two ranks,
-    through the kernels or the twins; returns (per-rank payloads and Aij,
-    rank 0's Setup, rank 0's carry after pass 1 and after the last)."""
+    through the kernels or the twins (with staged, K6c as its staged
+    sequence, cg_step_staged); returns (per-rank payloads and Aij, rank 0's
+    Setup, rank 0's carry after pass 1 and after the last)."""
     stage_ref, setup_ref, step_ref = (getattr(cs, f"{n}{sfx}_reference")
                                       for n in ("stage_a", "gn_setup", "cg_step"))
     step_kern = getattr(cs, f"cg_step{sfx}")
@@ -1528,12 +1622,15 @@ def _k_sequence(torch, cs, shs, p0, lam, passes, kernel: bool, sfx: str = ""):
         reduced = outs[0][0] + outs[1][0]
         setups = [k.gn_setup(reduced.clone(), p0, lam) for k in kerns]
         step = lambda i, A, c: step_kern(shs[i], setups[i], kerns[i].Aij, c)  # noqa: E731
+        if staged:
+            step = lambda i, A, c: kerns[i].cg_step_staged(kerns[i].Aij, c)  # noqa: E731
     else:
         outs = [stage_ref(sh, p0) for sh in shs]
         reduced = outs[0][0] + outs[1][0]
         setups = [setup_ref(sh, reduced, p0, lam) for sh in shs]
         step = lambda i, A, c: step_ref(shs[i], setups[i], A, c)  # noqa: E731
-    carries = [cs.cg_state(setups[0].b) for _ in shs]
+    carries = ([k.cg_state(setups[0].b) for k in kerns] if kernel else
+               [cs.cg_state(setups[0].b) for _ in shs])
     first = None
     for it in range(passes):
         for i, ((_, A), c) in enumerate(zip(outs, carries)):
@@ -1598,8 +1695,23 @@ def phase_k6_kernels(torch, datasets, from_dataset):
                        ("m3500", datasets.m3500())):
         graphs.append((name, from_dataset(data, device=dev),
                        torch.from_numpy(data["poses"]).to(dev)))
-    return _k_family_checks(torch, cs, "", "K6", graphs,
+    errs = _k_family_checks(torch, cs, "", "K6", graphs,
                             lambda g, p0, huber: _k6_two_ranks(cs, gk, g, p0, huber))
+    # K6c, one persistent launch a pass, against the staged sequence it
+    # replaced: the whole carry bitwise after 1 and 26 passes
+    lam = torch.tensor([1e-3], device=dev)
+    for name, g, p0 in graphs:
+        for huber in (-1.0, 1.0):
+            shs = _k6_two_ranks(cs, gk, g, p0, huber)
+            _, _, k1, kn = _k_sequence(torch, cs, shs, p0, lam, 26, True)
+            _, _, s1, sn = _k_sequence(torch, cs, shs, p0, lam, 26, True, staged=True)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for x, y in ((k1, s1), (kn, sn)) for a, b in zip(x, y))
+            log(f"  {name}, Huber {huber}: K6c persistent vs cg_step_staged, two ranks, carry "
+                f"after 1 and 26 passes: {'bitwise equal' if same else 'DIFFERENT'}")
+            if not same:
+                fail(f"{name}: the persistent K6c differs from its staged sequence")
+    return errs
 
 
 def _gate_dist(name, ate0, ate, err, ref, steps=None):
@@ -1920,10 +2032,29 @@ def phase_dist_timing(torch, card, main):
     lam = torch.zeros(1, device=p0.device)
     payload, Aij = kern.stage_a(p0)
     st = kern.gn_setup(payload, p0, lam)
-    carry = cs.cg_state(st.b)
+    carry = kern.cg_state(st.b)
     out["stage_a_us"] = _event_us(torch, lambda: cs.stage_a(sh, p0), 200)
     out["gn_setup_us"] = _event_us(torch, lambda: cs.gn_setup(sh, payload, p0, lam), 200)
-    out["cg_step_us"] = _event_us(torch, lambda: cs.cg_step(sh, st, Aij, carry), 500)
+    # K6c in turns with the staged sequence it replaced: staged, persistent,
+    # persistent, staged (through the wrapper, one pass a call)
+    t_sa = _event_us(torch, lambda: kern.cg_step_staged(Aij, carry), 500)
+    t_ka = _event_us(torch, lambda: cs.cg_step(sh, st, Aij, carry), 500)
+    t_kb = _event_us(torch, lambda: cs.cg_step(sh, st, Aij, carry), 500)
+    t_sb = _event_us(torch, lambda: kern.cg_step_staged(Aij, carry), 500)
+    out["cg_step_us"] = min(t_ka, t_kb)
+    out["cg_step_staged_us"] = min(t_sa, t_sb)
+    host, dev = _launches_per_call(torch, lambda: cs.cg_step(sh, st, Aij, carry), "CgProblem")
+    host_s, dev_s = _launches_per_call(torch, lambda: kern.cg_step_staged(Aij, carry),
+                                       "CgProblem")
+    out["cg_step_launches_per_pass"] = host
+    out["cg_step_staged_launches_per_pass"] = host_s
+    log(f"  K6c per pass (CUDA events, the wrapper included, in turns): persistent "
+        f"{t_ka:.2f} and {t_kb:.2f} us, staged {t_sa:.2f} and {t_sb:.2f} us "
+        f"({out['cg_step_staged_us'] / out['cg_step_us']:.2f}x); launches a pass (profiler, 10 "
+        f"passes; host launch calls / device kernels): {host:g} / {dev:g} persistent, "
+        f"{host_s:g} / {dev_s:g} staged")
+    if host != 1:
+        fail(f"K6c made {host} launches a pass, not 1")
     out["stage_a_plain_us"] = _event_us(torch, lambda: cs.stage_a_reference(sh, p0), 20)
     ref_pay, ref_A = cs.stage_a_reference(sh, p0)
     out["gn_setup_plain_us"] = _event_us(
@@ -1936,7 +2067,7 @@ def phase_dist_timing(torch, card, main):
     pay = torch.zeros(cs.payload_size(sh.N), device=p0.device)
     out["allreduce_big_us"] = _event_us(torch, lambda: mesh.all_reduce(big), 500)
     out["allreduce_payload_us"] = _event_us(torch, lambda: mesh.all_reduce(pay), 200)
-    out["k6_launch_counts_per_call"] = (2, 1 + sh.K, 4 + sh.K)
+    out["k6_launch_counts_per_call"] = (2, 1 + sh.K, 1)
     log(f"  per call (CUDA events, the wrapper included): K6a {out['stage_a_us']:.2f} us, K6b "
         f"{out['gn_setup_us']:.2f} us, K6c {out['cg_step_us']:.2f} us; twins on the card "
         f"{out['stage_a_plain_us']:.2f}, {out['gn_setup_plain_us']:.2f}, "
@@ -1951,6 +2082,11 @@ def phase_dist_timing(torch, card, main):
     out["launches_per_it"] = {k: c / n_it for k, (c, _) in groups.items()}
     out["idle_share"] = _log_profile(f"dist_fused GN through K6 ({n_it} iterations)", groups,
                                      span, n_it)
+    per_it = out["launches_per_it"]["cg_step.cu"]
+    log(f"  cg_step.cu launches a dist_fused GN iteration: {per_it:.1f} (K6a 2, K6b "
+        f"{1 + sh.K}, 26 K6c passes 1 each: {2 + 1 + sh.K + 26})")
+    if per_it > 2 + 1 + sh.K + 26:
+        fail(f"{per_it} cg_step.cu launches a dist_fused GN iteration")
     return out
 
 
@@ -2171,7 +2307,7 @@ def phase_dist6_timing(torch, card, graphs, mesh):
     lam = torch.zeros(1, device=p0.device)
     payload, Aij = kern.stage_a(p0)
     st = kern.gn_setup(payload, p0, lam)
-    carry = cs6.cg_state(st.b)
+    carry = kern.cg_state(st.b)
     out["stage_a_us"] = _event_us(torch, lambda: cs6.stage_a6(sh, p0), 200)
     out["gn_setup_us"] = _event_us(torch, lambda: cs6.gn_setup6(sh, payload, p0, lam), 100)
     out["cg_step_us"] = _event_us(torch, lambda: cs6.cg_step6(sh, st, Aij, carry), 500)
@@ -2355,6 +2491,8 @@ def main() -> int:
             "source": "graphslam_tpu_torch/csrc/icp_kernel.cu",
             "replaces": "graphslam_tpu/ops/icp_kernel.py:30",
             "launches": launches["icp_kernel"],
+            "rounds_run": t["k2_rounds_run"],
+            "rounds_enqueued": t["k2_rounds_enqueued"],
             "max_abs_err": fe["match_err"],
             "iteration_err_over_limit": fe["k2_ratio"],
             "ms": t["k2_us"] / 1e3,
@@ -2397,6 +2535,9 @@ def main() -> int:
             "launches": lm_main["_lm_loop/K3"]["launches"],
             "max_abs_err": max(k3_err9, k3_err10),
             "ms": lt["k3_us"] / 1e3,
+            "ms_staged": lt["k3_staged_us"] / 1e3,
+            "launches_per_call": lt["k3_launches_per_call"],
+            "staged_launches_per_call": lt["k3_staged_launches_per_call"],
             "ms_wrapper": lt["k3_wrapper_us"] / 1e3,
             "plain_ms": lt["k3_plain_us"] / 1e3,
             "bound_ms": k3_bound,
@@ -2480,6 +2621,9 @@ def main() -> int:
             "max_abs_err_1_pass": k6_err["cg_step_1"],
             "max_abs_err_two_ranks": two_rank_err,
             "ms": dt["cg_step_us"] / 1e3,
+            "ms_staged": dt["cg_step_staged_us"] / 1e3,
+            "launches_per_pass": dt["cg_step_launches_per_pass"],
+            "staged_launches_per_pass": dt["cg_step_staged_launches_per_pass"],
             "plain_ms": dt["cg_step_plain_us"] / 1e3,
             "bound_ms": k6c_bound,
             "bound_by": k6c_by,

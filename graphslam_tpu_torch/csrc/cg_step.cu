@@ -19,26 +19,32 @@
 //   cg_gn_setup   cg_setup      one thread per node: + prior blocks,
 //                               D_ii (1 + lam), b = -g
 //                 cg_pcr_factor one launch per PCR level, K levels
-//   cg_step       cg_update     alpha = rz / (s0 + s1), guarded; x += alpha
-//                               p; r -= alpha (chain_Ap + tile_Ap)
-//                 cg_pcr_apply  one launch per level; the last applies Dinv
-//                               and writes block partials of r.z
-//                 cg_direction  beta, p = z + beta p
-//                 cg_hvp        chain_Ap = (D + U + L) p and this rank's
-//                               loop H p, each with block partials of p.()
-//                 cg_finish     one thread: rz, s0 and the s1 partial
+//   cg_step       ONE launch of cg_step_persistent on a thread-block
+//                 cluster (se2_blocks.cuh's persistent-stage routine), its
+//                 stages separated by cluster barriers:
+//                   update     alpha = rz / (s0 + s1), guarded; x += alpha
+//                              p; r -= alpha (chain_Ap + tile_Ap)
+//                   PCR apply  K levels; the last applies Dinv and writes
+//                              block partials of r.z
+//                   direction  beta, p = z + beta p
+//                   H@p        chain_Ap = (D + U + L) p and this rank's
+//                              loop H p, each with block partials of p.()
+//                   finish     CTA 0's thread 0: rz, s0 and the s1 partial
+//   cg_step_staged the same stages as K + 4 launches (cg_update, K
+//                 cg_pcr_apply, cg_direction, cg_hvp, cg_finish), bitwise
+//                 equal: the yardstick, never on the path
 //
-// so a CG pass is K + 4 launches and a GN iteration 2 + (K + 1) + (cg + 1)
-// (K + 4). The scalars rz, s0 (scal) and s1 (the last entry of the
-// all-reduced [tile_Ap; s1]) stay in device memory; every reduction is a
-// fixed shared-memory tree per block and a sum of the block partials in
-// index order, so two runs on one card are bitwise equal.
+// so a CG pass is one launch and a GN iteration 2 + (K + 1) + (cg + 1). The
+// scalars rz, s0 (scal) and s1 (the last entry of the all-reduced [tile_Ap;
+// s1]) stay in device memory; every reduction is a fixed shared-memory tree
+// per 256-row block and a sum of the block partials in index order, so two
+// runs on one card are bitwise equal.
 //
 // What bounds it: at m3500 size (N = 3500, ~1900 loop edges) a CG pass
 // touches ~2 MB, all of it in the 50 MB L2, a GN iteration is ~35 MFLOP,
-// and each launch covers 14 blocks of 256 threads: launch latency and the
-// host bound it, as they bound the fused GN kernel (csrc/gn_kernel.cu). A
-// persistent kernel or a CUDA graph of a CG pass is later work.
+// and each stage covers 14 blocks of 256 threads: stage latency and the
+// host bound it, not bytes or FLOPs. The persistent launch removes the
+// K + 3 launch gaps of a pass and K + 3 of its host launch calls.
 //
 // Numerics follow the TPU kernels and csrc/gn_kernel.cu, whose SE(2) and
 // PCR device code both files take from se2_blocks.cuh: floor-based angle
@@ -261,15 +267,19 @@ __global__ void cg_pcr_factor(CgProblem p, int k, const float* Ds, const float* 
 // K6c: one CG pass
 // ---------------------------------------------------------------------------
 
-// pHp = s0 + s1; alpha = rz / pHp where pHp > tiny, else 0; x += alpha p;
-// r -= alpha (chain_Ap + tile_Ap) (cg_step.py:119-128).
-__global__ void cg_update(CgProblem p, float* x, float* r, const float* pv, const float* cap,
-                          const float* scal, const float* big) {
+// pHp = s0 + s1; alpha = rz / pHp where pHp > tiny, else 0
+// (cg_step.py:119-128).
+__device__ __forceinline__ float step_alpha(const CgProblem& p, const float* scal,
+                                            const float* big) {
   const float pHp = scal[1] + big[3LL * p.N];
   const float rz = scal[0];
-  const float alpha = pHp > kTiny ? rz / fmaxf(pHp, kTiny) : 0.f;
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= p.N) return;
+  return pHp > kTiny ? rz / fmaxf(pHp, kTiny) : 0.f;
+}
+
+// Row n: x += alpha p; r -= alpha (chain_Ap + tile_Ap).
+__device__ __forceinline__ void update_row(int n, float alpha, float* x, float* r,
+                                           const float* pv, const float* cap,
+                                           const float* big) {
   V3 xn = ld3(x, n), rn = ld3(r, n);
   const V3 pn = ld3(pv, n), cn = ld3(cap, n), tn = ld3(big, n);
 #pragma unroll
@@ -279,6 +289,14 @@ __global__ void cg_update(CgProblem p, float* x, float* r, const float* pv, cons
   }
   st3(x, n, xn);
   st3(r, n, rn);
+}
+
+__global__ void cg_update(CgProblem p, float* x, float* r, const float* pv, const float* cap,
+                          const float* scal, const float* big) {
+  const float alpha = step_alpha(p, scal, big);
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  update_row(n, alpha, x, r, pv, cap, big);
 }
 
 // One PCR apply level (pcr_apply_row); the last level also applies Dinv and
@@ -291,61 +309,110 @@ __global__ void cg_pcr_apply(CgProblem p, int k, const float* in, float* out, in
     const V3 o = pcr_apply_row(n, p.N, k, p.A, p.G, p.Dinv, in, out, last);
     if (last) val = vdot(ld3(rdot, n), o);
   }
-  if (last) block_sum_to(val, part);
+  if (last) block_sum_to(val, part, blockIdx.x);
 }
 
-// rz_new = r.z from the partials; beta = rz_new / rz where rz > tiny, else
-// 0; p = z + beta p. rz_new goes to scal[2] (scal[0] is still being read).
-__global__ void cg_direction(CgProblem p, Ws w, float* pv, float* scal) {
-  const float rz_new = sum_partials(w.part_b, n_blocks(p.N));
+// beta = rz_new / rz where rz > tiny, else 0.
+__device__ __forceinline__ float step_beta(float rz_new, const float* scal) {
   const float rz = scal[0];
-  const float beta = rz > kTiny ? rz_new / fmaxf(rz, kTiny) : 0.f;
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (blockIdx.x == 0 && threadIdx.x == 0) scal[2] = rz_new;
-  if (n >= p.N) return;
-  const V3 z = ld3(w.z, n);
+  return rz > kTiny ? rz_new / fmaxf(rz, kTiny) : 0.f;
+}
+
+// Row n: p = z + beta p.
+__device__ __forceinline__ void direction_row(int n, float beta, const float* z, float* pv) {
+  const V3 zn = ld3(z, n);
   V3 pn = ld3(pv, n);
 #pragma unroll
-  for (int a = 0; a < 3; ++a) pn.v[a] = z.v[a] + beta * pn.v[a];
+  for (int a = 0; a < 3; ++a) pn.v[a] = zn.v[a] + beta * pn.v[a];
   st3(pv, n, pn);
 }
 
-// chain_Ap = D p + U p[n+1] + U[n-1]^T p[n-1] (replicated) and tile_Ap =
-// this rank's loop blocks times p through the CSR, into big[0:3N); block
-// partials of p.chain_Ap and p.tile_Ap (cg_step.py:139-187).
-__global__ void cg_hvp(CgProblem p, Ws w, const float* pv, float* cap, float* big) {
+// rz_new = r.z from the partials; beta; p = z + beta p. rz_new goes to
+// scal[2] (scal[0] is still being read).
+__global__ void cg_direction(CgProblem p, Ws w, float* pv, float* scal) {
+  const float rz_new = sum_partials(w.part_b, n_blocks(p.N));
+  const float beta = step_beta(rz_new, scal);
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  float s0 = 0.f, s1 = 0.f;
-  if (n < p.N) {
-    const float* U = p.payload + 9LL * p.N;
-    const V3 vn = ld3(pv, n);
-    V3 o = mvec(ld9(p.D, n), vn);
-    if (n + 1 < p.N) vadd(o, mvec(ld9(U, n), ld3(pv, n + 1)));
-    if (n >= 1) vadd(o, mTvec(ld9(U, n - 1), ld3(pv, n - 1)));
-    st3(cap, n, o);
-    s0 = vdot(vn, o);
-    V3 t = v3zero();
-    for (int q = p.csr_ptr[n]; q < p.csr_ptr[n + 1]; ++q) {
-      const int ent = p.csr_ent[q];
-      const int l = ent >> 1;
-      const M3 A = ld9(p.Aij, l);
-      if (ent & 1) vadd(t, mTvec(A, ld3(pv, p.li[l])));  // node is j: A^T p_i
-      else vadd(t, mvec(A, ld3(pv, p.lj[l])));           // node is i: A p_j
-    }
-    st3(big, n, t);
-    s1 = vdot(vn, t);
-  }
-  block_sum_to(s0, w.part_a);
-  __syncthreads();  // thread 0 reads the shared tree before the next sum reuses it
-  block_sum_to(s1, w.part_c);
+  if (blockIdx.x == 0 && threadIdx.x == 0) scal[2] = rz_new;
+  if (n >= p.N) return;
+  direction_row(n, beta, w.z, pv);
 }
 
-// One thread: scal = [rz_new, s0, ...] and big[3N] = this rank's s1.
-__global__ void cg_finish(CgProblem p, Ws w, float* scal, float* big) {
+// Row n: chain_Ap = D p + U p[n+1] + U[n-1]^T p[n-1] (replicated) and
+// tile_Ap = this rank's loop blocks times p through the CSR, into
+// big[0:3N) (cg_step.py:139-187). s0 = p.chain_Ap and s1 = p.tile_Ap of
+// the row.
+__device__ __forceinline__ void hvp_row(const CgProblem& p, int n, const float* pv, float* cap,
+                                        float* big, float& s0, float& s1) {
+  const float* U = p.payload + 9LL * p.N;
+  const V3 vn = ld3(pv, n);
+  V3 o = mvec(ld9(p.D, n), vn);
+  if (n + 1 < p.N) vadd(o, mvec(ld9(U, n), ld3(pv, n + 1)));
+  if (n >= 1) vadd(o, mTvec(ld9(U, n - 1), ld3(pv, n - 1)));
+  st3(cap, n, o);
+  s0 = vdot(vn, o);
+  V3 t = v3zero();
+  for (int q = p.csr_ptr[n]; q < p.csr_ptr[n + 1]; ++q) {
+    const int ent = p.csr_ent[q];
+    const int l = ent >> 1;
+    const M3 A = ld9(p.Aij, l);
+    if (ent & 1) vadd(t, mTvec(A, ld3(pv, p.li[l])));  // node is j: A^T p_i
+    else vadd(t, mvec(A, ld3(pv, p.lj[l])));           // node is i: A p_j
+  }
+  st3(big, n, t);
+  s1 = vdot(vn, t);
+}
+
+// H@p of block blk's rows and the block partials of p.chain_Ap (part_a) and
+// p.tile_Ap (part_c).
+__device__ __forceinline__ void hvp_block(const CgProblem& p, const Ws& w, int blk,
+                                          const float* pv, float* cap, float* big) {
+  const int n = blk * kThreads + threadIdx.x;
+  float s0 = 0.f, s1 = 0.f;
+  if (n < p.N) hvp_row(p, n, pv, cap, big, s0, s1);
+  block_sum_to(s0, w.part_a, blk);
+  __syncthreads();  // thread 0 reads the shared tree before the next sum reuses it
+  block_sum_to(s1, w.part_c, blk);
+}
+
+__global__ void cg_hvp(CgProblem p, Ws w, const float* pv, float* cap, float* big) {
+  hvp_block(p, w, blockIdx.x, pv, cap, big);
+}
+
+// scal = [rz_new, s0, ...] and big[3N] = this rank's s1.
+__device__ __forceinline__ void finish(const CgProblem& p, const Ws& w, float* scal,
+                                       float* big) {
   const int nb = n_blocks(p.N);
   scal[0] = scal[2];
   scal[1] = sum_in_order(w.part_a, nb);
   big[3LL * p.N] = sum_in_order(w.part_c, nb);
+}
+
+// One thread.
+__global__ void cg_finish(CgProblem p, Ws w, float* scal, float* big) { finish(p, w, scal, big); }
+
+// K6c in one launch on a thread-block cluster (the persistent-stage routine
+// of se2_blocks.cuh): update, the K apply levels, direction, H@p, then the
+// finish by CTA 0's thread 0 -- cg_step_staged's launches, row for row,
+// with a cluster barrier in place of each kernel boundary (K + 3 of them).
+__global__ void __launch_bounds__(kThreads, 1) cg_step_persistent(CgProblem p, Ws w, float* x,
+                                                                  float* r, float* pv,
+                                                                  float* cap, float* scal,
+                                                                  float* big) {
+  const int N = p.N;
+  const float alpha = step_alpha(p, scal, big);
+  for_rows(N, [&](int n) { update_row(n, alpha, x, r, pv, cap, big); });
+  cluster_sync();
+  pcr_apply_stages(N, p.K, p.A, p.G, p.Dinv, r, w.t[0], w.t[1], w.z, r, w.part_b);
+  const float rz_new = sum_partials(w.part_b, n_blocks(N));
+  const float beta = step_beta(rz_new, scal);
+  if (blockIdx.x == 0 && threadIdx.x == 0) scal[2] = rz_new;
+  for_rows(N, [&](int n) { direction_row(n, beta, w.z, pv); });
+  cluster_sync();
+  const int nb = n_blocks(N);
+  for (int blk = blockIdx.x; blk < nb; blk += gridDim.x) hvp_block(p, w, blk, pv, cap, big);
+  cluster_sync();
+  if (blockIdx.x == 0 && threadIdx.x == 0) finish(p, w, scal, big);
 }
 
 // ---------------------------------------------------------------------------
@@ -411,9 +478,20 @@ int cg_gn_setup(const CgProblem* pp, const float* lam) {
 
 // K6c: one CG pass on the carry (x, r, p, chain_Ap (N, 3), scal (4,), big
 // (3N+1,) the all-reduced [tile_Ap; s1]), in place; big then holds this
-// rank's new [tile_Ap; s1] partial.
+// rank's new [tile_Ap; s1] partial. One launch of the persistent kernel on
+// one thread-block cluster.
 int cg_step(const CgProblem* pp, float* x, float* r, float* pv, float* cap, float* scal,
             float* big) {
+  const CgProblem& p = *pp;
+  return (int)launch_cluster(cg_step_persistent, p.N, (cudaStream_t)p.stream, p, ws_of(p), x,
+                             r, pv, cap, scal, big);
+}
+
+// The same pass as K + 4 launches (cg_update, K cg_pcr_apply, cg_direction,
+// cg_hvp, cg_finish): the staged sequence that cg_step replaced, bitwise
+// equal to it; a yardstick for checks and timings, never on the path.
+int cg_step_staged(const CgProblem* pp, float* x, float* r, float* pv, float* cap, float* scal,
+                   float* big) {
   const CgProblem& p = *pp;
   const Ws w = ws_of(p);
   const cudaStream_t s = (cudaStream_t)p.stream;

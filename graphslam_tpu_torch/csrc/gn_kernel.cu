@@ -30,12 +30,18 @@
 //
 // K3 (gn_pcg) is the PCR factor at the exact K = ceil(log2 N) and a cold CG
 // on a D, U, b and loop blocks that the caller supplies (damped in torch
-// beforehand, as the JAX package damps in XLA); it reuses the same kernels.
+// beforehand, as the JAX package damps in XLA). It runs the same row
+// functions as K1's stages, but all of them in ONE launch: k_pcg_persistent
+// on one thread-block cluster (se2_blocks.cuh's persistent-stage routine),
+// a cluster barrier where the staged sequence has a kernel boundary. The
+// staged sequence (gn_factor, then gn_cg with warm = 0: 401 launches at
+// m3500) gives bitwise the same x and stays as K3's yardstick.
 //
 // At m3500 size the arrays are a few MB and sit in the 50 MB L2; what bounds
-// the kernel is launch latency (about 190 launches per GN iteration at K=4,
-// cg 25), not bytes or FLOPs. Folding them into a persistent kernel or a CUDA
-// graph is left to later work; this version is the simple, correct one.
+// these kernels is launch latency (about 190 launches per K1 GN iteration at
+// K=4, cg 25), not bytes or FLOPs: each stage is a few us of work over 14
+// blocks. K3 trades the launches for cluster barriers; K1 and K1-LM still
+// launch per stage (moving them to the routine is later work).
 //
 // Numerics follow the TPU kernels, not the XLA solver: floor-based angle
 // wrap, PCR ridge eps/3*|tr| + 1e-8 with the adjugate inverse (no 1e-8*I),
@@ -270,38 +276,43 @@ __global__ void k_pcr_apply(GnProblem p, Ws w, int k, const float* in, float* ou
     const V3 o = pcr_apply_row(n, p.N, k, w.A, w.G, w.DinvF, in, out, last);
     if (rdot) val = vdot(ld3(rdot, n), o);
   }
-  if (part) block_sum_to(val, part);
+  if (part) block_sum_to(val, part, blockIdx.x);
 }
 
-// out = H v (gn_kernel.py:788-824): diagonal blocks, chain U and L = U^T of
-// the previous node, then the node's loop edges in CSR order. With part,
-// adds the partial sums of v.out per block.
+// Row n of out = H v (gn_kernel.py:788-824): diagonal blocks, chain U and
+// L = U^T of the previous node, then the node's loop edges in CSR order.
+// Returns v[n].out[n], the row's term of v.Hv.
+__device__ __forceinline__ float hvp_row(const GnProblem& p, const Ws& w, const float* v,
+                                         float* out, int n) {
+  const V3 vn = ld3(v, n);
+  V3 o = mvec(ld9(p.D, n), vn);
+  if (n + 1 < p.N) vadd(o, mvec(ld9(p.U, n), ld3(v, n + 1)));
+  if (n >= 1) vadd(o, mTvec(ld9(p.U, n - 1), ld3(v, n - 1)));
+  const float* LA = p.lA ? p.lA : w.Aij + 9LL * p.c;
+  for (int q = p.csr_ptr[n]; q < p.csr_ptr[n + 1]; ++q) {
+    const int ent = p.csr_ent[q];
+    const int l = ent >> 1;
+    const M3 A = ld9(LA, l);
+    if (ent & 1) vadd(o, mTvec(A, ld3(v, p.li[l])));  // node is j: A^T v_i
+    else vadd(o, mvec(A, ld3(v, p.lj[l])));           // node is i: A v_j
+  }
+  st3(out, n, o);
+  return vdot(vn, o);
+}
+
+// out = H v; with part, adds the partial sums of v.out per block.
 __global__ void k_hvp(GnProblem p, Ws w, const float* v, float* out, float* part) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   float val = 0.f;
   if (n < p.N) {
-    const V3 vn = ld3(v, n);
-    V3 o = mvec(ld9(p.D, n), vn);
-    if (n + 1 < p.N) vadd(o, mvec(ld9(p.U, n), ld3(v, n + 1)));
-    if (n >= 1) vadd(o, mTvec(ld9(p.U, n - 1), ld3(v, n - 1)));
-    const float* LA = p.lA ? p.lA : w.Aij + 9LL * p.c;
-    for (int q = p.csr_ptr[n]; q < p.csr_ptr[n + 1]; ++q) {
-      const int ent = p.csr_ent[q];
-      const int l = ent >> 1;
-      const M3 A = ld9(LA, l);
-      if (ent & 1) vadd(o, mTvec(A, ld3(v, p.li[l])));  // node is j: A^T v_i
-      else vadd(o, mvec(A, ld3(v, p.lj[l])));           // node is i: A v_j
-    }
-    st3(out, n, o);
-    if (part) val = vdot(vn, o);
+    const float d = hvp_row(p, w, v, out, n);
+    if (part) val = d;
   }
-  if (part) block_sum_to(val, part);
+  if (part) block_sum_to(val, part, blockIdx.x);
 }
 
-// Start of CG: cold x = 0, r = b; warm r = b - H x (Ap holds H x).
-__global__ void k_cg_init(GnProblem p, Ws w, int warm) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= p.N) return;
+// Start of CG at row n: cold x = 0, r = b; warm r = b - H x (Ap holds H x).
+__device__ __forceinline__ void cg_init_row(const GnProblem& p, const Ws& w, int n, int warm) {
   V3 r = ld3(p.b, n);
   if (warm) {
     const V3 hx = ld3(w.Ap, n);
@@ -313,13 +324,23 @@ __global__ void k_cg_init(GnProblem p, Ws w, int warm) {
   st3(w.r, n, r);
 }
 
-// alpha = rz / pAp, guarded; x += alpha p; r -= alpha Ap.
-__global__ void k_cg_update(GnProblem p, Ws w, int it) {
-  const float pAp = sum_partials(w.part_a, n_blocks(p.N));
-  const float rz = w.rz[it];
-  const float alpha = pAp > kTiny ? rz / fmaxf(pAp, kTiny) : 0.f;
+__global__ void k_cg_init(GnProblem p, Ws w, int warm) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= p.N) return;
+  cg_init_row(p, w, n, warm);
+}
+
+// alpha = rz / pAp, guarded (the same in every block: the partials are
+// summed in block order).
+__device__ __forceinline__ float cg_alpha(const Ws& w, int N, int it) {
+  const float pAp = sum_partials(w.part_a, n_blocks(N));
+  const float rz = w.rz[it];
+  return pAp > kTiny ? rz / fmaxf(pAp, kTiny) : 0.f;
+}
+
+// Row n: x += alpha p; r -= alpha Ap.
+__device__ __forceinline__ void cg_update_row(const GnProblem& p, const Ws& w, int n,
+                                              float alpha) {
   V3 x = ld3(p.x, n), r = ld3(w.r, n);
   const V3 pv = ld3(w.p, n), ap = ld3(w.Ap, n);
 #pragma unroll
@@ -331,17 +352,25 @@ __global__ void k_cg_update(GnProblem p, Ws w, int it) {
   st3(w.r, n, r);
 }
 
-// rz_new from the partials; p = z (init) or z + beta p; rz[it+1] = rz_new.
-__global__ void k_cg_direction(GnProblem p, Ws w, int it, int init) {
-  const float rz_new = sum_partials(w.part_b, n_blocks(p.N));
+__global__ void k_cg_update(GnProblem p, Ws w, int it) {
+  const float alpha = cg_alpha(w, p.N, it);
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  cg_update_row(p, w, n, alpha);
+}
+
+// beta = rz_new / rz[it], guarded (0 at init).
+__device__ __forceinline__ float cg_beta(const Ws& w, float rz_new, int it, int init) {
   float beta = 0.f;
   if (!init) {
     const float rz = w.rz[it];
     beta = rz > kTiny ? rz_new / fmaxf(rz, kTiny) : 0.f;
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) w.rz[init ? 0 : it + 1] = rz_new;
-  if (n >= p.N) return;
+  return beta;
+}
+
+// Row n: p = z (init) or z + beta p.
+__device__ __forceinline__ void cg_direction_row(const Ws& w, int n, float beta, int init) {
   const V3 z = ld3(w.z, n);
   if (init) {
     st3(w.p, n, z);
@@ -351,6 +380,48 @@ __global__ void k_cg_direction(GnProblem p, Ws w, int it, int init) {
 #pragma unroll
   for (int a = 0; a < 3; ++a) pv.v[a] = z.v[a] + beta * pv.v[a];
   st3(w.p, n, pv);
+}
+
+// rz_new from the partials; p = z (init) or z + beta p; rz[it+1] = rz_new.
+__global__ void k_cg_direction(GnProblem p, Ws w, int it, int init) {
+  const float rz_new = sum_partials(w.part_b, n_blocks(p.N));
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const float beta = cg_beta(w, rz_new, it, init);
+  if (blockIdx.x == 0 && threadIdx.x == 0) w.rz[init ? 0 : it + 1] = rz_new;
+  if (n >= p.N) return;
+  cg_direction_row(w, n, beta, init);
+}
+
+// K3 in one launch on a thread-block cluster (the persistent-stage routine
+// of se2_blocks.cuh): the K PCR factor levels, the cold CG init, the first
+// K apply levels and direction, then cg_iters x (H@p, update, K apply
+// levels, direction) -- the launches of run_factor and run_cg(warm = 0),
+// row for row, with a cluster barrier in place of each kernel boundary:
+// 2K + 2 + cg_iters (K + 3) stages, 401 at m3500 (K = 12, cg 25).
+__global__ void __launch_bounds__(kThreads, 1) k_pcg_persistent(GnProblem p, Ws w,
+                                                                 int cg_iters) {
+  const int N = p.N, K = p.K;
+  pcr_factor_stages(N, K, p.eps, p.D, p.U, w.PD[0], w.PD[1], w.PU[0], w.PU[1], w.PL[0],
+                    w.PL[1], w.A, w.G, w.DinvF);
+  for_rows(N, [&](int n) { cg_init_row(p, w, n, 0); });
+  cluster_sync();
+  pcr_apply_stages(N, K, w.A, w.G, w.DinvF, w.r, w.t[0], w.t[1], w.z, w.r, w.part_b);
+  float rz_new = sum_partials(w.part_b, n_blocks(N));
+  if (blockIdx.x == 0 && threadIdx.x == 0) w.rz[0] = rz_new;
+  for_rows(N, [&](int n) { cg_direction_row(w, n, 0.f, 1); });
+  for (int it = 0; it < cg_iters; ++it) {
+    cluster_sync();
+    for_rows_sum(N, w.part_a, [&](int n) { return hvp_row(p, w, w.p, w.Ap, n); });
+    cluster_sync();
+    const float alpha = cg_alpha(w, N, it);
+    for_rows(N, [&](int n) { cg_update_row(p, w, n, alpha); });
+    cluster_sync();
+    pcr_apply_stages(N, K, w.A, w.G, w.DinvF, w.r, w.t[0], w.t[1], w.z, w.r, w.part_b);
+    rz_new = sum_partials(w.part_b, n_blocks(N));
+    const float beta = cg_beta(w, rz_new, it, 0);
+    if (blockIdx.x == 0 && threadIdx.x == 0) w.rz[it + 1] = rz_new;
+    for_rows(N, [&](int n) { cg_direction_row(w, n, beta, 0); });
+  }
 }
 
 // out = poses * Exp(x); out may be poses itself (each thread owns its node).
@@ -385,7 +456,7 @@ __global__ void k_chi2(GnProblem p, Ws w, const float* poses) {
     const V3 rp = mvec(ld9(p.pR, n), se2_log(se2_between(ld3(p.pz, n), ld3(poses, n))));
     e = vdot(rp, rp);
   }
-  block_sum_to(e, w.part_e);
+  block_sum_to(e, w.part_e, blockIdx.x);
 }
 
 __device__ __forceinline__ float cost_total(const GnProblem& p, const Ws& w) {
@@ -570,14 +641,15 @@ int gn_chi2(const GnProblem* pp, const float* poses, float* out) {
 }
 
 // K3: exact-K PCR factor and a cold CG of cg_iters on the caller's D, U, b
-// and loop blocks p->lA; the solution lands in p->x.
+// and loop blocks p->lA; the solution lands in p->x. One launch of the
+// persistent kernel on one thread-block cluster; gn_factor then
+// gn_cg(cg_iters, 0) on the same problem is the same computation as a
+// staged sequence of 2K + 2 + cg_iters (K + 3) launches, bitwise equal.
 int gn_pcg(const GnProblem* pp, int cg_iters) {
   const GnProblem& p = *pp;
-  if (cg_iters > p.cg_max) return (int)cudaErrorInvalidValue;
-  const Ws w = ws_of(p);
-  const cudaStream_t s = (cudaStream_t)p.stream;
-  GN_TRY(run_factor(p, w, s));
-  return run_cg(p, w, cg_iters, 0, s);
+  if (cg_iters < 0 || cg_iters > p.cg_max) return (int)cudaErrorInvalidValue;
+  return (int)launch_cluster(k_pcg_persistent, p.N, (cudaStream_t)p.stream, p, ws_of(p),
+                             cg_iters);
 }
 
 // K1's LM mode (gn_kernel.py:911-946): `iterations` damped steps, each a

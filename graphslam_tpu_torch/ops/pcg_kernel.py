@@ -10,10 +10,13 @@ products.
 _lm_loop) replaces the Pallas kernel pcg_kernel.py::_kernel: exact PCR
 (K = ceil(log2 N)) with the fused GN kernel's ridge and adjugate inverse,
 then a fixed count of guarded CG iterations on an assembled SE(2)
-BlockSystem. For CUDA tensors it runs `gn_pcg` of csrc/gn_kernel.cu, the
-same PCR and CG launches as the fused GN kernel (ops/gn_kernel.py) on a D
-damped here in torch, as the JAX package damps in XLA; for CPU tensors its
-plain twin `fused_pcg_solve_reference`. Loop edges whose block is all zero
+BlockSystem. For CUDA tensors it runs `gn_pcg` of csrc/gn_kernel.cu on a D
+damped here in torch, as the JAX package damps in XLA: the fused GN
+kernel's PCR and CG stages (ops/gn_kernel.py), all of them in ONE launch of
+a persistent kernel on a thread-block cluster, with a cluster barrier where
+the staged sequence (`gn_factor` then `gn_cg`, 401 launches at m3500) has a
+kernel boundary, and bitwise equal to it. For CPU tensors it runs its plain
+twin `fused_pcg_solve_reference`. Loop edges whose block is all zero
 (masked slots of the online graph) add exactly zero to H@v and are left out
 of the kernel's CSR.
 """
@@ -178,10 +181,12 @@ class PcgKernel:
     buffers: exact-K PCR of the chain system (D (N,T,T) damped, U (N,T,T)),
     then max_iters cold guarded CG iterations with the loop blocks A
     (El,T,T) of edges (li, lj), on b (N,T). `solve` launches it and returns
-    x (N,T). No host read: the edge ids are checked on the device
-    (`torch._assert_async`). Raises for tensors not on a CUDA device.
-    T = 3 here; ops/pcg6_kernel.py::Pcg6Kernel is K5 at T = 6, the same
-    launches in csrc/gn6_kernel.cu."""
+    x (N,T); `staged` runs the same solve as the fused GN kernel's factor
+    and CG entries, one launch per stage (K3's yardstick). No host read:
+    the edge ids are checked on the device (`torch._assert_async`). Raises
+    for tensors not on a CUDA device. T = 3 here;
+    ops/pcg6_kernel.py::Pcg6Kernel is K5 at T = 6, the staged launches in
+    csrc/gn6_kernel.cu."""
 
     @staticmethod
     def fused():
@@ -227,4 +232,11 @@ class PcgKernel:
 
     def solve(self) -> torch.Tensor:
         self.gk.call(self.lib, self.prob, self.device, self.fn, self.max_iters)
+        return self.x
+
+    def staged(self) -> torch.Tensor:
+        """The same solve through the `factor` and cold `cg` entries."""
+        prefix = self.fn.rsplit("_", 1)[0]
+        self.gk.call(self.lib, self.prob, self.device, f"{prefix}_factor")
+        self.gk.call(self.lib, self.prob, self.device, f"{prefix}_cg", self.max_iters, 0)
         return self.x

@@ -22,7 +22,11 @@ iteration of parallel/dist_fused.py's kernel path:
 
 The CUDA source is csrc/cg_step.cu (plain C interface, built with nvcc by
 ops/_build.py, called through ctypes); its SE(2) and PCR device code is the
-fused GN kernel's, shared through csrc/se2_blocks.cuh. The TPU layout
+fused GN kernel's, shared through csrc/se2_blocks.cuh. K6c is one launch of
+a persistent kernel on a thread-block cluster (a cluster barrier where the
+staged sequence `cg_step_staged`, K + 4 launches, has a kernel boundary,
+bitwise equal to it), called on the carry that `CgStepKernel.cg_state`
+allocated and checked once a solve. The TPU layout
 (sublane-packed (8, L) planes, the tall (3Q, 128) layout, one-hot MXU
 gathers, hi/lo bf16 splits, 1024-node padding, edge tiles) is not carried
 over: tensors are node-major (N, 3) and (N, 3, 3), loop edges gathered by
@@ -140,6 +144,15 @@ def cg_state(b: torch.Tensor) -> CgState:
     return CgState(x=z, r=b.clone(), p=torch.zeros_like(b), cap=torch.zeros_like(b),
                    scal=torch.zeros(4, dtype=b.dtype, device=b.device),
                    big=torch.zeros(b.numel() + 1, dtype=b.dtype, device=b.device))
+
+
+def new_carry(sh: Shard, b: torch.Tensor) -> CgState:
+    """The zero carry of a solve: `cg_state` for CPU tensors, the rank's
+    kernel's own (checked once, then passed by recorded pointers) for CUDA
+    tensors."""
+    if b.device.type == "cpu":
+        return cg_state(b)
+    return sh.kernel().cg_state(b)
 
 
 def payload_size(N: int, T: int = 3) -> int:
@@ -295,9 +308,11 @@ def _lib(name: str = "cg_step", prefix: str = "cg") -> ctypes.CDLL:
     lib = _build.load(name)
     P = ctypes.POINTER(_Problem)
     vp = ctypes.c_void_p
-    for fn, args in (("stage_a", [P]), ("gn_setup", [P, vp]), ("step", [P] + [vp] * 6)):
-        getattr(lib, f"{prefix}_{fn}").argtypes = args
-        getattr(lib, f"{prefix}_{fn}").restype = ctypes.c_int
+    for fn, args in (("stage_a", [P]), ("gn_setup", [P, vp]), ("step", [P] + [vp] * 6),
+                     ("step_staged", [P] + [vp] * 6)):
+        if hasattr(lib, f"{prefix}_{fn}"):  # cg6 has no persistent step, so no staged one
+            getattr(lib, f"{prefix}_{fn}").argtypes = args
+            getattr(lib, f"{prefix}_{fn}").restype = ctypes.c_int
     for fn, args, res in (("ws_floats", [ctypes.c_int] * 4, ctypes.c_longlong),
                           ("problem_size", [], ctypes.c_int),
                           ("error_string", [ctypes.c_int], ctypes.c_char_p)):
@@ -314,8 +329,9 @@ def _lib(name: str = "cg_step", prefix: str = "cg") -> ctypes.CDLL:
 class CgStepKernel:
     """One rank's Shard on the card with K6's buffers: the payload (21N,),
     the Aij stash (El,3,3) and the Setup tensors, each written in place by
-    the launch that produces it. CgStep6Kernel (parallel/cg_step6.py) is
-    the same over SE(3) poses (P = 12 entries) and 6x6 blocks."""
+    the launch that produces it, and the CG carry of the current solve
+    (`cg_state`). CgStep6Kernel (parallel/cg_step6.py) is the same over
+    SE(3) poses (P = 12 entries) and 6x6 blocks."""
 
     T, P, NAME, PREFIX = 3, 3, "cg_step", "cg"
 
@@ -352,6 +368,9 @@ class CgStepKernel:
                 self.ws)),
             None, N, c, El, K, gk._EPS, sh.huber_delta, sh.w_chain,
         )
+        self.carry: Optional[CgState] = None
+        self._step = self._fn("step")
+        self._step_args: tuple = ()
 
     def _fn(self, fn: str):
         return getattr(self.lib, f"{self.PREFIX}_{fn}")
@@ -382,17 +401,37 @@ class CgStepKernel:
         self._call("gn_setup", lam.data_ptr())
         return self.setup
 
-    def cg_step(self, Aij: torch.Tensor, cs: CgState) -> None:
-        N, T = self.sh.N, self.T
+    def cg_state(self, b: torch.Tensor) -> CgState:
+        """A new zero carry with r = b (N,T), checked once here: the
+        kernel's carry until the next cg_state, which cg_step then takes by
+        the pointers recorded now."""
+        gk._check_f32("b", b, (self.sh.N, self.T), self.device)
+        carry = cg_state(b.contiguous())
+        self.carry = carry
+        self._step_args = (ctypes.byref(self.prob),) + tuple(t.data_ptr() for t in carry)
+        return carry
+
+    def _own(self, fn: str, Aij: torch.Tensor, cs: CgState) -> None:
         if Aij.data_ptr() != self.Aij.data_ptr():
-            raise ValueError("cg_step takes the Aij stash of this kernel's own stage_a")
-        for name, t, shape in (("x", cs.x, (N, T)), ("r", cs.r, (N, T)), ("p", cs.p, (N, T)),
-                               ("cap", cs.cap, (N, T)), ("scal", cs.scal, (4,)),
-                               ("big", cs.big, (T * N + 1,))):
-            gk._check_f32(name, t, shape, self.device)
-            if not t.is_contiguous():
-                raise ValueError(f"{name} is not contiguous")
-        self._call("step", *(t.data_ptr() for t in cs))
+            raise ValueError(f"{fn} takes the Aij stash of this kernel's own stage_a")
+        if cs is not self.carry:
+            raise ValueError(f"{fn} takes the carry of this kernel's latest cg_state")
+
+    def cg_step(self, Aij: torch.Tensor, cs: CgState) -> None:
+        """One CG pass (K6c) on the carry, in place: one ctypes call of the
+        persistent kernel on the pointers cg_state recorded."""
+        self._own("cg_step", Aij, cs)
+        self.prob.stream = torch.cuda.current_stream(self.device).cuda_stream
+        rc = self._step(*self._step_args)
+        if rc != 0:
+            raise RuntimeError(f"{self.PREFIX}_step failed: CUDA error {rc} "
+                               f"({self._fn('error_string')(rc).decode()})")
+
+    def cg_step_staged(self, Aij: torch.Tensor, cs: CgState) -> None:
+        """The same pass as the staged sequence (`cg_step_staged`, K + 4
+        launches): the yardstick of checks and timings, never on the path."""
+        self._own("cg_step_staged", Aij, cs)
+        self._call("step_staged", *self._step_args[1:])
 
 
 def stage_a(sh: Shard, poses: torch.Tensor):

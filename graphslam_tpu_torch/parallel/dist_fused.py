@@ -125,11 +125,12 @@ def solve_dx_kernels(poses, lam, sh: cs.Shard, mesh: Mesh, cg_iters: int, stage_
                      cg_step):
     """The kernel path's inner solve (dist_fused.py:364-423): stage_a (K6a,
     or K7a from parallel/dist_fused6.py), one all-reduce, gn_setup, then
-    cg_iters + 1 passes of cg_step, each followed by one all-reduce."""
+    cg_iters + 1 passes of cg_step, each followed by one all-reduce. The
+    carry is made and checked once (`cg_step.new_carry`)."""
     payload, Aij = stage_a(sh, poses)
     mesh.all_reduce(payload)
     st = gn_setup(sh, payload, poses, lam)
-    carry = cs.cg_state(st.b)
+    carry = cs.new_carry(sh, st.b)
     for _ in range(cg_iters + 1):
         cg_step(sh, st, Aij, carry)
         mesh.all_reduce(carry.big)

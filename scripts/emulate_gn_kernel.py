@@ -5,16 +5,23 @@ Usage:  python scripts/emulate_gn_kernel.py [--poses N]
         python scripts/emulate_gn_kernel.py --se3 [--rings R --per-ring P]
         python scripts/emulate_gn_kernel.py --dist [--poses N]
         python scripts/emulate_gn_kernel.py --dist6 [--rings R --per-ring P]
+        python scripts/emulate_gn_kernel.py --persistent [--poses N] [--max-cluster C]
+        python scripts/emulate_gn_kernel.py --vs-tree DIR [--poses N]
+        (each takes --build-dir DIR; default graphslam_tpu_torch/build/emu/)
 
 Rewrites every `k<<<grid, block, 0, s>>>(` launch of the CUDA source into a
 call of a C++ emulation (blocks in turn, the threads of a block as
-std::threads meeting at a std::barrier for __syncthreads), compiles it with
-g++ into graphslam_tpu_torch/build/emu/, loads it in place of the nvcc
-build and drives the port's own wrappers on CPU tensors, each against its
-plain torch twin:
+std::threads meeting at a std::barrier for __syncthreads) and every
+`__shared__` declaration into one copy per CTA, compiles it with g++
+against the emulation header below (kept here; it also maps
+cudaLaunchKernelEx with a cluster dimension onto a launch of every thread
+of every CTA at once, cluster.sync() onto a std::barrier over all of them),
+loads it in place of the nvcc build and drives the port's own wrappers on
+CPU tensors, each against its plain torch twin:
 
   default  gn_kernel.cu: K1's GN and LM modes (GnKernel) and K3
-           (PcgKernel) on manhattan(N); a minute or two at N = 260
+           (PcgKernel) on manhattan(N), and K3 bitwise against its staged
+           sequence (as --persistent); under a minute at N = 260
   --se3    gn6_kernel.cu: K4's stages (Gn6Kernel: assembly, PCR apply, CG),
            its GN mode plain, chain-only, masked and warm, its LM mode and
            cost pass, and K5 (Pcg6Kernel) on sphere(R, P); a few minutes at
@@ -24,15 +31,30 @@ plain torch twin:
            weighted 1 on rank 0 and 0 on rank 1; without and with Huber;
            the all-reduces summed here), K6c after 1 and 26 passes,
            and the kernel path of dist_fused_gn_solve / dist_fused_lm_solve
-           on a one-rank gloo mesh against the plain path
+           on a one-rank gloo mesh against the plain path; K6c bitwise
+           against cg_step_staged (as --persistent)
   --dist6  cg_step6.cu: the same for K7a, K7b and K7c (CgStep6Kernel) on
            two ranks' shards of sphere(R, P) at exact PCR, and the kernel
            path of dist_fused6_gn_solve / dist_fused6_lm_solve; about a
            minute at sphere(6, 8)
+  --persistent  gn_kernel.cu and cg_step.cu: K3 and K6c, each one cluster
+           launch of a persistent kernel, against their staged sequences
+           (gn_factor + gn_cg; cg_step_staged) with torch.equal: K3 at lam 0
+           and 1e-3, masked and chain-only, K6c on two ranks without and
+           with Huber after 1 and 26 passes. --max-cluster C caps the
+           cluster at C CTAs, so that at N > 256 C a CTA walks several row
+           blocks; --unplaceable makes the occupancy query place no
+           cluster and checks that K3 and K6c raise while their staged
+           sequences still run (tests/test_torch_persistent_emu.py runs
+           all three)
+  --vs-tree DIR  gn_kernel.cu and cg_step.cu of this checkout against those
+           of the checkout DIR (e.g. `git archive` of the parent commit):
+           K1's GN and LM outputs, K3 and K6a-c held to torch.equal; the
+           check of an edit to a shared header or of a new launch shape
 
-Prints one JSON line of max errors (poses wrapped or over the 12 entries,
+Prints one JSON line: max errors (poses wrapped or over the 12 entries,
 stages and K3/K5 relative to the largest entry) and the LM stats of kernel
-and twin. Slow: a thread per emulated CUDA thread.
+and twin, or the bitwise verdicts. Slow: a thread per emulated CUDA thread.
 """
 
 import argparse
@@ -52,51 +74,212 @@ import torch  # noqa: E402
 
 HEADER = r"""#pragma once
 #include <cmath>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
-#include <thread>
+#include <functional>
+#include <memory>
 #include <vector>
-#include <barrier>
+#include <ucontext.h>
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static
-struct dim3 { unsigned x = 1, y = 1, z = 1; };
-inline thread_local dim3 threadIdx, blockIdx, blockDim;
-inline thread_local std::barrier<>* emu_bar = nullptr;
-inline void __syncthreads() { emu_bar->arrive_and_wait(); }
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+  dim3() = default;
+  dim3(unsigned a, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+// Every emulated CUDA thread of a launch is a fiber (ucontext) on the
+// calling thread; a barrier switches to the scheduler, which resumes the
+// fibers in turn and aborts when none can move (a barrier some thread never
+// reaches).
+struct EmuBarrier { unsigned expected = 0, count = 0; unsigned long gen = 0; };
+struct EmuFiber {
+  ucontext_t ctx;
+  std::unique_ptr<char[]> stack;
+  unsigned index = 0;
+  EmuBarrier* wait = nullptr;
+  unsigned long wait_gen = 0;
+  bool done = false;
+};
+constexpr size_t kEmuStack = 256 * 1024;
+inline thread_local ucontext_t emu_sched;
+inline thread_local EmuFiber* emu_cur = nullptr;
+inline thread_local EmuBarrier* emu_bar = nullptr;      // the CTA's
+inline thread_local EmuBarrier* emu_cluster = nullptr;  // the cluster's
+inline thread_local const std::function<void(unsigned)>* emu_job = nullptr;
+inline void emu_arrive(EmuBarrier* b) {
+  if (++b->count == b->expected) {  // the last to arrive releases the rest
+    b->count = 0;
+    ++b->gen;
+    return;
+  }
+  emu_cur->wait = b;
+  emu_cur->wait_gen = b->gen;
+  swapcontext(&emu_cur->ctx, &emu_sched);
+}
+inline void __syncthreads() { emu_arrive(emu_bar); }
+inline void emu_entry() {
+  EmuFiber* f = emu_cur;
+  (*emu_job)(f->index);
+  f->done = true;
+}
+// job(i) for i in [0, n), each on its own fiber; enter(i) sets fiber i's
+// thread and block indices and barriers before each time it runs.
+inline void emu_run(unsigned n, const std::function<void(unsigned)>& job,
+                    const std::function<void(unsigned)>& enter) {
+  static thread_local std::vector<std::unique_ptr<EmuFiber>> fibers;
+  while (fibers.size() < n) {
+    fibers.push_back(std::make_unique<EmuFiber>());
+    fibers.back()->stack.reset(new char[kEmuStack]);
+  }
+  emu_job = &job;
+  for (unsigned i = 0; i < n; ++i) {
+    EmuFiber& f = *fibers[i];
+    f.index = i;
+    f.wait = nullptr;
+    f.done = false;
+    getcontext(&f.ctx);
+    f.ctx.uc_stack.ss_sp = f.stack.get();
+    f.ctx.uc_stack.ss_size = kEmuStack;
+    f.ctx.uc_link = &emu_sched;
+    makecontext(&f.ctx, emu_entry, 0);
+  }
+  for (;;) {
+    bool all_done = true, moved = false;
+    for (unsigned i = 0; i < n; ++i) {
+      EmuFiber& f = *fibers[i];
+      if (f.done) continue;
+      all_done = false;
+      if (f.wait && f.wait->gen == f.wait_gen) continue;  // still held
+      f.wait = nullptr;
+      enter(i);
+      emu_cur = &f;
+      swapcontext(&emu_sched, &f.ctx);
+      moved = true;
+    }
+    if (all_done) return;
+    if (!moved) {
+      std::fprintf(stderr, "emulation: deadlock, a barrier that not every thread reaches\n");
+      std::abort();
+    }
+  }
+}
+// __shared__ variables, one copy per CTA (build() rewrites each declaration)
+template <typename T> struct EmuShared {
+  T v[64];
+  T& get() { return v[blockIdx.x % 64]; }
+};
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+                   cudaErrorLaunchOutOfResources = 7 };
+enum cudaFuncAttribute { cudaFuncAttributeNonPortableClusterSizeAllowed = 9 };
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  struct { struct { unsigned x, y, z; } clusterDim; } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emu"; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   std::memset(p, v, n); return cudaSuccess; }
+template <typename T> cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) {
+  return cudaSuccess; }
+#ifndef EMU_ACTIVE_CLUSTERS
+#define EMU_ACTIVE_CLUSTERS 1
+#endif
+template <typename T>
+cudaError_t cudaOccupancyMaxActiveClusters(int* n, T*, const cudaLaunchConfig_t*) {
+  *n = EMU_ACTIVE_CLUSTERS; return cudaSuccess; }
+// A staged launch: blocks in turn, the threads of a block at once.
 template <typename K, typename... A>
 void emu_launch(int grid, int block, K kernel, A... args) {
+  EmuBarrier bar;
+  bar.expected = block;
   for (int b = 0; b < grid; ++b) {
-    std::barrier<> bar(block);
-    std::vector<std::thread> ts;
-    for (int t = 0; t < block; ++t)
-      ts.emplace_back([&, t] { threadIdx.x = t; blockIdx.x = b;
-                               blockDim.x = block; emu_bar = &bar; kernel(args...); });
-    for (auto& th : ts) th.join();
+    emu_run(block, [&](unsigned) { kernel(args...); }, [&](unsigned t) {
+      threadIdx.x = t; blockIdx.x = b; blockDim.x = block; gridDim.x = grid;
+      emu_bar = &bar; });
   }
+}
+// A cluster launch (the grid is one cluster): every thread of every CTA at
+// once; cluster.sync() is a barrier over all of them, __syncthreads one per
+// CTA.
+template <typename... P, typename... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(P...),
+                               A&&... args) {
+  const unsigned grid = cfg->gridDim.x, block = cfg->blockDim.x;
+  EmuBarrier cluster;
+  cluster.expected = grid * block;
+  std::vector<EmuBarrier> ctas(grid);
+  for (auto& c : ctas) c.expected = block;
+  emu_run(grid * block, [&](unsigned) { kernel(args...); }, [&](unsigned i) {
+    threadIdx.x = i % block; blockIdx.x = i / block; blockDim.x = block; gridDim.x = grid;
+    emu_bar = &ctas[i / block]; emu_cluster = &cluster; });
+  return cudaSuccess;
 }
 """
 
+COOPERATIVE_GROUPS = r"""#pragma once
+#include "cuda_runtime.h"
+namespace cooperative_groups {
+struct cluster_group {
+  void sync() const { emu_arrive(emu_cluster); }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
+"""
 
-def build(name: str = "gn_kernel") -> Path:
-    out = ROOT / "graphslam_tpu_torch" / "build" / "emu"
+_LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),\s*0,\s*s>>>\(")
+_SHARED = re.compile(r"__shared__\s+([\w:<> ]+?)\s+(\w+)((?:\[[^\]]+\])*)\s*;")
+
+
+def emulated(code: str) -> str:
+    """CUDA source -> C++ for the emulation header: each staged launch
+    `k<<<grid, block, 0, s>>>(` becomes `emu_launch(grid, block, k, ` and each
+    `__shared__ T name[...];` a per-CTA copy."""
+    code = _LAUNCH.sub(r"emu_launch(\2, \3, \1, ", code)
+    return _SHARED.sub(r"static EmuShared<\1\3> \2_emu_; auto& \2 = \2_emu_.get();", code)
+
+
+def build(name: str = "gn_kernel", out: Path = None, src_root: Path = ROOT,
+          max_cluster: int = 0, start: bool = False, unplaceable: bool = False):
+    """g++-build csrc/<name>.cu of the checkout src_root under the emulation
+    into out (default graphslam_tpu_torch/build/emu/); its csrc/ headers are
+    rewritten beside it. max_cluster > 0 caps the persistent kernels' CTAs
+    (SE2_MAX_CLUSTER) so that a CTA walks several blocks at small N;
+    unplaceable makes the occupancy query place no cluster. Returns the
+    library's path, or (path, the running g++) with start."""
+    out = Path(out or ROOT / "graphslam_tpu_torch" / "build" / "emu")
     out.mkdir(parents=True, exist_ok=True)
     (out / "cuda_runtime.h").write_text(HEADER)
-    src = (ROOT / "graphslam_tpu_torch" / "csrc" / f"{name}.cu").read_text()
-    src = re.sub(r"(\w+)<<<([^,]+),\s*([^,]+),\s*0,\s*s>>>\(", r"emu_launch(\2, \3, \1, ", src)
-    (out / f"{name}_emu.cpp").write_text(src)
+    (out / "cooperative_groups.h").write_text(COOPERATIVE_GROUPS)
+    csrc = Path(src_root) / "graphslam_tpu_torch" / "csrc"
+    for hdr in csrc.glob("*.cuh"):
+        (out / hdr.name).write_text(emulated(hdr.read_text()))
+    (out / f"{name}_emu.cpp").write_text(emulated((csrc / f"{name}.cu").read_text()))
     lib = out / f"lib{name}_emu.so"
-    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{out}",
-                    f"-I{ROOT / 'graphslam_tpu_torch' / 'csrc'}", "-o", str(lib),
-                    str(out / f"{name}_emu.cpp")], check=True)
+    cmd = ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{out}", "-o", str(lib),
+           str(out / f"{name}_emu.cpp")]
+    if max_cluster:
+        cmd.insert(1, f"-DSE2_MAX_CLUSTER={max_cluster}")
+    if unplaceable:
+        cmd.insert(1, "-DEMU_ACTIVE_CLUSTERS=0")
+    if start:
+        return lib, subprocess.Popen(cmd)
+    subprocess.run(cmd, check=True)
     return lib
 
 
@@ -178,7 +361,7 @@ def kernel_checks(out, make_shard, Kernel, twins, pk, K, p0):
         sts = [k.gn_setup(reduced.clone(), p0, lam) for k in kerns]
         srs = [setup_ref(sh, reduced_r, p0, lam) for sh in shs]
         out[f"setup_{label}"] = max(rel(a, b) for a, b in zip(sts[0], srs[0]))
-        cks = [cg_state(srs[0].b) for _ in kerns]
+        cks = [k.cg_state(srs[0].b) for k in kerns]
         crs = [cg_state(srs[0].b) for _ in kerns]
         for it in range(26):
             for k, ck in zip(kerns, cks):
@@ -213,6 +396,7 @@ def main_dist(n: int) -> None:
     out = {"poses": n, "loop_edges": pk.El}
     kernel_checks(out, cs.make_shard, cs.CgStepKernel,
                   (cs.stage_a_reference, cs.gn_setup_reference, cs.cg_step_reference), pk, 4, p0)
+    k6c_persistent_checks(out, cs, pk, p0, 4)
     mesh = make_mesh(device="cpu")
     cfg = SolverConfig(cg_max_iterations=25, pcr_levels=4)
     kern_out = df.dist_fused_gn_solve(p0, g, mesh, cfg, iterations=3, cg_kernel=True)
@@ -262,6 +446,182 @@ def main_dist6(rings: int, per_ring: int) -> None:
     out["lm_vs_plain"] = float((a - b).abs().max())
     out["lm_stats"] = [[float(t) for t in sa], [float(t) for t in sb]]
     out["launches"] = [cs6.stage_a6.launches, cs6.gn_setup6.launches, cs6.cg_step6.launches]
+    print(json.dumps(out))
+
+
+def k3_persistent_checks(out, pk, g, p0):
+    """K3 (PcgKernel.solve, one cluster launch) against the staged
+    gn_factor + gn_cg on the same problem, bitwise, and two calls bitwise:
+    at lam 0 and 1e-3, with masked loop slots clipped onto node 0, and on
+    the chain alone."""
+    from graphslam_tpu_torch.factors.linearize import linearize
+    from graphslam_tpu_torch.solver import normal_eq as ne
+
+    n, c, E = p0.shape[0], g.chain_prefix, g.num_edges
+    mask, edges = g.edge_mask.clone(), g.edges.clone()
+    mask[c::2] = False
+    edges[c::2] = 0  # masked slots clipped onto node 0, as in the online graph
+    for name, graph, lam in (("k3", g, 0.0), ("k3_lam1e-3", g, 1e-3),
+                             ("k3_masked", g.replace(edge_mask=mask, edges=edges), 0.0),
+                             ("k3_chain", g.replace(edge_mask=g.edge_mask & (torch.arange(E) < c)),
+                              0.0)):
+        sysm = ne.build_blocks(linearize(p0, graph), graph, n)
+        kern = pk.PcgKernel(*pk._chain_and_loops(sysm, torch.tensor(lam), True, c), 25)
+        a = kern.solve().clone()
+        b = kern.staged().clone()
+        again = kern.solve().clone()
+        out[f"{name}_bitwise"] = bool(torch.equal(a, b) and torch.equal(a, again))
+        out[f"{name}_finite"] = bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0
+
+
+def k6c_persistent_checks(out, cs, pk, p0, K):
+    """K6c (cg_step, one cluster launch) against cg_step_staged on two ranks'
+    shards of the packed graph pk (half the loop edges each, the chain on
+    rank 0, the all-reduces summed here), without and with Huber: the whole
+    carry bitwise after 1 and 26 passes."""
+    half = pk.El // 2
+    lam = torch.tensor([1e-3])
+    for label, huber in (("plain", -1.0), ("huber", 1.0)):
+        runs = []
+        for staged in (False, True):
+            shs = [cs.make_shard(pk, 0, half, K, 1.0, huber),
+                   cs.make_shard(pk, half, pk.El, K, 0.0, huber)]
+            kerns = [cs.CgStepKernel(sh) for sh in shs]
+            pays = [k.stage_a(p0)[0].clone() for k in kerns]
+            sts = [k.gn_setup(pays[0] + pays[1], p0, lam) for k in kerns]
+            carries = [k.cg_state(sts[0].b) for k in kerns]
+            snaps = []
+            for it in range(26):
+                for k, c in zip(kerns, carries):
+                    (k.cg_step_staged if staged else k.cg_step)(k.Aij, c)
+                big = carries[0].big + carries[1].big
+                for c in carries:
+                    c.big.copy_(big)
+                if it in (0, 25):
+                    snaps.append([t.clone() for t in carries[0]])
+            runs.append(snaps)
+        out[f"k6c_{label}_bitwise"] = all(
+            torch.equal(a, b) for sa, sb in zip(*runs) for a, b in zip(sa, sb))
+        out[f"k6c_{label}_finite"] = bool(torch.isfinite(runs[0][1][0]).all())
+
+
+def refusal_checks(out, pk, cs, g, p0):
+    """Where the card cannot place the cluster, K3 and K6c raise; the staged
+    sequences still run (nothing falls back to them)."""
+    from graphslam_tpu_torch.factors.linearize import linearize
+    from graphslam_tpu_torch.ops import gn_kernel as gk
+    from graphslam_tpu_torch.solver import normal_eq as ne
+
+    n = p0.shape[0]
+    sysm = ne.build_blocks(linearize(p0, g), g, n)
+    kern = pk.PcgKernel(*pk._chain_and_loops(sysm, torch.tensor(0.0), True, g.chain_prefix), 25)
+    for name, fn in (("k3", kern.solve), ("k3_staged", kern.staged)):
+        try:
+            fn()
+            out[f"{name}_raised"] = None
+        except RuntimeError as e:
+            out[f"{name}_raised"] = str(e)
+    pack = gk.pack_graph(g, n)
+    k6 = cs.CgStepKernel(cs.make_shard(pack, 0, pack.El, 4, 1.0, -1.0))
+    pay, Aij = k6.stage_a(p0)
+    carry = k6.cg_state(k6.gn_setup(pay, p0, torch.zeros(1)).b)
+    for name, fn in (("k6c", k6.cg_step), ("k6c_staged", k6.cg_step_staged)):
+        try:
+            fn(Aij, carry)
+            out[f"{name}_raised"] = None
+        except RuntimeError as e:
+            out[f"{name}_raised"] = str(e)
+
+
+def main_persistent(n: int, build_dir, max_cluster: int, unplaceable: bool = False) -> None:
+    """K3 and K6c, each one launch of a persistent kernel on a cluster,
+    against their staged sequences on manhattan(n), bitwise; gn_kernel.cu
+    and cg_step.cu built at once. With unplaceable, the occupancy query
+    places no cluster, and K3 and K6c must raise instead."""
+    gl, gproc = build("gn_kernel", build_dir, max_cluster=max_cluster, start=True,
+                      unplaceable=unplaceable)
+    cl, cproc = build("cg_step", build_dir, max_cluster=max_cluster, start=True,
+                      unplaceable=unplaceable)
+    if gproc.wait() or cproc.wait():
+        raise SystemExit("g++ failed")
+    _, pk = load_ops({"gn_kernel": gl})
+    cs, _, _, _ = load_cg_step({"cg_step": cl})
+    from graphslam_tpu_torch.factors import from_dataset
+    from graphslam_tpu_torch.io import datasets
+    from graphslam_tpu_torch.ops import gn_kernel as gk
+
+    data = datasets.manhattan(n_poses=n, loop_prob=0.25, seed=0)
+    g = from_dataset(data, device="cpu")
+    p0 = torch.from_numpy(data["poses"])
+    nb = -(-n // 256)
+    out = {"poses": n, "loop_edges": g.num_edges - g.chain_prefix,
+           "ctas": min(nb, max_cluster or 16), "blocks": nb}
+    if unplaceable:
+        refusal_checks(out, pk, cs, g, p0)
+        print(json.dumps(out))
+        return
+    k3_persistent_checks(out, pk, g, p0)
+    k6c_persistent_checks(out, cs, gk.pack_graph(g, n), p0, 4)
+    print(json.dumps(out))
+
+
+def main_vs_tree(tree: Path, n: int, build_dir) -> None:
+    """gn_kernel.cu and cg_step.cu of this checkout against those of another
+    one (`tree`, e.g. `git archive` of the parent commit), both under the
+    emulation, on manhattan(n): K1's GN and LM solves, K3 and K6a-c (two
+    ranks, 26 K6c passes, Huber) held to torch.equal. Checks that a change
+    of csrc/se2_blocks.cuh or of the launch shape leaves the outputs as
+    they were."""
+    base = Path(build_dir or ROOT / "graphslam_tpu_torch" / "build" / "emu")
+    jobs = {(side, name): build(name, base / side, src_root=root, start=True)
+            for side, root in (("new", ROOT), ("old", Path(tree)))
+            for name in ("gn_kernel", "cg_step")}
+    if any(proc.wait() for _, proc in jobs.values()):
+        raise SystemExit("g++ failed")
+    libs = {key: ctypes.CDLL(str(lib)) for key, (lib, _) in jobs.items()}
+    gk, pk = load_ops({"gn_kernel": jobs["new", "gn_kernel"][0]})
+    cs, _, _, _ = load_cg_step({"cg_step": jobs["new", "cg_step"][0]})
+    from graphslam_tpu_torch.factors import from_dataset
+    from graphslam_tpu_torch.factors.linearize import linearize
+    from graphslam_tpu_torch.io import datasets
+    from graphslam_tpu_torch.ops import _build
+    from graphslam_tpu_torch.solver import normal_eq as ne
+
+    data = datasets.manhattan(n_poses=n, loop_prob=0.25, seed=0)
+    g = from_dataset(data, device="cpu")
+    p0 = torch.from_numpy(data["poses"])
+    sysm = ne.build_blocks(linearize(p0, g), g, n)
+    pack = gk.pack_graph(g, n)
+    half = pack.El // 2
+
+    def run(side):
+        _build.load = lambda name: libs[side, name]
+        res = {}
+        kern = gk.GnKernel(p0, g, -1.0, 4, cg_max=25)
+        res["k1_gn"] = [kern.solve(((3, 25),), False).clone()]
+        kern = gk.GnKernel(p0, g, 1.0, None, cg_max=25, lm=True)
+        stats = kern.lm_solve(3, 25, 1e-5, 10.0, 1e-10, 1e7, 1e-9, 1e-6).clone()
+        res["k1_lm"] = [kern.poses.clone(), stats]
+        args = pk._chain_and_loops(sysm, torch.tensor(1e-3), True, g.chain_prefix)
+        res["k3"] = [pk.PcgKernel(*args, 25).solve().clone()]
+        kerns = [cs.CgStepKernel(cs.make_shard(pack, 0, half, 4, 1.0, 1.0)),
+                 cs.CgStepKernel(cs.make_shard(pack, half, pack.El, 4, 0.0, 1.0))]
+        outs = [[t.clone() for t in k.stage_a(p0)] for k in kerns]
+        sts = [k.gn_setup(outs[0][0] + outs[1][0], p0, torch.tensor([1e-3])) for k in kerns]
+        carries = [k.cg_state(sts[0].b) for k in kerns]
+        for _ in range(26):
+            for k, c in zip(kerns, carries):
+                k.cg_step(k.Aij, c)
+            big = carries[0].big + carries[1].big
+            for c in carries:
+                c.big.copy_(big)
+        res["k6"] = [t for o in outs for t in o] + list(sts[0]) + list(carries[0])
+        return res
+
+    new, old = run("new"), run("old")
+    out = {"poses": n, "tree": str(tree)}
+    for key in new:
+        out[f"{key}_bitwise"] = all(torch.equal(a, b) for a, b in zip(new[key], old[key]))
     print(json.dumps(out))
 
 
@@ -332,6 +692,11 @@ def main() -> None:
     ap.add_argument("--se3", action="store_true")
     ap.add_argument("--dist", action="store_true")
     ap.add_argument("--dist6", action="store_true")
+    ap.add_argument("--persistent", action="store_true")
+    ap.add_argument("--max-cluster", type=int, default=0)
+    ap.add_argument("--unplaceable", action="store_true")
+    ap.add_argument("--build-dir", type=Path, default=None)
+    ap.add_argument("--vs-tree", type=Path, default=None)
     ap.add_argument("--rings", type=int, default=6)
     ap.add_argument("--per-ring", type=int, default=8)
     args = ap.parse_args()
@@ -341,6 +706,10 @@ def main() -> None:
         return main_dist(args.poses)
     if args.dist6:
         return main_dist6(args.rings, args.per_ring)
+    if args.vs_tree:
+        return main_vs_tree(args.vs_tree, args.poses, args.build_dir)
+    if args.persistent:
+        return main_persistent(args.poses, args.build_dir, args.max_cluster, args.unplaceable)
     n = args.poses
     gk, pk = load_ops({"gn_kernel": build()})
     from graphslam_tpu_torch.factors import from_dataset
@@ -377,6 +746,7 @@ def main() -> None:
     mask[c::2] = False
     edges[c::2] = 0  # masked slots clipped onto node 0, as in the online graph
     out["k3_masked"] = k3(g.replace(edge_mask=mask, edges=edges), 0.0)
+    k3_persistent_checks(out, pk, g, p0)
     print(json.dumps(out))
 
 

@@ -61,3 +61,33 @@ def run_ranks(world: int, scenario: str, out_dir, timeout: float = 240.0) -> dic
         assert rc == 0, f"rank {rank} of {world} exited {rc}:\n{stderr[-3000:]}"
     with np.load(out) as f:
         return {k: f[k] for k in f.files}
+
+
+def once_per_session(name: str, compute, tmp_path_factory):
+    """compute() once per test session, also under pytest-xdist, where a
+    module fixture otherwise runs again on every worker that draws one of
+    its tests: the first worker to ask computes and pickles the value next
+    to the workers' temporary directories, the others wait for it (a file
+    lock) and load it. Without xdist it is compute()."""
+    import fcntl
+    import os
+    import pickle
+
+    if not os.environ.get("PYTEST_XDIST_WORKER"):
+        return compute()
+    root = tmp_path_factory.getbasetemp().parent
+    path = root / f"{name}.pkl"
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if path.exists():
+                with open(path, "rb") as f:
+                    return pickle.load(f)
+            value = compute()
+            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            with open(tmp, "wb") as f:
+                pickle.dump(value, f)
+            os.replace(tmp, path)
+            return value
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)

@@ -97,7 +97,7 @@ def test_gn_setup6_and_cg_step6_match_twin(graph):
     st, sr = sts[0], srs[0]
     assert rel_err(st.D, sr.D) <= TOL_AB and rel_err(st.b, sr.b) <= TOL_AB
     assert max(rel_err(st.A, sr.A), rel_err(st.G, sr.G), rel_err(st.Dinv, sr.Dinv)) <= 1e-4
-    cks = [cs6.cg_state(sr.b) for _ in shs]
+    cks = [k.cg_state(sr.b) for k in kerns]
     crs = [cs6.cg_state(sr.b) for _ in shs]
     for it in range(26):
         for k, (_, A), ck in zip(kerns, got, cks):

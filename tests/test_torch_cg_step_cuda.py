@@ -14,7 +14,10 @@ the CG state after one pass rel 1e-4 (a PCR apply), after 26 passes rel
 1e-3; the kernel path of dist_fused_gn_solve against the plain path on the
 card wrapped atol 2e-4 on manhattan(260) (tests/test_dist_fused.py:170) and
 2e-3 on m3500 from its drifted start (the repo's GN kernel tolerance;
-2.8e-4 measured after 3 iterations).
+2.8e-4 measured after 3 iterations). K6c is one launch of a persistent
+kernel on a thread-block cluster; it is held bitwise (torch.equal) to the
+staged sequence it replaced (`cg_step_staged`), up to city10000 (10000
+poses: each of the 16 CTAs walks several row blocks).
 """
 
 import ctypes
@@ -99,7 +102,7 @@ def test_gn_setup_and_cg_step_match_twin(graph):
     st, sr = sts[0], srs[0]
     assert rel_err(st.D, sr.D) <= TOL_AB and rel_err(st.b, sr.b) <= TOL_AB
     assert max(rel_err(st.A, sr.A), rel_err(st.G, sr.G), rel_err(st.Dinv, sr.Dinv)) <= 1e-4
-    cks = [cs.cg_state(sr.b) for _ in shs]
+    cks = [k.cg_state(sr.b) for k in kerns]
     crs = [cs.cg_state(sr.b) for _ in shs]
     for it in range(26):
         for k, (_, A), ck in zip(kerns, got, cks):
@@ -167,3 +170,88 @@ def test_cpu_tensors_are_refused(dev):
     pk = gk.pack_graph(g, 40)
     with pytest.raises(ValueError, match="CUDA"):
         cs.CgStepKernel(cs.make_shard(pk, 0, pk.El, 3, 1.0, -1.0))
+
+
+def _k6c_graph(graph, name):
+    g, p0 = graph
+    c, dev = g.chain_prefix, p0.device
+    if name == "city10000":
+        data = datasets.city10000()
+        return from_dataset(data, device=dev), torch.from_numpy(data["poses"]).to(dev)
+    if name == "chain_only":
+        return g.replace(edge_mask=g.edge_mask & (torch.arange(g.num_edges, device=dev) < c)), p0
+    if name == "masked":
+        mask = g.edge_mask.clone()
+        mask[c::2] = False
+        return g.replace(edge_mask=mask), p0
+    return g, p0
+
+
+def _k6c_passes(g, p0, huber, staged, passes=26):
+    """Two emulated ranks through K6a, K6b and `passes` K6c passes, the
+    persistent kernel or the staged sequence; rank 0's carry after pass 1
+    and after the last."""
+    kerns = [sh.kernel() for sh in _ranks(g, p0, huber)]
+    pays = [k.stage_a(p0)[0].clone() for k in kerns]
+    lam = torch.tensor([1e-3], device=p0.device)
+    sts = [k.gn_setup(pays[0] + pays[1], p0, lam) for k in kerns]
+    carries = [k.cg_state(sts[0].b) for k in kerns]
+    snaps = []
+    for it in range(passes):
+        for k, c in zip(kerns, carries):
+            (k.cg_step_staged if staged else k.cg_step)(k.Aij, c)
+        big = carries[0].big + carries[1].big
+        for c in carries:
+            c.big.copy_(big)
+        if it in (0, passes - 1):
+            snaps.append([t.clone() for t in carries[0]])
+    torch.cuda.synchronize()
+    return snaps
+
+
+@pytest.mark.parametrize("name,huber", [("plain", -1.0), ("plain", 1.0), ("masked", 1.0),
+                                        ("chain_only", -1.0), ("city10000", 1.0)])
+def test_cg_step_persistent_equals_staged_bitwise(graph, name, huber):
+    g, p0 = _k6c_graph(graph, name)
+    a = _k6c_passes(g, p0, huber, staged=False)
+    b = _k6c_passes(g, p0, huber, staged=True)
+    again = _k6c_passes(g, p0, huber, staged=False)
+    assert torch.isfinite(a[-1][0]).all() and a[-1][0].abs().max() > 0
+    for sa, sb, sc in zip(a, b, again):
+        for x, y, z in zip(sa, sb, sc):
+            assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_cg_step_is_one_launch(graph):
+    from torch.profiler import ProfilerActivity, profile
+
+    g, p0 = graph
+    sh = _ranks(g, p0)[0]
+    kern = sh.kernel()
+    payload, Aij = kern.stage_a(p0)
+    st = kern.gn_setup(payload, p0, torch.zeros(1, device=p0.device))
+    carry = kern.cg_state(st.b)
+    cs.cg_step(sh, st, Aij, carry)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cs.cg_step(sh, st, Aij, carry)
+        torch.cuda.synchronize()
+    launches = {e.key: e.count for e in prof.key_averages() if "CgProblem" in e.key}
+    assert sum(launches.values()) == 1, launches
+    assert any("cg_step_persistent" in k for k in launches), launches
+
+
+def test_foreign_carry_is_refused(graph):
+    g, p0 = graph
+    shs = _ranks(g, p0)
+    kerns = [sh.kernel() for sh in shs]
+    st = kerns[0].gn_setup(kerns[0].stage_a(p0)[0], p0, torch.zeros(1, device=p0.device))
+    own = kerns[0].cg_state(st.b)
+    other = kerns[1].cg_state(st.b)
+    for bad in (cs.cg_state(st.b), other, own._replace(r=own.r.clone())):
+        with pytest.raises(ValueError, match="carry"):
+            cs.cg_step(shs[0], st, kerns[0].Aij, bad)
+    stale = own
+    kerns[0].cg_state(st.b)  # a new solve's carry replaces it
+    with pytest.raises(ValueError, match="carry"):
+        cs.cg_step(shs[0], st, kerns[0].Aij, stale)

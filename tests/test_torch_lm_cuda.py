@@ -7,7 +7,10 @@ Tolerances (float32 on both sides; the kernel sums in another order and
 uses FMAs): one cost pass rel 1e-5; LM poses after 5 Huber steps wrapped
 atol 3e-3 (the repo's LM/Huber kernel tolerance, tests/test_gn_kernel.py),
 chi2 within 1%, accepted steps and converged equal; one 25-step K3 solve
-rel 1e-3.
+rel 1e-3. K3 is one launch of a persistent kernel on a thread-block
+cluster; it is held bitwise (torch.equal) to the staged gn_factor + gn_cg
+sequence it replaced, on graphs up to city10000 (10000 poses: 40 row
+blocks, so each of the 16 CTAs walks several).
 """
 
 import ctypes
@@ -138,3 +141,51 @@ def test_wrappers_refuse_cpu_tensors(small):
     kern = gk.GnKernel(p0, g, cg_max=25)
     with pytest.raises(ValueError, match="lm=True"):
         kern.lm_solve(1, 25, 1e-5, 10.0, 1e-10, 1e7, 1e-9, 1e-6)
+
+
+def _k3_systems(small, name):
+    """(system, lam, chain prefix) of one K3 case."""
+    g, p0 = small
+    c, dev = g.chain_prefix, p0.device
+    if name == "city10000":
+        data = datasets.city10000()
+        g, p0 = from_dataset(data, device=dev), torch.from_numpy(data["poses"]).to(dev)
+        c = g.chain_prefix
+    elif name == "chain_only":
+        g = g.replace(edge_mask=g.edge_mask & (torch.arange(g.num_edges, device=dev) < c))
+    elif name == "masked":
+        mask, edges = g.edge_mask.clone(), g.edges.clone()
+        mask[c::2] = False
+        edges[c::2] = 0  # masked slots clipped onto node 0, as in the online graph
+        g = g.replace(edge_mask=mask, edges=edges)
+    huber = name == "huber"
+    sysm = lm._linearized_system(p0, g, SolverConfig(use_huber_on_loops=huber))
+    return sysm, (1e-3 if name in ("lam", "huber") else 0.0), c
+
+
+@pytest.mark.parametrize("name", ["plain", "lam", "huber", "masked", "chain_only", "city10000"])
+def test_k3_persistent_equals_staged_bitwise(small, name):
+    sysm, lam, c = _k3_systems(small, name)
+    kern = pk.PcgKernel(*pk._chain_and_loops(sysm, lam, True, c), 25)
+    a = kern.solve().clone()
+    b = kern.staged().clone()
+    again = kern.solve().clone()
+    torch.cuda.synchronize()
+    assert torch.isfinite(a).all() and a.abs().max() > 0
+    assert torch.equal(a, b)
+    assert torch.equal(a, again)
+
+
+def test_k3_is_one_launch(small):
+    from torch.profiler import ProfilerActivity, profile
+
+    sysm, lam, c = _k3_systems(small, "plain")
+    kern = pk.PcgKernel(*pk._chain_and_loops(sysm, lam, True, c), 25)
+    kern.solve()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kern.solve()
+        torch.cuda.synchronize()
+    launches = {e.key: e.count for e in prof.key_averages() if "GnProblem" in e.key}
+    assert sum(launches.values()) == 1, launches
+    assert any("k_pcg_persistent" in k for k in launches), launches

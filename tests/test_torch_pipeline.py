@@ -62,7 +62,7 @@ from graphslam_tpu_torch.slam import pipeline, state as tstate
 from graphslam_tpu_torch.solver.marginals import marginal_covariances_dense
 from graphslam_tpu_torch.solver.normal_eq import assemble_dense, build_blocks
 
-from _torch_port import carry, wrapped_max
+from _torch_port import carry, once_per_session, wrapped_max
 
 KW = dict(max_keyframes=128, max_factors=512, solve_iterations=4)
 JCFG = JSLAMConfig(frontend=JFrontendConfig(num_beams=361, max_points=384, icp_iterations=16),
@@ -92,9 +92,13 @@ def _odom(sim, t):
 
 
 @pytest.fixture(scope="module")
-def tour():
+def tour(tmp_path_factory):
     """The JAX step over the whole tour (with the state before every step)
-    and the port's replay of the same scans."""
+    and the port's replay of the same scans, computed once per session."""
+    return once_per_session("test_torch_pipeline_tour", _tour, tmp_path_factory)
+
+
+def _tour():
     sim = jsimulate(JCFG.frontend, step_len=0.3, seed=9, odom_trans_sigma=0.02,
                     odom_rot_sigma=0.01)
     T = len(sim["scans"])
