@@ -18,12 +18,20 @@ a nonzero exit:
      assembled D and b after one linearization (rel 1e-5), one PCR apply
      (rel 1e-4), one CG solve (rel 1e-3), and 5 whole GN iterations (wrapped
      atol 2e-3) in the plain, exact-PCR, chain-only, masked, Huber and
-     warm-start variants
+     warm-start variants; K1's gn_solve (one launch of a persistent
+     kernel on a thread-block cluster) bitwise equal to its
+     staged sequence gn_solve_staged on the chain-only, masked and warm +
+     ramp inputs
   4. m3500 main path on cuda: ATE gate (< 0.35 m and < half the initial
      ATE), the kernel's launch count above 0, two runs bitwise equal, and
-     5 iterations within wrapped atol 2e-3 of the plain twin
+     5 iterations within wrapped atol 2e-3 of the plain twin; gn_solve
+     bitwise equal to gn_solve_staged at m3500 (50 iterations) and at
+     city10000 (16 CTAs walking 40 row blocks)
   5. m3500 GN it/s for the kernel path and the plain path on the card,
-     median of 3 reps of back-to-back solves
+     median of 3 reps of back-to-back solves; gn_solve's C entry in turns
+     with gn_solve_staged (CUDA events), host launch calls a solve
+     (profiler: 1), ptxas registers and spills, the idle share of a solve
+     through fused_gn_solve (profiler)
   6. frontend kernels against their twins on simulated scans: one GICP IRLS
      iteration (K2; H, g rtol 1e-4 atol 1e-3, stats rtol 1e-4 atol 1e-2)
      and the nearest valid target (K8; indices equal, distances rtol 1e-6)
@@ -44,7 +52,8 @@ a nonzero exit:
      wrapped atol 2e-3), and each step up to 20 scans past the first loop
      commit through the kernels and through the plain twins on the card
      from the same state: decisions and factor counts equal, keyframe
-     poses wrapped atol 2e-3.
+     poses wrapped atol 2e-3; gn_solve bitwise equal to gn_solve_staged
+     at the replay's solve (one CTA).
   8. timing: replay frames/s through the kernels (median of 3), the plain
      path on the card over the first 60 scans, the K2 IRLS rounds that ran
      over a replay (the sum of each match's ctrl[1]) beside those enqueued,
@@ -60,21 +69,26 @@ a nonzero exit:
      at bucket 128 (rel 1e-3, its CSR holding only the live loop slots);
      K3 (one persistent launch on a thread-block cluster) bitwise equal to
      the staged gn_factor + gn_cg it replaced, and two calls bitwise, at
-     lam 0 and 1e-3 and on the online graph (and at m3500 in phase 10)
+     lam 0 and 1e-3 and on the online graph (and at m3500 in phase 10);
+     K1's gn_lm_solve (one launch) bitwise equal to gn_lm_solve_staged,
+     5 Huber steps at pcr_levels 4 and exact
  10. the m3500 LM main paths on cuda: lm_solve in mode gn_fused (K1-LM,
      50 steps, cg 25, Huber, pcr_levels 4: scripts/bench_all.py's LM
      config) and in mode pcg_fused (_lm_loop through K3, 50 iterations).
      Gates from the JAX package's CPU runs (scripts/lm_gate_jax.py): ATE
      < 0.35 m and within 0.02 m of JAX's, chi2 within 1%; both kernels'
      launch counts above 0; two runs each bitwise equal; K1-LM within
-     wrapped 3e-3 of its twin over 5 steps, K3 within rel 1e-3 at m3500
+     wrapped 3e-3 of its twin over 5 steps, K3 within rel 1e-3 at m3500;
+     gn_lm_solve bitwise equal to gn_lm_solve_staged at m3500 (50 Huber
+     steps) and city10000 (5)
  11. LM timing: m3500 LM it/s through K1-LM, in turns with its twin on
      the card and with K1's GN mode; _lm_loop(pcg_fused) it/s; K3 per call
      (its C entry on a prepared problem, in turns with the staged gn_factor
      + gn_cg, and the whole wrapper) against its twin (CUDA events), and
-     its launches a call (profiler: 1); launches per LM iteration by source
-     and the idle share (profiler); host synchronizations per _lm_loop
-     iteration
+     its launches a call (profiler: 1); gn_lm_solve's C entry in turns
+     with gn_lm_solve_staged, its host launch calls a solve (1), ptxas
+     registers and spills; launches per LM iteration by source and the
+     idle share (profiler); host synchronizations per _lm_loop iteration
  12. SE(3) kernels against their twins (csrc/gn6_kernel.cu) on
      sphere(10, 10) and on garage: K4's assembled D, U and b after one
      linearization (rel 1e-5), one PCR apply (rel 1e-4), one CG solve (rel
@@ -83,7 +97,10 @@ a nonzero exit:
      entries <= 5e-3, the repo's SE(3) kernel-vs-XLA tolerance); K4-LM, 5
      Huber steps (poses <= 8e-3, chi2 within 1%, accepted steps and
      converged equal, its cost pass alone rel 1e-5); K5 at lam 0 and 1e-3
-     (rel 1e-3)
+     (rel 1e-3); K4's gn6_solve and gn6_lm_solve (one launch, a group of
+     6 threads a 6x6 row) bitwise equal to their
+     staged sequences on the chain-only, masked and warm + ramp inputs and
+     5 Huber LM steps
  13. the SE(3) main paths on cuda, scripts/bench_all.py's configs:
      sphere2500 and garage through _gn_loop(mode="gn_fused") (K4, cg 25,
      exact PCR, 20 iterations), and garage through lm_solve in modes
@@ -92,13 +109,18 @@ a nonzero exit:
      on the CPU (scripts/se3_gate_jax.py): ATE < 0.2 m and within 0.02 m
      of JAX's, chi2 within 2%; each kernel's launch count above 0 in its
      own path; two runs each bitwise equal; sphere2500 5 GN iterations
-     kernel vs twin <= 5e-3
+     kernel vs twin <= 5e-3; gn6_solve bitwise equal to gn6_solve_staged
+     at sphere2500 and garage (20 iterations), gn6_lm_solve to
+     gn6_lm_solve_staged at garage (20 Huber steps)
  14. SE(3) timing: sphere2500 and garage GN it/s through K4 in turns with
      the twin on the card (median of 3 reps of back-to-back solves); garage
      LM it/s through K4-LM (in turns with its twin) and through
      _lm_loop(pcg_fused); K5 per call at garage (its C entry on a prepared
      problem, and the whole wrapper) against its twin (CUDA events);
-     launches per iteration by source and the idle share (profiler)
+     gn6_solve (sphere2500, garage) and gn6_lm_solve (garage) C entries in
+     turns with their staged sequences, host launch calls a solve (1),
+     ptxas registers and spills; launches per iteration by source and the
+     idle share (profiler) of sphere2500 GN and garage LM
  15. K6a-c (csrc/cg_step.cu) against their twins on manhattan(260) and
      m3500, without and with Huber, two ranks in one process (half the loop
      edges each, the chain on rank 0; the all-reduces summed here): the K6a
@@ -161,6 +183,12 @@ and its "ms" is the C entry's, "ms_staged" the staged gn_factor + gn_cg's
 in turns, "ms_wrapper" the whole fused_pcg_solve's;
 gn6_kernel, gn6_kernel_lm and pcg6_kernel likewise from phases 12-14, with
 "ms" per sphere2500 GN solve, per garage LM solve and per K5 C-entry call;
+the rows redesigned as one launch a solve (gn_kernel, gn_kernel_lm,
+gn6_kernel, gn6_kernel_lm; "redesigned": true, as for pcg_kernel and
+cg_step_cg_step, one launch a call) add "ms_entry" (the C entry) and
+"ms_staged" (its staged sequence, in turns), launches a solve of each,
+the idle share and the ptxas registers and spills of the persistent
+kernels;
 cg_step_stage_a, cg_step_gn_setup and cg_step_cg_step (K6a-c) from phases
 15-18: "max_abs_err" the largest relative error against the twin (K6c also
 the two-rank check), "ms" per call of the wrapper (K6c's "ms_staged" that of
@@ -337,6 +365,87 @@ def _solve_pair(torch, gk, p0, g, iterations=5, cg_iters=25, **kw):
     return wrapped_max(out, ref)
 
 
+# fused_lm_solve's schedule: lam0, lam_factor, lam_min, lam_max, abs_tol, rel_tol
+LM_ARGS = (1e-5, 10.0, 1e-10, 1e7, 1e-9, 1e-6)
+
+
+def _persistent_bitwise(torch, Kernel, p0, g, label, levels=4, huber=-1.0, phases=((5, 25),),
+                        warm=False, lm_steps=0):
+    """The persistent entry of K1 or K4 (gn_solve / gn_lm_solve, gn6_*: one
+    launch) against its staged sequence on fresh problems of the same
+    inputs: poses and x (GN) or poses and stats (LM) bitwise; fails where
+    they differ."""
+    runs = []
+    for staged in (False, True):
+        if lm_steps:
+            k = Kernel(p0, g, huber, levels, cg_max=25, lm=True)
+            (k.lm_solve_staged if staged else k.lm_solve)(lm_steps, 25, *LM_ARGS)
+            runs.append((k.poses.clone(), k.stats.clone()))
+        else:
+            k = Kernel(p0, g, huber, levels, cg_max=max(cg for _, cg in phases))
+            (k.solve_staged if staged else k.solve)(phases, warm)
+            runs.append((k.poses.clone(), k.x.clone()))
+    torch.cuda.synchronize()
+    (a, ax), (b, bx) = runs
+    same = torch.equal(a, b) and torch.equal(ax, bx)
+    entry = f"{Kernel.PREFIX}_{'lm_' if lm_steps else ''}solve"
+    log(f"  {label}: {entry} (one launch) vs {entry}_staged: "
+        f"{'bitwise equal' if same else 'DIFFERENT'}")
+    if not (same and torch.isfinite(a).all()):
+        fail(f"{label}: {entry} differs from its staged sequence (max |d| "
+             f"{float((a - b).abs().max()):.3e})")
+
+
+def _ptxas(name: str, entry: str):
+    """(registers, spill store bytes) of the kernel `entry` in the build log
+    of csrc/<name>.cu (nvcc -Xptxas -v)."""
+    from graphslam_tpu_torch.ops import _build
+
+    lines = _build._target(name)[2].read_text().splitlines()
+    regs = spill = None
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and entry in line:
+            for nxt in lines[i + 1:i + 5]:
+                m = re.search(r"Used (\d+) registers", nxt)
+                regs = int(m.group(1)) if m and regs is None else regs
+                m = re.search(r"(\d+) bytes spill stores", nxt)
+                spill = int(m.group(1)) if m and spill is None else spill
+    return regs, spill
+
+
+def _redesigned_timing(torch, label, kern, p0, persistent, staged, tag, entries, reps=5):
+    """The persistent entry (one launch a solve) and its staged sequence on
+    one prepared problem, each call from p0: ms a solve by CUDA events in
+    turns (staged, persistent, persistent, staged), host launch calls a
+    solve (profiler over 2 calls) and the ptxas registers and spills of the
+    persistent kernels (entries: (source, kernel name), ...)."""
+    def from_p0(fn):
+        def call():
+            kern.poses.copy_(p0)
+            fn()
+        return call
+
+    new, old = from_p0(persistent), from_p0(staged)
+    t_oa = _event_us(torch, old, reps, warmup=1) / 1e3
+    t_na = _event_us(torch, new, reps, warmup=1) / 1e3
+    t_nb = _event_us(torch, new, reps, warmup=1) / 1e3
+    t_ob = _event_us(torch, old, reps, warmup=1) / 1e3
+    host, _ = _launches_per_call(torch, new, tag, calls=2)
+    host_s, _ = _launches_per_call(torch, old, tag, calls=2)
+    out = dict(ms=min(t_na, t_nb), ms_staged=min(t_oa, t_ob), launches=host,
+               staged_launches=host_s, ptxas={})
+    for src, entry in entries:
+        out["ptxas"][entry] = _ptxas(src, entry)
+    log(f"  {label}, C entries in turns (CUDA events): one launch {t_na:.3f} and {t_nb:.3f} ms "
+        f"a solve, staged {t_oa:.3f} and {t_ob:.3f} ms ({out['ms_staged'] / out['ms']:.2f}x); "
+        f"host launch calls a solve (profiler, 2 calls): {host:g}, staged {host_s:g}; ptxas "
+        + ", ".join(f"{e} {r} registers, {sp} bytes spill stores"
+                    for e, (r, sp) in out["ptxas"].items()))
+    if host != 1:
+        fail(f"{label}: the persistent entry made {host} launch calls a solve, not 1")
+    return out
+
+
 def phase_stages(torch, datasets, from_dataset, gk):
     log("== phase 3: kernel against plain twin, manhattan(260)")
     dev = torch.device("cuda")
@@ -395,6 +504,10 @@ def phase_stages(torch, datasets, from_dataset, gk):
         log(f"  5 GN iterations, {name}: wrapped max err {e:.3e} (tol {TOL_POSES_WRAPPED})")
         if not e <= TOL_POSES_WRAPPED:
             fail(f"5-iteration solve ({name}) differs from the plain twin: {e}")
+    for name, p, gg, kw in variants[2:4]:
+        _persistent_bitwise(torch, gk.GnKernel, p, gg, f"K1 {name}, 5 iterations")
+    _persistent_bitwise(torch, gk.GnKernel, p0, g, "K1 warm + ramp", phases=((3, 25), (2, 12)),
+                        warm=True)
 
 
 def phase_main(torch, datasets, from_dataset, chi2, metrics, lm, cfg, gk):
@@ -430,6 +543,12 @@ def phase_main(torch, datasets, from_dataset, chi2, metrics, lm, cfg, gk):
         f"(tol {TOL_POSES_WRAPPED})")
     if not err <= TOL_POSES_WRAPPED:
         fail(f"m3500 kernel differs from the plain twin: {err}")
+    _persistent_bitwise(torch, gk.GnKernel, p0, g, f"K1 m3500, {iters} iterations",
+                        levels=cfg.pcr_levels, phases=((iters, cfg.cg_max_iterations),))
+    city = datasets.city10000()
+    gc, pc = from_dataset(city, device=dev), torch.from_numpy(city["poses"]).to(dev)
+    _persistent_bitwise(torch, gk.GnKernel, pc, gc, "K1 city10000 (16 CTAs walking 40 row "
+                        "blocks), 5 iterations", levels=cfg.pcr_levels)
     return p0, g, launches, err
 
 
@@ -474,7 +593,16 @@ def phase_timing(torch, gk, cfg, card, p0, g):
         f"{iters * 1e3 / ms_k:.1f} GN it/s")
     log(f"  plain torch path: {ms_p:.3f} ms per solve ({1e3 * t_plain_a / chain_p:.3f} "
         f"before, {1e3 * t_plain_b / chain_p:.3f} after), {iters * 1e3 / ms_p:.1f} GN it/s")
-    return ms_k, ms_p
+    kern = gk.GnKernel(p0, g, -1.0, cfg.pcr_levels, cg_max=cfg.cg_max_iterations)
+    phases = ((iters, cfg.cg_max_iterations),)
+    red = _redesigned_timing(torch, f"K1 m3500 GN ({iters} iterations)", kern, p0,
+                             lambda: kern.solve(phases, False),
+                             lambda: kern.solve_staged(phases, False), "GnProblem",
+                             (("gn_kernel", "k_gn_persistent"),))
+    groups, span = _profile_launches(torch, lambda: kernel(p0))
+    red["idle_share"] = _log_profile(f"m3500 K1 GN solve through fused_gn_solve ({iters} "
+                                     f"iterations)", groups, span, iters)
+    return ms_k, ms_p, red
 
 
 def _event_us(torch, fn, reps: int, warmup: int = 3) -> float:
@@ -695,6 +823,9 @@ def _bucket_solve_pair(torch, gk, tour, state):
         f"{err:.3e} (tol {TOL_POSES_WRAPPED})")
     if not err <= TOL_POSES_WRAPPED:
         fail(f"K1 at the replay's solve differs from the plain twin: {err}")
+    _persistent_bitwise(torch, gk.GnKernel, p0, g, f"K1 at the replay's solve (bucket {B}, one "
+                        "CTA)", levels=cfg.solver.pcr_levels, warm=True,
+                        phases=((cfg.solve_iterations, cfg.solver.cg_max_iterations),))
     return err
 
 
@@ -990,6 +1121,8 @@ def phase_lm_kernels(torch, datasets, from_dataset, lm, gk, tour, state):
         e, ce, ks, rs = _lm_pair(torch, gk, p0, g, huber_delta=1.0, pcr_levels=levels)
         _check_lm_pair(f"5 Huber iterations, pcr_levels={levels}", e, ce, ks, rs)
         lm_err = max(lm_err, e)
+        _persistent_bitwise(torch, gk.GnKernel, p0, g, f"K1-LM 5 Huber steps, pcr_levels="
+                            f"{levels}", levels=levels, huber=1.0, lm_steps=5)
 
     sysm = lm._linearized_system(p0, g, SolverConfig(use_huber_on_loops=True))
     for lam in (0.0, 1e-3):
@@ -1078,6 +1211,12 @@ def phase_lm_main(torch, datasets, from_dataset, chi2, metrics, lm, gk):
 
     e, ce, ks, rs = _lm_pair(torch, gk, p0, g, huber_delta=1.0, pcr_levels=4)
     _check_lm_pair("m3500, 5 steps", e, ce, ks, rs)
+    _persistent_bitwise(torch, gk.GnKernel, p0, g, "K1-LM m3500, 50 Huber steps", huber=1.0,
+                        lm_steps=50)
+    city = datasets.city10000()
+    gc, pc = from_dataset(city, device=dev), torch.from_numpy(city["poses"]).to(dev)
+    _persistent_bitwise(torch, gk.GnKernel, pc, gc, "K1-LM city10000, 5 Huber steps",
+                        huber=1.0, lm_steps=5)
     sysm = lm._linearized_system(p0, g, cfg_k3)
     e3, ea3 = _k3_pair(torch, pk, sysm, cfg_k3.init_lambda, g.chain_prefix)
     log(f"  K3 at m3500 (lam {cfg_k3.init_lambda}): rel err {e3:.3e} (tol {TOL_CG_REL})")
@@ -1248,6 +1387,12 @@ def phase_lm_timing(torch, lm, gk, card, p0, g, sysm, main):
         f"fused_pcg_solve (damping, chain blocks and CSR in torch included), "
         f"{out['k3_plain_us']:.2f} us for the twin")
 
+    kern1 = gk.GnKernel(p0, g, 1.0, 4, cg_max=25, lm=True)
+    out["redesigned"] = _redesigned_timing(
+        torch, f"K1-LM m3500 ({iters} Huber steps)", kern1, p0,
+        lambda: kern1.lm_solve(iters, 25, *LM_ARGS),
+        lambda: kern1.lm_solve_staged(iters, 25, *LM_ARGS),
+        "GnProblem", (("gn_kernel", "k_lm_persistent"),))
     groups, span = _profile_launches(torch, lambda: kernel(p0))
     out["lm_launches_per_it"] = groups["gn_kernel.cu"][0] / iters
     out["lm_idle_share"] = _log_profile(f"K1-LM solve ({iters} iterations)", groups, span, iters)
@@ -1358,6 +1503,11 @@ def phase_se3_kernels(torch, datasets, from_dataset, lm):
             e = pose_max(out, ref)
             errs["gn"] = max(errs["gn"], e)
             _check(f"{name} 5 GN iterations, {label}, max |d|", e, TOL_SE3_POSES)
+            if label in ("chain-only", "masked", "warm + ramp"):
+                warm = label == "warm + ramp"
+                _persistent_bitwise(torch, g6.Gn6Kernel, p0, gg, f"K4 {name} {label}",
+                                    levels=None, warm=warm,
+                                    phases=((3, 25), (2, 12)) if warm else ((5, 25),))
 
         kern = g6.Gn6Kernel(p0, g, 1.0, None, cg_max=25, lm=True)
         _check(f"{name} K4-LM cost pass (Huber 1.0), rel",
@@ -1376,6 +1526,8 @@ def phase_se3_kernels(torch, datasets, from_dataset, lm):
         if not (torch.isfinite(out[0]).all() and e <= TOL_SE3_LM_POSES and ce <= TOL_CHI2_REL
                 and ks[2:] == rs[2:]):
             fail(f"K4-LM on {name} differs from its plain twin")
+        _persistent_bitwise(torch, g6.Gn6Kernel, p0, g, f"K4-LM {name}, 5 Huber steps",
+                            levels=None, huber=1.0, lm_steps=5)
 
         sysm = lm._linearized_system(p0, g, SolverConfig(use_huber_on_loops=True))
         for lam in (0.0, 1e-3):
@@ -1435,6 +1587,8 @@ def phase_se3_main(torch, graphs, chi2, metrics, lm):
             fail(f"{name}: two runs differ: max {float((res - res2).abs().max())}")
         log(f"  {name} GN: two runs bitwise equal")
         out[name] = dict(launches=launches)
+        _persistent_bitwise(torch, g6.Gn6Kernel, p0, g, f"K4 {name}, 20 iterations",
+                            levels=None, phases=((20, 25),))
 
     g, p0, gt = graphs["sphere2500"]
     a = g6.fused_gn6_solve(p0, g, iterations=5, cg_iters=25)
@@ -1466,6 +1620,9 @@ def phase_se3_main(torch, graphs, chi2, metrics, lm):
             if not torch.equal(x, y):
                 fail(f"garage LM ({mode}): two runs differ")
         log(f"  garage LM ({mode}): two runs bitwise equal")
+        if mode == "gn_fused":
+            _persistent_bitwise(torch, g6.Gn6Kernel, p0, g, "K4-LM garage, 20 Huber steps",
+                                levels=None, huber=1.0, lm_steps=20)
         out[f"garage_lm_{mode}"] = dict(launches=launches, ate=ate, chi2=err,
                                         steps=int(st.iterations))
     return out
@@ -1546,6 +1703,25 @@ def phase_se3_timing(torch, card, graphs, lm):
         f"cg 25; CUDA events): {out['k5_us']:.2f} us per call of the C entry on a prepared "
         f"problem, {out['k5_wrapper_us']:.2f} us per fused_pcg6_solve, {out['k5_plain_us']:.2f} us "
         f"for the twin")
+
+    entries = (("gn6_kernel", "k6_gn_wide"),)
+    for name in ("sphere2500", "garage"):
+        g, p0, _ = graphs[name]
+        kern = g6.Gn6Kernel(p0, g, -1.0, None, cg_max=25)
+        out[f"{name}_redesigned"] = _redesigned_timing(
+            torch, f"K4 {name} GN ({iters} iterations)", kern, p0,
+            lambda: kern.solve(((iters, 25),), False),
+            lambda: kern.solve_staged(((iters, 25),), False), "Gn6Problem", entries, reps=3)
+    g, p0, _ = graphs["garage"]
+    kern = g6.Gn6Kernel(p0, g, 1.0, None, cg_max=25, lm=True)
+    out["lm_redesigned"] = _redesigned_timing(
+        torch, f"K4-LM garage ({iters} Huber steps)", kern, p0,
+        lambda: kern.lm_solve(iters, 25, *LM_ARGS),
+        lambda: kern.lm_solve_staged(iters, 25, *LM_ARGS), "Gn6Problem",
+        (("gn6_kernel", "k6_lm_wide"),), reps=3)
+    groups, span = _profile_launches(torch, lambda: lm_kernel(p0))
+    out["lm_idle_share"] = _log_profile(f"garage K4-LM solve through fused_lm6_solve ({iters} "
+                                        f"steps)", groups, span, iters)
 
     g, p0, _ = graphs["sphere2500"]
     groups, span = _profile_launches(torch, lambda: g6.fused_gn6_solve(p0, g, iterations=iters,
@@ -2398,7 +2574,7 @@ def main() -> int:
                        edge_tile=512, hvp_splits=1)
     p0, g, m3500_launches, err = phase_main(torch, datasets, from_dataset, chi2, metrics, lm,
                                             cfg, gk)
-    ms_k, ms_p = phase_timing(torch, gk, cfg, card, p0, g)
+    ms_k, ms_p, k1 = phase_timing(torch, gk, cfg, card, p0, g)
 
     tour = make_tour(torch)
     tour["card"] = card
@@ -2466,6 +2642,20 @@ def main() -> int:
     log(f"  K7 bounds per call at sphere2500 (K = {sh6.K}): K7a {k7a_bound * 1e3:.3f} us "
         f"({k7a_by}), K7b {k7b_bound * 1e3:.3f} us ({k7b_by}), K7c {k7c_bound * 1e3:.3f} us "
         f"({k7c_by})")
+    log("== end to end, the figures of phases 5, 8, 11 and 14 again")
+    log(f"  m3500 GN {50e3 / ms_k:.1f} it/s, m3500 LM {50e3 / lt['lm_ms']:.1f} it/s (K1, "
+        f"K1-LM: one launch a solve); replay {t['fps']:.2f} frames/s; sphere2500 GN "
+        f"{20e3 / st['sphere2500_ms']:.1f} it/s, garage GN {20e3 / st['garage_ms']:.1f} it/s, "
+        f"garage LM {20e3 / st['lm_ms']:.1f} it/s (K4, K4-LM: one launch a solve); {card}")
+
+    def redesign(red, idle):
+        """The kernels line's fields of a row redesigned as one launch a solve."""
+        return {"redesigned": True, "ms_entry": red["ms"], "ms_staged": red["ms_staged"],
+                "launches_per_solve": red["launches"],
+                "staged_launches_per_solve": red["staged_launches"], "idle_share": idle,
+                "registers": {k: v[0] for k, v in red["ptxas"].items()},
+                "spill_store_bytes": {k: v[1] for k, v in red["ptxas"].items()}}
+
     k6_common = dict(route="cuda", source="graphslam_tpu_torch/csrc/cg_step.cu", library_ms=None)
     k7_common = dict(route="cuda", source="graphslam_tpu_torch/csrc/cg_step6.cu", library_ms=None)
     print(json.dumps({"kernels": [
@@ -2484,6 +2674,7 @@ def main() -> int:
             "bound_ms": gn_bound,
             "bound_by": gn_by,
             "library_ms": None,
+            **redesign(k1, k1["idle_share"]),
         },
         {
             "name": "icp_kernel",
@@ -2526,10 +2717,12 @@ def main() -> int:
             "bound_ms": lm_bound,
             "bound_by": lm_by,
             "library_ms": None,
+            **redesign(lt["redesigned"], lt["lm_idle_share"]),
         },
         {
             "name": "pcg_kernel",
             "route": "cuda",
+            "redesigned": True,
             "source": "graphslam_tpu_torch/csrc/gn_kernel.cu",
             "replaces": "graphslam_tpu/ops/pcg_kernel.py:283",
             "launches": lm_main["_lm_loop/K3"]["launches"],
@@ -2559,6 +2752,9 @@ def main() -> int:
             "bound_ms": gn6_bound,
             "bound_by": gn6_by,
             "library_ms": None,
+            **redesign(st["sphere2500_redesigned"], st["gn_idle_share"]),
+            "ms_entry_garage": st["garage_redesigned"]["ms"],
+            "ms_staged_garage": st["garage_redesigned"]["ms_staged"],
         },
         {
             "name": "gn6_kernel_lm",
@@ -2572,6 +2768,7 @@ def main() -> int:
             "bound_ms": lm6_bound,
             "bound_by": lm6_by,
             "library_ms": None,
+            **redesign(st["lm_redesigned"], st["lm_idle_share"]),
         },
         {
             "name": "pcg6_kernel",
@@ -2613,6 +2810,7 @@ def main() -> int:
         },
         {
             "name": "cg_step_cg_step",
+            "redesigned": True,
             **k6_common,
             "replaces": "graphslam_tpu/parallel/cg_step.py:90",
             "launches": dm["gn_counts"]["cg_step"],

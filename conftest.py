@@ -11,10 +11,12 @@ use. jax is not imported here, so processes that never import it are untouched.
 
 Under pytest-xdist the collection is also reordered: the few slowest
 tests start at once on workers of their own, the quick ones follow and the
-other slow ones run last, longest first (see _SLOW and slow_last_order).
+other slow ones run last, longest first (see _SLOW and slow_last_order);
+and each worker's torch takes its share of the cores.
 """
 
 import gc
+import os
 import sys
 
 import pytest
@@ -51,11 +53,13 @@ def pytest_runtest_teardown(item, nextitem):
 # whole tier-1 run (six xdist workers, `--dist load`, 8 cores; 6898
 # worker-seconds in all). A key ending in ".py" names a module whose tests
 # run together at the start, so that one worker computes its module
-# fixture (tests/test_torch_pipeline.py).
+# fixtures (tests/test_torch_pipeline.py's tour; the emulation runs that
+# tests/test_torch_persistent_emu.py's cases share).
 _SLOW = {
     "tests/test_dist_fused6.py::test_dist_fused6_gn_matches_mega_kernel_and_mesh_sizes": 561,
     "tests/test_gn6_kernel.py::test_fused_gn6_page_windowed_matches_plain": 371,
     "tests/test_torch_pipeline.py": 350,
+    "tests/test_torch_persistent_emu.py": 120,
     "tests/test_dist_fused6.py::test_dist_fused6_lm_matches_mega_kernel": 338,
     "tests/test_gn6_kernel.py::test_fused_gn6_matches_xla_gn_trajectory": 291,
     "tests/test_gn6_kernel.py::test_fused_gn6_masked_edges": 267,
@@ -143,3 +147,10 @@ def pytest_collection_modifyitems(config, items):
     workers = getattr(config, "workerinput", {}).get("workercount", 0)
     if workers > 1:
         items[:] = slow_last_order(items, workers)
+        # torch's CPU ops take the worker's share of the cores: with one
+        # thread a core in every worker, the workers' OpenMP threads wait on
+        # each other (the m3500 GN twin took 121-154 s in a whole run against
+        # 14 s alone)
+        torch = sys.modules.get("torch")
+        if torch is not None:
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))

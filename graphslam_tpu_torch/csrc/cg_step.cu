@@ -20,7 +20,7 @@
 //                               D_ii (1 + lam), b = -g
 //                 cg_pcr_factor one launch per PCR level, K levels
 //   cg_step       ONE launch of cg_step_persistent on a thread-block
-//                 cluster (se2_blocks.cuh's persistent-stage routine), its
+//                 cluster (persistent.cuh's persistent-stage routine), its
 //                 stages separated by cluster barriers:
 //                   update     alpha = rz / (s0 + s1), guarded; x += alpha
 //                              p; r -= alpha (chain_Ap + tile_Ap)
@@ -392,7 +392,7 @@ __device__ __forceinline__ void finish(const CgProblem& p, const Ws& w, float* s
 __global__ void cg_finish(CgProblem p, Ws w, float* scal, float* big) { finish(p, w, scal, big); }
 
 // K6c in one launch on a thread-block cluster (the persistent-stage routine
-// of se2_blocks.cuh): update, the K apply levels, direction, H@p, then the
+// of persistent.cuh): update, the K apply levels, direction, H@p, then the
 // finish by CTA 0's thread 0 -- cg_step_staged's launches, row for row,
 // with a cluster barrier in place of each kernel boundary (K + 3 of them).
 __global__ void __launch_bounds__(kThreads, 1) cg_step_persistent(CgProblem p, Ws w, float* x,

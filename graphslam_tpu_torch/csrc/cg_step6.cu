@@ -309,7 +309,7 @@ __global__ void __launch_bounds__(kThreads) cg6_pcr_apply(Cg6Problem p, int k, c
     const V6 o = pcr6_apply_row(n, p.N, k, p.A, p.G, p.Dinv, in, out, last);
     if (last) val = v6dot(ld6(rdot, n), o);
   }
-  if (last) block_sum_to(val, part);
+  if (last) block_sum_to(val, part, blockIdx.x);
 }
 
 // rz_new = r.z from the partials; beta = rz_new / rz where rz > tiny, else
@@ -355,9 +355,9 @@ __global__ void __launch_bounds__(kThreads) cg6_hvp(Cg6Problem p, Ws w, const fl
     st6(big, n, t);
     s1 = v6dot(vn, t);
   }
-  block_sum_to(s0, w.part_a);
+  block_sum_to(s0, w.part_a, blockIdx.x);
   __syncthreads();  // thread 0 reads the shared tree before the next sum reuses it
-  block_sum_to(s1, w.part_c);
+  block_sum_to(s1, w.part_c, blockIdx.x);
 }
 
 // One thread: scal = [rz_new, s0, ...] and big[6N] = this rank's s1.

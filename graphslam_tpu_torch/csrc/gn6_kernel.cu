@@ -3,46 +3,68 @@
 // (K4, GN and LM modes) and graphslam_tpu/ops/pcg6_kernel.py::_kernel6 (K5).
 //
 // K1 (gn_kernel.cu) with 6x6 blocks and SE(3) poses. One GN iteration is a
-// fixed sequence of small launches on the caller's stream, with no host
-// synchronization:
+// fixed sequence of row stages:
 //
-//   k6_linearize    one thread per chain/loop edge: between, SO(3) log,
+//   linearize       one thread per chain/loop edge: between, SO(3) log,
 //                   Jr^-1 (with Barfoot's Q), Ad(h^-1), whitening, Huber on
 //                   loop edges when huber_delta > 0 (gn6_kernel.py:548-574);
 //                   then Aii, Aij, Ajj, gi, gj (Aij kept for H@v)
-//   k6_assemble     one thread per node: D and g from its chain neighbours,
+//   assemble        one thread per node: D and g from its chain neighbours,
 //                   its prior and its incident loop edges (a CSR in edge
 //                   order, masked edges left out: fixed order, no atomics);
 //                   in LM mode D's 6 diagonal entries are scaled by (1 + lam)
-//   k6_pcr_factor   one launch per PCR level; ridge eps/6 |tr| + 1e-8, the
+//   PCR factor      one stage per PCR level; ridge eps/6 |tr| + 1e-8, the
 //                   6x6 inverse as the Schur complement of the lower-right
 //                   3x3 over the 3x3 adjugate inverse (gn6_kernel.py:127-149)
 //   CG, cg_iters times:
-//     k6_hvp          H@p with the partial sums of p.Ap per block
-//     k6_cg_update    alpha from the partials (same order in every block)
-//     k6_pcr_apply    one launch per level; the last applies Dinv and adds
-//                     the partial sums of r.z
-//     k6_cg_direction beta, p = z + beta p, rz kept on the device
-//   k6_retract      x <- x * Exp(dx), then one polar-Newton step on R
+//     H@p           with the partial sums of p.Ap per 256-row block
+//     update        alpha from the partials (same order everywhere)
+//     PCR apply     one stage per level; the last applies Dinv and adds
+//                   the partial sums of r.z
+//     direction     beta, p = z + beta p, rz kept on the device
+//   retract         x <- x * Exp(dx), then one polar-Newton step on R
 //                   (gn6_kernel.py:529-535, 877-882)
 //
-// An LM iteration (gn6_kernel.py:917-946) adds k6_chi2 (the candidate's cost
-// as block partials), k6_lm_decide (one thread: accept or reject, the lambda
-// schedule, the stats) and k6_lm_select (poses <- candidate where accepted).
+// An LM iteration (gn6_kernel.py:917-946) adds the candidate's cost (block
+// partials), the decision (one thread: accept or reject, the lambda
+// schedule, the stats) and the select (poses <- candidate where accepted).
+//
+// Two launch shapes run these stages:
+//
+//   gn6_solve, gn6_lm_solve   ONE launch a solve of k6_gn_wide / k6_lm_wide
+//       on CTAs of kWide (384) threads (se3_blocks.cuh's wide stages): the
+//       PCR factor and apply levels, H@p and the CG vector stages give each
+//       row a group of 6 threads, one per output component (row a of each
+//       6x6 product, the 6x6 operands staged in shared memory, binv6 whole
+//       in one thread of the group); linearize, assemble, retract and the
+//       cost take one thread a row; a barrier where the staged sequence has
+//       a kernel boundary, the LM decision on CTA 0 between two barriers.
+//       The CTAs hold one pass over the rows (60 rows a CTA): one cluster
+//       where that takes at most 16 CTAs (garage: 16), else a cooperative
+//       grid (sphere2500: 42 CTAs) with a grid barrier (wide_shape).
+//   gn6_solve_staged, gn6_lm_solve_staged   the staged sequence: one small
+//       launch per stage (k6_*, one thread a row, n_blocks(N) blocks of
+//       256) on the caller's stream, 404 an iteration at sphere2500 (K =
+//       12, cg 25). The yardstick: the wide kernels give bitwise its poses,
+//       x and stats. K5 (gn6_pcg) runs the same staged kernels.
+//
+// What bounds it: at sphere2500 size (2500 poses, 2450 loop edges) every
+// array is a few MB and sits in the 50 MB L2; neither bytes nor FLOPs bound
+// it but the latency of 404 dependent stages an iteration. Staged, each
+// stage was a launch on 10 blocks of one register-heavy thread a row
+// (k6_pcr_factor ~200 registers for two 6x6 inverses and four products);
+// the wide kernels trade the launches for barriers and spread each heavy
+// row over 6 threads. Measured on the card (PERF.md; scripts/
+// bench_persistent.py times the other shape): a stage costs about as much
+// per pass over the rows as the pass's width saves, so one pass of a grid
+// beats a cluster walking three; a cluster barrier costs less than a grid
+// barrier at the same CTA count, so the cluster wins where 16 CTAs hold
+// the pass.
 //
 // K5 (gn6_pcg) is the PCR factor at the exact K = ceil(log2 N) and a cold CG
 // on a D, U, b and loop blocks that the caller supplies (damped in torch
-// beforehand, as the JAX package damps in XLA); it reuses the same kernels.
-//
-// What bounds it: at sphere2500 size (2500 poses, 2450 loop edges) every
-// array is a few MB and sits in the 50 MB L2, and one GN iteration at exact
-// PCR (K = 12) and cg 25 is 25 (K + 3) + 2 K + 5 = 404 small launches, each
-// on ceil(N / 256) = 10 blocks of the card's 132 SMs. Neither bytes nor
-// FLOPs bound it: launch latency and the latency of the heavy 6x6 stages on
-// few, register-heavy threads do (k6_pcr_factor needs ~200 registers a
-// thread for two 6x6 inverses and four 6x6 products). More blocks per
-// stage, the 6x6 products staged in shared memory, and a persistent kernel
-// or a CUDA graph are later work; this version is the simple, correct one.
+// beforehand, as the JAX package damps in XLA); it reuses the staged
+// kernels.
 //
 // The SO(3) log calls acosf in its generic branch, as geometry/so3.py's log
 // does; the TPU kernel's _acos_no_trig (gn6_kernel.py:321) only works around
@@ -115,6 +137,9 @@ struct Ws {
   float* cand;      // (N, 12) LM candidate poses
   float* part_e;    // (n_blocks(c + El + N),) partial sums of the cost
   float* acc;       // (1,) LM: 1 where the last step was accepted
+  float* va;        // (N,) row values of p.Ap (the wide kernels' reductions)
+  float* vb;        // (N,) row values of r.z
+  float* ve;        // (c + El + N,) row values of the cost
   long long total;
 };
 
@@ -150,6 +175,9 @@ Ws layout(int N, int c, int El, int K, int cg_max, float* base) {
   w.cand = take(12LL * N);
   w.part_e = take(n_blocks(E + N));
   w.acc = take(1);
+  w.va = take(N);
+  w.vb = take(N);
+  w.ve = take(E + N);
   w.total = off;
   return w;
 }
@@ -158,9 +186,15 @@ Ws layout(int N, int c, int El, int K, int cg_max, float* base) {
 // Kernels
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads) k6_linearize(Gn6Problem p, Ws w) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= p.c + p.El) return;
+// The one-thread row functions below are __noinline__: the staged kernels
+// and the wide ones call one compiled body, so the two launch shapes round
+// alike (inlined into kernels of other register budgets, nvcc contracted
+// the same source to FMAs differently: Aij differed by 1.22e-4 at garage,
+// NVIDIA H100 80GB HBM3).
+
+// Edge row e < c + El: chain edge e or loop edge e - c, linearized at the
+// poses; Aij into w.Aij, Aii, Ajj, gi, gj into w.blk.
+__device__ __noinline__ void linearize_row6(const Gn6Problem& p, const Ws& w, int e) {
   Pose xi, xj, z;
   M6 W;
   float huber = -1.f;
@@ -188,9 +222,15 @@ __global__ void __launch_bounds__(kThreads) k6_linearize(Gn6Problem p, Ws w) {
   st6(out + 78, 0, m6Tvec(Jjw, rw));
 }
 
-__global__ void __launch_bounds__(kThreads) k6_assemble(Gn6Problem p, Ws w) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= p.N) return;
+__global__ void __launch_bounds__(kThreads) k6_linearize(Gn6Problem p, Ws w) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= p.c + p.El) return;
+  linearize_row6(p, w, e);
+}
+
+// Node row n: D, b and U from its chain edges, its prior and its loop edges
+// in CSR order; in LM mode D's diagonal times (1 + lam).
+__device__ __noinline__ void assemble_row6(const Gn6Problem& p, const Ws& w, int n) {
   M6 D = m6zero();
   V6 g = v6zero();
   if (n < p.c) {  // chain edge n = (n, n+1): node n is its i end
@@ -233,6 +273,12 @@ __global__ void __launch_bounds__(kThreads) k6_assemble(Gn6Problem p, Ws w) {
   st36(p.U, n, n < p.c ? ld36(w.Aij, n) : m6zero());
 }
 
+__global__ void __launch_bounds__(kThreads) k6_assemble(Gn6Problem p, Ws w) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  assemble_row6(p, w, n);
+}
+
 // One PCR level (pcr6_factor_row in se3_blocks.cuh); the last level writes
 // the final inverse instead of D', L', U'.
 __global__ void __launch_bounds__(kThreads) k6_pcr_factor(
@@ -254,7 +300,7 @@ __global__ void __launch_bounds__(kThreads) k6_pcr_apply(
     const V6 o = pcr6_apply_row(n, p.N, k, w.A, w.G, w.DinvF, in, out, last);
     if (rdot) val = v6dot(ld6(rdot, n), o);
   }
-  if (part) block_sum_to(val, part);
+  if (part) block_sum_to(val, part, blockIdx.x);
 }
 
 // out = H v: diagonal blocks, chain U and L = U^T of the previous node,
@@ -280,7 +326,64 @@ __global__ void __launch_bounds__(kThreads) k6_hvp(Gn6Problem p, Ws w, const flo
     st6(out, n, o);
     if (part) val = v6dot(vn, o);
   }
-  if (part) block_sum_to(val, part);
+  if (part) block_sum_to(val, part, blockIdx.x);
+}
+
+// Component a of k6_hvp's row n (live) on the row's group: out[n][a] =
+// (H v)[n][a], each block's product summed in m6vec's / m6Tvec's order. With
+// vals, the group's thread 0 writes v[n].out[n] to vals[n].
+__device__ __forceinline__ void hvp6_lane(const Gn6Problem& p, const Ws& w, const float* v,
+                                          float* out, float* vals, int n, int a, bool live,
+                                          float* S) {
+  float o = 0.f;
+  if (live) {
+    const float* vn = v + 6LL * n;
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < 6; ++q) s += p.D[36LL * n + 6 * a + q] * vn[q];
+    o = s;
+    if (n + 1 < p.N) {
+      s = 0.f;
+#pragma unroll
+      for (int q = 0; q < 6; ++q) s += p.U[36LL * n + 6 * a + q] * v[6LL * (n + 1) + q];
+      o += s;
+    }
+    if (n >= 1) {
+      s = 0.f;
+#pragma unroll
+      for (int q = 0; q < 6; ++q) s += p.U[36LL * (n - 1) + 6 * q + a] * v[6LL * (n - 1) + q];
+      o += s;
+    }
+    const float* LA = p.lA ? p.lA : w.Aij + 36LL * p.c;
+    for (int e = p.csr_ptr[n]; e < p.csr_ptr[n + 1]; ++e) {
+      const int ent = p.csr_ent[e];
+      const int l = ent >> 1;
+      const float* A = LA + 36LL * l;
+      s = 0.f;
+      if (ent & 1) {  // node is j: A^T v_i
+        const float* vi = v + 6LL * p.li[l];
+#pragma unroll
+        for (int q = 0; q < 6; ++q) s += A[6 * q + a] * vi[q];
+      } else {        // node is i: A v_j
+        const float* vj = v + 6LL * p.lj[l];
+#pragma unroll
+        for (int q = 0; q < 6; ++q) s += A[6 * a + q] * vj[q];
+      }
+      o += s;
+    }
+    out[6LL * n + a] = o;
+  }
+  if (vals) {
+    if (live) S[a] = o;
+    __syncwarp();
+    if (live && a == 0) {
+      float d = 0.f;
+#pragma unroll
+      for (int q = 0; q < 6; ++q) d += v[6LL * n + q] * S[q];
+      vals[n] = d;
+    }
+    __syncwarp();
+  }
 }
 
 // Start of CG: cold x = 0, r = b; warm r = b - H x (Ap holds H x).
@@ -298,11 +401,20 @@ __global__ void __launch_bounds__(kThreads) k6_cg_init(Gn6Problem p, Ws w, int w
   st6(w.r, n, r);
 }
 
-// alpha = rz / pAp, guarded; x += alpha p; r -= alpha Ap.
+// alpha = rz / pAp, guarded (the same in every block: the partials are
+// summed in block order).
+__device__ __forceinline__ float cg_alpha6(float pAp, float rz) {
+  return pAp > kTiny ? rz / fmaxf(pAp, kTiny) : 0.f;
+}
+
+// beta = rz_new / rz, guarded.
+__device__ __forceinline__ float cg_beta6(float rz_new, float rz) {
+  return rz > kTiny ? rz_new / fmaxf(rz, kTiny) : 0.f;
+}
+
+// x += alpha p; r -= alpha Ap.
 __global__ void __launch_bounds__(kThreads) k6_cg_update(Gn6Problem p, Ws w, int it) {
-  const float pAp = sum_partials(w.part_a, n_blocks(p.N));
-  const float rz = w.rz[it];
-  const float alpha = pAp > kTiny ? rz / fmaxf(pAp, kTiny) : 0.f;
+  const float alpha = cg_alpha6(sum_partials(w.part_a, n_blocks(p.N)), w.rz[it]);
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= p.N) return;
   V6 x = ld6(p.x, n), r = ld6(w.r, n);
@@ -321,11 +433,7 @@ __global__ void __launch_bounds__(kThreads) k6_cg_direction(Gn6Problem p, Ws w, 
                                                             int init) {
   const float rz_new = sum_partials(w.part_b, n_blocks(p.N));
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  float beta = 0.f;
-  if (!init) {
-    const float rz = w.rz[it];
-    beta = rz > kTiny ? rz_new / fmaxf(rz, kTiny) : 0.f;
-  }
+  const float beta = init ? 0.f : cg_beta6(rz_new, w.rz[it]);
   if (blockIdx.x == 0 && threadIdx.x == 0) w.rz[init ? 0 : it + 1] = rz_new;
   if (n >= p.N) return;
   const V6 z = ld6(w.z, n);
@@ -339,23 +447,25 @@ __global__ void __launch_bounds__(kThreads) k6_cg_direction(Gn6Problem p, Ws w, 
   st6(w.p, n, pv);
 }
 
-// out = poses * Exp(x) with R renormalized; out may be poses itself (each
-// thread owns its node).
-__global__ void __launch_bounds__(kThreads) k6_retract(Gn6Problem p, float* out) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= p.N) return;
+// out = poses * Exp(x) at row n with R renormalized; out may be poses itself
+// (each thread owns its node).
+__device__ __noinline__ void retract_row6(const Gn6Problem& p, float* out, int n) {
   Pose q = se3_compose(ld_pose(p.poses, n), se3_exp(ld6(p.x, n)));
   q.R = renorm(q.R);
   st_pose(out, n, q);
 }
 
+__global__ void __launch_bounds__(kThreads) k6_retract(Gn6Problem p, float* out) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  retract_row6(p, out, n);
+}
+
 // Cost of `poses` (gn6_kernel.py:687-714): squares on chain and prior rows,
 // Huber rho = 2 delta n - delta^2 (n = |rw|, where n > delta) on every loop
-// edge when delta > 0. Thread t takes chain edge t (t < c), loop edge t - c
-// (t < c + El) or the prior of node t - c - El; per-block partials go to
-// w.part_e and are summed in block order by k6_lm_decide / k6_cost_total.
-__global__ void __launch_bounds__(kThreads) k6_chi2(Gn6Problem p, Ws w, const float* poses) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+// edge when delta > 0. Row t takes chain edge t (t < c), loop edge t - c
+// (t < c + El) or the prior of node t - c - El; 0 past them.
+__device__ __noinline__ float chi2_row6(const Gn6Problem& p, const float* poses, int t) {
   float e = 0.f;
   if (t < p.c) {
     const V6 rw = residual_edge(ld_pose(poses, t), ld_pose(poses, t + 1), ld_pose(p.cz, t),
@@ -375,7 +485,14 @@ __global__ void __launch_bounds__(kThreads) k6_chi2(Gn6Problem p, Ws w, const fl
     const V6 rp = m6vec(ld36(p.pW, n), se3_log(se3_between(ld_pose(p.pz, n), ld_pose(poses, n))));
     e = v6dot(rp, rp);
   }
-  block_sum_to(e, w.part_e);
+  return e;
+}
+
+// The per-block partials of the cost go to w.part_e and are summed in block
+// order by k6_lm_decide / k6_cost_total.
+__global__ void __launch_bounds__(kThreads) k6_chi2(Gn6Problem p, Ws w, const float* poses) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  block_sum_to(chi2_row6(p, poses, t), w.part_e, blockIdx.x);
 }
 
 __device__ __forceinline__ float cost_total(const Gn6Problem& p, const Ws& w) {
@@ -392,19 +509,21 @@ struct LmParams {
   float lam0, lam_factor, lam_min, lam_max, abs_tol, rel_tol;
 };
 
-// One thread: stats = [chi2(poses0), lam0, 0, 0].
-__global__ void k6_lm_init(Gn6Problem p, Ws w, LmParams q) {
-  p.stats[0] = cost_total(p, w);
+// One thread: stats = [cost of poses0, lam0, 0, 0].
+__device__ __forceinline__ void lm_init6(const Gn6Problem& p, const LmParams& q, float cost) {
+  p.stats[0] = cost;
   p.stats[1] = q.lam0;
   p.stats[2] = 0.f;
   p.stats[3] = 0.f;
 }
 
-// One thread: accept or reject the candidate whose cost k6_chi2 just summed
+__global__ void k6_lm_init(Gn6Problem p, Ws w, LmParams q) { lm_init6(p, q, cost_total(p, w)); }
+
+// One thread: accept or reject the candidate of cost new_err
 // (gn6_kernel.py:920-946). A NaN cost rejects; conv latches the _lm_loop
 // test with lam before its update.
-__global__ void k6_lm_decide(Gn6Problem p, Ws w, LmParams q) {
-  const float new_err = cost_total(p, w);
+__device__ __forceinline__ void lm_decide6(const Gn6Problem& p, const Ws& w, const LmParams& q,
+                                           float new_err) {
   const float err = p.stats[0], lam = p.stats[1];
   const bool accepted = new_err < err;
   const float dec = err - new_err;
@@ -419,11 +538,143 @@ __global__ void k6_lm_decide(Gn6Problem p, Ws w, LmParams q) {
   w.acc[0] = accepted ? 1.f : 0.f;
 }
 
-// poses <- candidate where the last step was accepted.
+__global__ void k6_lm_decide(Gn6Problem p, Ws w, LmParams q) {
+  lm_decide6(p, w, q, cost_total(p, w));
+}
+
+// Row n: poses <- candidate where the last step was accepted.
+__device__ __forceinline__ void lm_select_row6(const Gn6Problem& p, const Ws& w, int n) {
+  if (w.acc[0] != 0.f) st_pose(p.poses, n, ld_pose(w.cand, n));
+}
+
 __global__ void __launch_bounds__(kThreads) k6_lm_select(Gn6Problem p, Ws w) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= p.N || w.acc[0] == 0.f) return;
-  st_pose(p.poses, n, ld_pose(w.cand, n));
+  if (n >= p.N) return;
+  lm_select_row6(p, w, n);
+}
+
+// ---------------------------------------------------------------------------
+// Wide persistent kernels: K4 and K4-LM, each ONE launch of kWide-thread
+// CTAs, one cluster or a cooperative grid (se3_blocks.cuh's wide stages)
+// ---------------------------------------------------------------------------
+
+// run_system's two stages: the E edge rows, then the N node rows, one
+// thread a row.
+__device__ __forceinline__ void system6_stages(const Gn6Problem& p, const Ws& w) {
+  for_flat(p.c + p.El, [&](int e) { linearize_row6(p, w, e); });
+  stage_sync();
+  for_flat(p.N, [&](int n) { assemble_row6(p, w, n); });
+  stage_sync();
+}
+
+// run_cg's stages on the row groups: with warm, H x first; the init, the
+// first K apply levels and the direction, then cg_iters x (H@p, update, K
+// apply levels, direction). The last direction has no barrier after it.
+__device__ __forceinline__ void cg6_stages(const Gn6Problem& p, const Ws& w, int cg_iters,
+                                           int warm) {
+  const int N = p.N, K = p.K;
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+  if (warm) {
+    for_groups(N, [&](int n, int a, bool live, float* S) {
+      hvp6_lane(p, w, p.x, w.Ap, nullptr, n, a, live, S);
+    });
+    stage_sync();
+  }
+  for_groups(N, [&](int n, int a, bool live, float*) {
+    if (!live) return;
+    float r = p.b[6LL * n + a];
+    if (warm) r -= w.Ap[6LL * n + a];
+    else p.x[6LL * n + a] = 0.f;
+    w.r[6LL * n + a] = r;
+  });
+  stage_sync();
+  apply6_stages(N, K, w.A, w.G, w.DinvF, w.r, w.t[0], w.t[1], w.z, w.r, w.vb);
+  float rz_new = wide_sum(w.vb, N);
+  if (lead) w.rz[0] = rz_new;
+  for_groups(N, [&](int n, int a, bool live, float*) {
+    if (live) w.p[6LL * n + a] = w.z[6LL * n + a];
+  });
+  for (int it = 0; it < cg_iters; ++it) {
+    stage_sync();
+    for_groups(N, [&](int n, int a, bool live, float* S) {
+      hvp6_lane(p, w, w.p, w.Ap, w.va, n, a, live, S);
+    });
+    stage_sync();
+    const float alpha = cg_alpha6(wide_sum(w.va, N), w.rz[it]);
+    for_groups(N, [&](int n, int a, bool live, float*) {
+      if (!live) return;
+      const long long i = 6LL * n + a;
+      p.x[i] += alpha * w.p[i];
+      w.r[i] -= alpha * w.Ap[i];
+    });
+    stage_sync();
+    apply6_stages(N, K, w.A, w.G, w.DinvF, w.r, w.t[0], w.t[1], w.z, w.r, w.vb);
+    rz_new = wide_sum(w.vb, N);
+    const float beta = cg_beta6(rz_new, w.rz[it]);
+    if (lead) w.rz[it + 1] = rz_new;
+    for_groups(N, [&](int n, int a, bool live, float*) {
+      if (!live) return;
+      const long long i = 6LL * n + a;
+      w.p[i] = w.z[i] + beta * w.p[i];
+    });
+  }
+}
+
+// One GN iteration's stages after the system: the K factor levels and the
+// CG.
+__device__ __forceinline__ void solve6_stages(const Gn6Problem& p, const Ws& w, int cg_iters,
+                                              int warm) {
+  factor6_stages(p.N, p.K, p.eps, p.D, p.U, w.PD[0], w.PD[1], w.PU[0], w.PU[1], w.PL[0],
+                 w.PL[1], w.A, w.G, w.DinvF);
+  cg6_stages(p, w, cg_iters, warm);
+}
+
+// K4's GN mode: x = 0, then per GN iteration of each phase run_system,
+// run_factor, run_cg and run_retract in place: 2 + K + (warm) + 2 + K +
+// cg (K + 3) + 1 stages an iteration (404 at sphere2500: K = 12, cg 25).
+__global__ void __launch_bounds__(kWide, 1) k6_gn_wide(Gn6Problem p, Ws w, Phases ph,
+                                                       int warm) {
+  for_flat(6LL * p.N, [&](int i) { p.x[i] = 0.f; });
+  for (int f = 0; f < ph.n; ++f) {
+    for (int i = 0; i < ph.iters[f]; ++i) {
+      stage_sync();
+      system6_stages(p, w);
+      solve6_stages(p, w, ph.cg[f], warm);
+      stage_sync();
+      for_flat(p.N, [&](int n) { retract_row6(p, p.poses, n); });
+    }
+  }
+}
+
+// K4's LM mode: the cost of the poses and lm_init6, then per iteration the
+// GN stages with a cold CG, the retract into the candidate, its cost (c +
+// El + N rows), its sum and lm_decide6 on CTA 0 between two barriers, and
+// the select.
+__global__ void __launch_bounds__(kWide, 1) k6_lm_wide(Gn6Problem p, Ws w, LmParams q,
+                                                       int iterations, int cg_iters) {
+  const int T = p.c + p.El + p.N;
+  for_flat(T, [&](int t) { w.ve[t] = chi2_row6(p, p.poses, t); });
+  stage_sync();
+  if (blockIdx.x == 0) {
+    const float cost = wide_sum(w.ve, T);
+    if (threadIdx.x == 0) lm_init6(p, q, cost);
+  }
+  for (int i = 0; i < iterations; ++i) {
+    stage_sync();
+    system6_stages(p, w);
+    solve6_stages(p, w, cg_iters, 0);
+    stage_sync();
+    for_flat(p.N, [&](int n) { retract_row6(p, w.cand, n); });
+    stage_sync();
+    for_flat(T, [&](int t) { w.ve[t] = chi2_row6(p, w.cand, t); });
+    stage_sync();
+    if (blockIdx.x == 0) {
+      const float cost = wide_sum(w.ve, T);
+      if (threadIdx.x == 0) lm_decide6(p, w, q, cost);
+    }
+    stage_sync();
+    for_flat(p.N, [&](int n) { lm_select_row6(p, w, n); });
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -529,6 +780,17 @@ const char* gn6_error_string(int err) { return cudaGetErrorString((cudaError_t)e
 
 int gn6_problem_size() { return (int)sizeof(Gn6Problem); }
 
+// The wide persistent kernels' shape: rows a CTA holds at once, and the
+// CTAs of gn6_solve's launch over N rows, negative where they form a
+// cooperative grid rather than one cluster (0: a CUDA error).
+int gn6_wide_slots() { return kSlots; }
+
+int gn6_wide_ctas(int N) {
+  Shape sh;
+  if (wide_shape(k6_gn_wide, N, sh) != cudaSuccess) return 0;
+  return sh.cooperative ? -sh.ctas : sh.ctas;
+}
+
 int gn6_system(const Gn6Problem* p) {
   return run_system(*p, ws_of(*p), (cudaStream_t)p->stream);
 }
@@ -574,12 +836,32 @@ int gn6_pcg(const Gn6Problem* pp, int cg_iters) {
 
 // K4's LM mode (gn6_kernel.py:917-955): `iterations` damped steps, each a
 // cold CG of cg_iters, a candidate, its cost and the accept/reject; the
-// stats [chi2, lam, n_acc, conv] stay in p->stats. No host synchronization.
+// stats [chi2, lam, n_acc, conv] stay in p->stats. One launch of
+// k6_lm_wide (wide_shape: one cluster, or a cooperative grid where one
+// pass over the rows needs more than 16 CTAs); gn6_lm_solve_staged is the
+// same computation as a staged sequence of launches, bitwise equal. No host
+// synchronization.
 int gn6_lm_solve(const Gn6Problem* pp, int iterations, int cg_iters, float lam0,
                  float lam_factor, float lam_min, float lam_max, float abs_tol,
                  float rel_tol) {
   const Gn6Problem& p = *pp;
-  if (cg_iters > p.cg_max || !p.stats || p.lA) return (int)cudaErrorInvalidValue;
+  if (cg_iters < 0 || cg_iters > p.cg_max || iterations < 0 || !p.stats || p.lA)
+    return (int)cudaErrorInvalidValue;
+  const LmParams q{lam0, lam_factor, lam_min, lam_max, abs_tol, rel_tol};
+  Shape sh;
+  const cudaError_t err = wide_shape(k6_lm_wide, p.N, sh);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_persistent(k6_lm_wide, sh, kWide, (cudaStream_t)p.stream, p, ws_of(p), q,
+                                iterations, cg_iters);
+}
+
+// gn6_lm_solve as the staged sequence of launches (its yardstick).
+int gn6_lm_solve_staged(const Gn6Problem* pp, int iterations, int cg_iters, float lam0,
+                        float lam_factor, float lam_min, float lam_max, float abs_tol,
+                        float rel_tol) {
+  const Gn6Problem& p = *pp;
+  if (cg_iters < 0 || cg_iters > p.cg_max || iterations < 0 || !p.stats || p.lA)
+    return (int)cudaErrorInvalidValue;
   const Ws w = ws_of(p);
   const cudaStream_t s = (cudaStream_t)p.stream;
   const LmParams q{lam0, lam_factor, lam_min, lam_max, abs_tol, rel_tol};
@@ -602,16 +884,35 @@ int gn6_lm_solve(const Gn6Problem* pp, int iterations, int cg_iters, float lam0,
 }
 
 // Whole GN solve: phases of (iterations, cg_iters); x starts at zero and,
-// with warm, seeds each CG from the previous GN step's dx.
+// with warm, seeds each CG from the previous GN step's dx. One launch of
+// k6_gn_wide in wide_shape's shape; gn6_solve_staged is the same
+// computation as a staged sequence (404 launches an iteration at
+// sphere2500), bitwise equal. At most kMaxPhases phases.
 int gn6_solve(const Gn6Problem* pp, int n_phases, const int* phase_iters, const int* phase_cg,
               int warm) {
   const Gn6Problem& p = *pp;
+  Phases ph;
+  if (!make_phases(n_phases, phase_iters, phase_cg, p.cg_max, ph))
+    return (int)cudaErrorInvalidValue;
+  Shape sh;
+  const cudaError_t err = wide_shape(k6_gn_wide, p.N, sh);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_persistent(k6_gn_wide, sh, kWide, (cudaStream_t)p.stream, p, ws_of(p), ph,
+                                warm);
+}
+
+// gn6_solve as the staged sequence of launches (its yardstick).
+int gn6_solve_staged(const Gn6Problem* pp, int n_phases, const int* phase_iters,
+                     const int* phase_cg, int warm) {
+  const Gn6Problem& p = *pp;
   const Ws w = ws_of(p);
   const cudaStream_t s = (cudaStream_t)p.stream;
+  Phases checked;
+  if (!make_phases(n_phases, phase_iters, phase_cg, p.cg_max, checked))
+    return (int)cudaErrorInvalidValue;
   if (cudaMemsetAsync(p.x, 0, sizeof(float) * 6 * (size_t)p.N, s) != cudaSuccess)
     return (int)cudaGetLastError();
   for (int ph = 0; ph < n_phases; ++ph) {
-    if (phase_cg[ph] > p.cg_max) return (int)cudaErrorInvalidValue;
     for (int i = 0; i < phase_iters[ph]; ++i) {
       GN_TRY(run_system(p, w, s));
       GN_TRY(run_factor(p, w, s));

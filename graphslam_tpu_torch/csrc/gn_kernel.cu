@@ -2,46 +2,48 @@
 // CUDA port of the Pallas kernels graphslam_tpu/ops/gn_kernel.py::_gn_kernel
 // (K1, GN and LM modes) and graphslam_tpu/ops/pcg_kernel.py::_kernel (K3).
 //
-// One GN iteration is a fixed sequence of small launches on the caller's
-// stream, with no host synchronization:
+// One GN iteration is a fixed sequence of row stages:
 //
-//   k_linearize    one thread per chain/loop edge: whitened residual and
+//   linearize      one thread per chain/loop edge: whitened residual and
 //                  Jacobians, then Aii, Aij, Ajj, gi, gj (Aij kept for H@v)
-//   k_assemble     one thread per node: D and g from its chain neighbours,
+//   assemble       one thread per node: D and g from its chain neighbours,
 //                  its prior and its incident loop edges (a CSR in edge
 //                  order, so the sums have a fixed order and no atomics);
 //                  in LM mode D's diagonal is scaled by (1 + lam)
-//   k_pcr_factor   one launch per PCR level (truncated at K levels)
+//   PCR factor     one stage per PCR level (truncated at K levels)
 //   CG, cg_iters times:
-//     k_hvp          H@p with the partial sums of p.Ap per block
-//     k_cg_update    alpha from the partials (same order in every block),
-//                    x += alpha p, r -= alpha Ap
-//     k_pcr_apply    one launch per level; the last applies Dinv and adds
-//                    the partial sums of r.z
-//     k_cg_direction beta, p = z + beta p, rz kept on the device
-//   k_retract      x <- x * Exp(dx) (GN: in place; LM: into a candidate)
+//     H@p          with the partial sums of p.Ap per 256-row block
+//     update       alpha from the partials (same order in every block),
+//                  x += alpha p, r -= alpha Ap
+//     PCR apply    one stage per level; the last applies Dinv and adds
+//                  the partial sums of r.z
+//     direction    beta, p = z + beta p, rz kept on the device
+//   retract        x <- x * Exp(dx) (GN: in place; LM: into a candidate)
 //
-// An LM iteration (gn_kernel.py:911-946) adds three launches: k_chi2 (the
-// candidate's cost, block partials), k_lm_decide (one thread: accept or
-// reject, the lambda schedule, the stats) and k_lm_select (poses <- the
-// candidate where accepted). lam and the stats live in device memory; the
-// decision is taken in its own one-block launch, so no block reads a scalar
-// another block of the same launch writes.
+// An LM iteration (gn_kernel.py:911-946) adds three: the candidate's cost
+// (block partials), the decision (one thread: accept or reject, the lambda
+// schedule, the stats) and the select (poses <- the candidate where
+// accepted). lam and the stats live in device memory.
+//
+// Each stage's rows are __device__ functions that two launch shapes share.
+// gn_solve (K1), gn_lm_solve (K1-LM) and gn_pcg (K3) run a whole solve as
+// ONE launch of a persistent kernel on one thread-block cluster
+// (persistent.cuh: k_gn_persistent, k_lm_persistent, k_pcg_persistent), a
+// cluster barrier where a staged sequence has a kernel boundary; the LM
+// decision runs on CTA 0's thread 0 between two barriers. The staged
+// sequences, one small launch per stage on the caller's stream
+// (gn_solve_staged, gn_lm_solve_staged; gn_factor then gn_cg for K3: 190
+// launches a K1 GN iteration and 401 a K3 call at m3500), give bitwise the
+// same results and stay as the yardsticks.
 //
 // K3 (gn_pcg) is the PCR factor at the exact K = ceil(log2 N) and a cold CG
 // on a D, U, b and loop blocks that the caller supplies (damped in torch
-// beforehand, as the JAX package damps in XLA). It runs the same row
-// functions as K1's stages, but all of them in ONE launch: k_pcg_persistent
-// on one thread-block cluster (se2_blocks.cuh's persistent-stage routine),
-// a cluster barrier where the staged sequence has a kernel boundary. The
-// staged sequence (gn_factor, then gn_cg with warm = 0: 401 launches at
-// m3500) gives bitwise the same x and stays as K3's yardstick.
+// beforehand, as the JAX package damps in XLA).
 //
 // At m3500 size the arrays are a few MB and sit in the 50 MB L2; what bounds
-// these kernels is launch latency (about 190 launches per K1 GN iteration at
-// K=4, cg 25), not bytes or FLOPs: each stage is a few us of work over 14
-// blocks. K3 trades the launches for cluster barriers; K1 and K1-LM still
-// launch per stage (moving them to the routine is later work).
+// these stages is latency, not bytes or FLOPs: each is a few us of work over
+// 14 row blocks, so a launch boundary (~4.8 us from the host) costs more
+// than the stage. A cluster barrier in hardware costs far less.
 //
 // Numerics follow the TPU kernels, not the XLA solver: floor-based angle
 // wrap, PCR ridge eps/3*|tr| + 1e-8 with the adjugate inverse (no 1e-8*I),
@@ -181,9 +183,9 @@ __device__ __forceinline__ V3 residual_edge(const V3& xi, const V3& xj, const V3
 // Kernels
 // ---------------------------------------------------------------------------
 
-__global__ void k_linearize(GnProblem p, Ws w) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= p.c + p.El) return;
+// Edge row e < c + El: chain edge e or loop edge e - c, linearized at the
+// poses; Aij into w.Aij, Aii, Ajj, gi, gj into w.blk.
+__device__ __forceinline__ void linearize_row(const GnProblem& p, const Ws& w, int e) {
   V3 xi, xj, z;
   M3 R;
   float huber = -1.f;
@@ -212,9 +214,15 @@ __global__ void k_linearize(GnProblem p, Ws w) {
   st3(out + 21, 0, mTvec(Jjw, rw));
 }
 
-__global__ void k_assemble(GnProblem p, Ws w) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= p.N) return;
+__global__ void k_linearize(GnProblem p, Ws w) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= p.c + p.El) return;
+  linearize_row(p, w, e);
+}
+
+// Node row n: D, b and U from its chain edges, its prior and its loop edges
+// in CSR order; in LM mode D's diagonal times (1 + lam).
+__device__ __forceinline__ void assemble_row(const GnProblem& p, const Ws& w, int n) {
   M3 D = m3zero();
   V3 g = v3zero();
   if (n < p.c) {  // chain edge n = (n, n+1): node n is its i end
@@ -255,6 +263,12 @@ __global__ void k_assemble(GnProblem p, Ws w) {
   st9(p.D, n, D);
   st3(p.b, n, V3{{-g.v[0], -g.v[1], -g.v[2]}});
   st9(p.U, n, n < p.c ? ld9(w.Aij, n) : m3zero());
+}
+
+__global__ void k_assemble(GnProblem p, Ws w) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  assemble_row(p, w, n);
 }
 
 // One PCR level (pcr_factor_row in se2_blocks.cuh); the last level writes
@@ -392,18 +406,132 @@ __global__ void k_cg_direction(GnProblem p, Ws w, int it, int init) {
   cg_direction_row(w, n, beta, init);
 }
 
-// K3 in one launch on a thread-block cluster (the persistent-stage routine
-// of se2_blocks.cuh): the K PCR factor levels, the cold CG init, the first
-// K apply levels and direction, then cg_iters x (H@p, update, K apply
-// levels, direction) -- the launches of run_factor and run_cg(warm = 0),
-// row for row, with a cluster barrier in place of each kernel boundary:
-// 2K + 2 + cg_iters (K + 3) stages, 401 at m3500 (K = 12, cg 25).
-__global__ void __launch_bounds__(kThreads, 1) k_pcg_persistent(GnProblem p, Ws w,
-                                                                 int cg_iters) {
+// out = poses * Exp(x) at row n; out may be poses itself (each thread owns
+// its node).
+__device__ __forceinline__ void retract_row(const GnProblem& p, float* out, int n) {
+  st3(out, n, se2_compose(ld3(p.poses, n), se2_exp(ld3(p.x, n))));
+}
+
+__global__ void k_retract(GnProblem p, float* out) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  retract_row(p, out, n);
+}
+
+// Cost of `poses` (gn_kernel.py:651-690): squares on chain and prior rows,
+// Huber rho = 2 delta n - delta^2 (n = |rw|, where n > delta) on every loop
+// edge when delta > 0. Row t takes chain edge t (t < c), loop edge t - c
+// (t < c + El) or the prior of node t - c - El; 0 past them.
+__device__ __forceinline__ float chi2_row(const GnProblem& p, const float* poses, int t) {
+  float e = 0.f;
+  if (t < p.c) {
+    const V3 rw = residual_edge(ld3(poses, t), ld3(poses, t + 1), ld3(p.cz, t), ld9(p.cR, t));
+    e = vdot(rw, rw);
+  } else if (t < p.c + p.El) {
+    const int l = t - p.c;
+    const V3 rw = residual_edge(ld3(poses, p.li[l]), ld3(poses, p.lj[l]), ld3(p.lz, l),
+                                ld9(p.lR, l));
+    e = vdot(rw, rw);
+    if (p.huber_delta > 0.f) {
+      const float nrm = sqrtf(fmaxf(e, 1e-24f));
+      if (!(nrm <= p.huber_delta)) e = 2.f * p.huber_delta * nrm - p.huber_delta * p.huber_delta;
+    }
+  } else if (t < p.c + p.El + p.N) {
+    const int n = t - p.c - p.El;
+    const V3 rp = mvec(ld9(p.pR, n), se2_log(se2_between(ld3(p.pz, n), ld3(poses, n))));
+    e = vdot(rp, rp);
+  }
+  return e;
+}
+
+// The per-block partials of the cost go to w.part_e and are summed in block
+// order by lm_decide / k_cost_total.
+__global__ void k_chi2(GnProblem p, Ws w, const float* poses) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  block_sum_to(chi2_row(p, poses, t), w.part_e, blockIdx.x);
+}
+
+__device__ __forceinline__ float cost_total(const GnProblem& p, const Ws& w) {
+  float acc = 0.f;
+  const int nb = n_blocks((long long)p.c + p.El + p.N);
+  for (int i = 0; i < nb; ++i) acc += w.part_e[i];
+  return acc;
+}
+
+// One thread: the cost from k_chi2's partials into out[0].
+__global__ void k_cost_total(GnProblem p, Ws w, float* out) { out[0] = cost_total(p, w); }
+
+struct LmParams {
+  float lam0, lam_factor, lam_min, lam_max, abs_tol, rel_tol;
+};
+
+// One thread: stats = [chi2(poses0), lam0, 0, 0].
+__device__ __forceinline__ void lm_init(const GnProblem& p, const Ws& w, const LmParams& q) {
+  p.stats[0] = cost_total(p, w);
+  p.stats[1] = q.lam0;
+  p.stats[2] = 0.f;
+  p.stats[3] = 0.f;
+}
+
+__global__ void k_lm_init(GnProblem p, Ws w, LmParams q) { lm_init(p, w, q); }
+
+// One thread: accept or reject the candidate whose cost k_chi2 just summed
+// (gn_kernel.py:927-944). A NaN cost rejects; conv latches the _lm_loop
+// test with lam before its update.
+__device__ __forceinline__ void lm_decide(const GnProblem& p, const Ws& w, const LmParams& q) {
+  const float new_err = cost_total(p, w);
+  const float err = p.stats[0], lam = p.stats[1];
+  const bool accepted = new_err < err;
+  const float dec = err - new_err;
+  const bool conv = p.stats[3] != 0.f ||
+                    (accepted && (dec < q.abs_tol || dec < q.rel_tol * err)) ||
+                    lam >= q.lam_max;
+  p.stats[0] = accepted ? new_err : err;
+  p.stats[1] = accepted ? fmaxf(lam / q.lam_factor, q.lam_min)
+                        : fminf(lam * q.lam_factor, q.lam_max);
+  p.stats[2] += accepted ? 1.f : 0.f;
+  p.stats[3] = conv ? 1.f : 0.f;
+  w.acc[0] = accepted ? 1.f : 0.f;
+}
+
+__global__ void k_lm_decide(GnProblem p, Ws w, LmParams q) { lm_decide(p, w, q); }
+
+// Row n: poses <- candidate where the last step was accepted.
+__device__ __forceinline__ void lm_select_row(const GnProblem& p, const Ws& w, int n) {
+  if (w.acc[0] != 0.f) st3(p.poses, n, ld3(w.cand, n));
+}
+
+__global__ void k_lm_select(GnProblem p, Ws w) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  lm_select_row(p, w, n);
+}
+
+// ---------------------------------------------------------------------------
+// Persistent kernels: K3, K1 and K1-LM, each ONE launch on a thread-block
+// cluster (persistent.cuh), the staged launches' rows with a cluster
+// barrier in place of each kernel boundary
+// ---------------------------------------------------------------------------
+
+// run_system's two stages: the E edge rows, then the N node rows.
+__device__ __forceinline__ void system_stages(const GnProblem& p, const Ws& w) {
+  for_rows(p.c + p.El, [&](int e) { linearize_row(p, w, e); });
+  cluster_sync();
+  for_rows(p.N, [&](int n) { assemble_row(p, w, n); });
+  cluster_sync();
+}
+
+// run_cg's stages: with warm, H x first; the init, the first K apply levels
+// and the direction, then cg_iters x (H@p, update, K apply levels,
+// direction). The last direction has no barrier after it.
+__device__ __forceinline__ void cg_stages(const GnProblem& p, const Ws& w, int cg_iters,
+                                          int warm) {
   const int N = p.N, K = p.K;
-  pcr_factor_stages(N, K, p.eps, p.D, p.U, w.PD[0], w.PD[1], w.PU[0], w.PU[1], w.PL[0],
-                    w.PL[1], w.A, w.G, w.DinvF);
-  for_rows(N, [&](int n) { cg_init_row(p, w, n, 0); });
+  if (warm) {
+    for_rows(N, [&](int n) { hvp_row(p, w, p.x, w.Ap, n); });
+    cluster_sync();
+  }
+  for_rows(N, [&](int n) { cg_init_row(p, w, n, warm); });
   cluster_sync();
   pcr_apply_stages(N, K, w.A, w.G, w.DinvF, w.r, w.t[0], w.t[1], w.z, w.r, w.part_b);
   float rz_new = sum_partials(w.part_b, n_blocks(N));
@@ -424,87 +552,60 @@ __global__ void __launch_bounds__(kThreads, 1) k_pcg_persistent(GnProblem p, Ws 
   }
 }
 
-// out = poses * Exp(x); out may be poses itself (each thread owns its node).
-__global__ void k_retract(GnProblem p, float* out) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= p.N) return;
-  st3(out, n, se2_compose(ld3(p.poses, n), se2_exp(ld3(p.x, n))));
+// K3: the K PCR factor levels and a cold CG -- run_factor and run_cg(warm
+// = 0): 2K + 2 + cg_iters (K + 3) stages, 401 at m3500 (K = 12, cg 25).
+__global__ void __launch_bounds__(kThreads, 1) k_pcg_persistent(GnProblem p, Ws w,
+                                                                 int cg_iters) {
+  pcr_factor_stages(p.N, p.K, p.eps, p.D, p.U, w.PD[0], w.PD[1], w.PU[0], w.PU[1], w.PL[0],
+                    w.PL[1], w.A, w.G, w.DinvF);
+  cg_stages(p, w, cg_iters, 0);
 }
 
-// Cost of `poses` (gn_kernel.py:651-690): squares on chain and prior rows,
-// Huber rho = 2 delta n - delta^2 (n = |rw|, where n > delta) on every loop
-// edge when delta > 0. Thread t takes chain edge t (t < c), loop edge t - c
-// (t < c + El) or the prior of node t - c - El; per-block partials go to
-// w.part_e and are summed in block order by k_lm_decide / k_cost_total.
-__global__ void k_chi2(GnProblem p, Ws w, const float* poses) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  float e = 0.f;
-  if (t < p.c) {
-    const V3 rw = residual_edge(ld3(poses, t), ld3(poses, t + 1), ld3(p.cz, t), ld9(p.cR, t));
-    e = vdot(rw, rw);
-  } else if (t < p.c + p.El) {
-    const int l = t - p.c;
-    const V3 rw = residual_edge(ld3(poses, p.li[l]), ld3(poses, p.lj[l]), ld3(p.lz, l),
-                                ld9(p.lR, l));
-    e = vdot(rw, rw);
-    if (p.huber_delta > 0.f) {
-      const float nrm = sqrtf(fmaxf(e, 1e-24f));
-      if (!(nrm <= p.huber_delta)) e = 2.f * p.huber_delta * nrm - p.huber_delta * p.huber_delta;
+// K1's GN mode: x = 0, then per GN iteration of each phase run_system,
+// run_factor, run_cg and run_retract in place: 2 + K + (warm) + 2 + K +
+// cg (K + 3) + 1 stages an iteration (190 at m3500: K = 4, cg 25).
+__global__ void __launch_bounds__(kThreads, 1) k_gn_persistent(GnProblem p, Ws w, Phases ph,
+                                                                int warm) {
+  for_rows(p.N, [&](int n) { st3(p.x, n, v3zero()); });
+  for (int f = 0; f < ph.n; ++f) {
+    for (int i = 0; i < ph.iters[f]; ++i) {
+      cluster_sync();
+      system_stages(p, w);
+      pcr_factor_stages(p.N, p.K, p.eps, p.D, p.U, w.PD[0], w.PD[1], w.PU[0], w.PU[1],
+                        w.PL[0], w.PL[1], w.A, w.G, w.DinvF);
+      cg_stages(p, w, ph.cg[f], warm);
+      cluster_sync();
+      for_rows(p.N, [&](int n) { retract_row(p, p.poses, n); });
     }
-  } else if (t < p.c + p.El + p.N) {
-    const int n = t - p.c - p.El;
-    const V3 rp = mvec(ld9(p.pR, n), se2_log(se2_between(ld3(p.pz, n), ld3(poses, n))));
-    e = vdot(rp, rp);
   }
-  block_sum_to(e, w.part_e, blockIdx.x);
 }
 
-__device__ __forceinline__ float cost_total(const GnProblem& p, const Ws& w) {
-  float acc = 0.f;
-  const int nb = n_blocks((long long)p.c + p.El + p.N);
-  for (int i = 0; i < nb; ++i) acc += w.part_e[i];
-  return acc;
-}
-
-// One thread: the cost from k_chi2's partials into out[0].
-__global__ void k_cost_total(GnProblem p, Ws w, float* out) { out[0] = cost_total(p, w); }
-
-struct LmParams {
-  float lam0, lam_factor, lam_min, lam_max, abs_tol, rel_tol;
-};
-
-// One thread: stats = [chi2(poses0), lam0, 0, 0].
-__global__ void k_lm_init(GnProblem p, Ws w, LmParams q) {
-  p.stats[0] = cost_total(p, w);
-  p.stats[1] = q.lam0;
-  p.stats[2] = 0.f;
-  p.stats[3] = 0.f;
-}
-
-// One thread: accept or reject the candidate whose cost k_chi2 just summed
-// (gn_kernel.py:927-944). A NaN cost rejects; conv latches the _lm_loop
-// test with lam before its update.
-__global__ void k_lm_decide(GnProblem p, Ws w, LmParams q) {
-  const float new_err = cost_total(p, w);
-  const float err = p.stats[0], lam = p.stats[1];
-  const bool accepted = new_err < err;
-  const float dec = err - new_err;
-  const bool conv = p.stats[3] != 0.f ||
-                    (accepted && (dec < q.abs_tol || dec < q.rel_tol * err)) ||
-                    lam >= q.lam_max;
-  p.stats[0] = accepted ? new_err : err;
-  p.stats[1] = accepted ? fmaxf(lam / q.lam_factor, q.lam_min)
-                        : fminf(lam * q.lam_factor, q.lam_max);
-  p.stats[2] += accepted ? 1.f : 0.f;
-  p.stats[3] = conv ? 1.f : 0.f;
-  w.acc[0] = accepted ? 1.f : 0.f;
-}
-
-// poses <- candidate where the last step was accepted.
-__global__ void k_lm_select(GnProblem p, Ws w) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= p.N || w.acc[0] == 0.f) return;
-  st3(p.poses, n, ld3(w.cand, n));
+// K1's LM mode: the cost of the poses and lm_init, then per iteration the
+// GN stages with a cold CG, the retract into the candidate, its cost (c +
+// El + N rows), lm_decide on CTA 0's thread 0 between two barriers, and the
+// select.
+__global__ void __launch_bounds__(kThreads, 1) k_lm_persistent(GnProblem p, Ws w, LmParams q,
+                                                                int iterations, int cg_iters) {
+  const int T = p.c + p.El + p.N;
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+  for_rows_sum(T, w.part_e, [&](int t) { return chi2_row(p, p.poses, t); });
+  cluster_sync();
+  if (lead) lm_init(p, w, q);
+  for (int i = 0; i < iterations; ++i) {
+    cluster_sync();
+    system_stages(p, w);
+    pcr_factor_stages(p.N, p.K, p.eps, p.D, p.U, w.PD[0], w.PD[1], w.PU[0], w.PU[1], w.PL[0],
+                      w.PL[1], w.A, w.G, w.DinvF);
+    cg_stages(p, w, cg_iters, 0);
+    cluster_sync();
+    for_rows(p.N, [&](int n) { retract_row(p, w.cand, n); });
+    cluster_sync();
+    for_rows_sum(T, w.part_e, [&](int t) { return chi2_row(p, w.cand, t); });
+    cluster_sync();
+    if (lead) lm_decide(p, w, q);
+    cluster_sync();
+    for_rows(p.N, [&](int n) { lm_select_row(p, w, n); });
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -654,12 +755,28 @@ int gn_pcg(const GnProblem* pp, int cg_iters) {
 
 // K1's LM mode (gn_kernel.py:911-946): `iterations` damped steps, each a
 // cold CG of cg_iters, a candidate, its cost and the accept/reject; the
-// stats [chi2, lam, n_acc, conv] stay in p->stats. No host synchronization.
+// stats [chi2, lam, n_acc, conv] stay in p->stats. One launch of
+// k_lm_persistent on one thread-block cluster; gn_lm_solve_staged is the
+// same computation as 2 + iterations (2 + K + 2 + K + cg (K + 3) + 4)
+// launches, bitwise equal. No host synchronization.
 int gn_lm_solve(const GnProblem* pp, int iterations, int cg_iters, float lam0,
                 float lam_factor, float lam_min, float lam_max, float abs_tol,
                 float rel_tol) {
   const GnProblem& p = *pp;
-  if (cg_iters > p.cg_max || !p.stats || p.lA) return (int)cudaErrorInvalidValue;
+  if (cg_iters < 0 || cg_iters > p.cg_max || iterations < 0 || !p.stats || p.lA)
+    return (int)cudaErrorInvalidValue;
+  const LmParams q{lam0, lam_factor, lam_min, lam_max, abs_tol, rel_tol};
+  return (int)launch_cluster(k_lm_persistent, p.N, (cudaStream_t)p.stream, p, ws_of(p), q,
+                             iterations, cg_iters);
+}
+
+// gn_lm_solve as the staged sequence of launches (its yardstick).
+int gn_lm_solve_staged(const GnProblem* pp, int iterations, int cg_iters, float lam0,
+                       float lam_factor, float lam_min, float lam_max, float abs_tol,
+                       float rel_tol) {
+  const GnProblem& p = *pp;
+  if (cg_iters < 0 || cg_iters > p.cg_max || iterations < 0 || !p.stats || p.lA)
+    return (int)cudaErrorInvalidValue;
   const Ws w = ws_of(p);
   const cudaStream_t s = (cudaStream_t)p.stream;
   const LmParams q{lam0, lam_factor, lam_min, lam_max, abs_tol, rel_tol};
@@ -682,16 +799,32 @@ int gn_lm_solve(const GnProblem* pp, int iterations, int cg_iters, float lam0,
 }
 
 // Whole solve: phases of (iterations, cg_iters); x starts at zero and, with
-// warm, seeds each CG from the previous GN step's dx.
+// warm, seeds each CG from the previous GN step's dx. One launch of
+// k_gn_persistent on one thread-block cluster; gn_solve_staged is the same
+// computation as a staged sequence (190 launches an iteration at m3500),
+// bitwise equal. At most kMaxPhases phases.
 int gn_solve(const GnProblem* pp, int n_phases, const int* phase_iters, const int* phase_cg,
              int warm) {
   const GnProblem& p = *pp;
+  Phases ph;
+  if (!make_phases(n_phases, phase_iters, phase_cg, p.cg_max, ph))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_cluster(k_gn_persistent, p.N, (cudaStream_t)p.stream, p, ws_of(p), ph,
+                             warm);
+}
+
+// gn_solve as the staged sequence of launches (its yardstick).
+int gn_solve_staged(const GnProblem* pp, int n_phases, const int* phase_iters,
+                    const int* phase_cg, int warm) {
+  const GnProblem& p = *pp;
   const Ws w = ws_of(p);
   const cudaStream_t s = (cudaStream_t)p.stream;
+  Phases checked;
+  if (!make_phases(n_phases, phase_iters, phase_cg, p.cg_max, checked))
+    return (int)cudaErrorInvalidValue;
   if (cudaMemsetAsync(p.x, 0, sizeof(float) * 3 * (size_t)p.N, s) != cudaSuccess)
     return (int)cudaGetLastError();
   for (int ph = 0; ph < n_phases; ++ph) {
-    if (phase_cg[ph] > p.cg_max) return (int)cudaErrorInvalidValue;
     for (int i = 0; i < phase_iters[ph]; ++i) {
       GN_TRY(run_system(p, w, s));
       GN_TRY(run_factor(p, w, s));

@@ -1,31 +1,24 @@
 // Device code shared by the SE(2) kernels csrc/gn_kernel.cu (K1, K3) and
 // csrc/cg_step.cu (K6a-c): 3-vectors and row-major 3x3 blocks in registers,
 // SE(2) and the whitened between factor in the TPU kernels' form, the PCR
-// ridge, inverse, factor row and apply row, the deterministic block
-// reductions, and the persistent-stage routine that runs a sequence of row
-// stages in one launch on a thread-block cluster (K3 and K6c). Line
-// references "gn_kernel.py:N" are to graphslam_tpu/ops/gn_kernel.py.
+// ridge, inverse, factor row and apply row, and the PCR factor and apply
+// levels as persistent stages (K1, K3 and K6c, on the routine of
+// persistent.cuh). Line references "gn_kernel.py:N" are to
+// graphslam_tpu/ops/gn_kernel.py.
 // Included inside no namespace; everything here has internal linkage, one
 // copy per library.
 
 #pragma once
 
-#include <atomic>
-
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "persistent.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr float kPi = 3.14159265358979f;
 constexpr float kTwoPi = 6.28318530717959f;
-constexpr float kTiny = 1e-30f;
-
-__host__ __device__ inline int n_blocks(long long n) {
-  return (int)((n + kThreads - 1) / kThreads);
-}
 
 // ---------------------------------------------------------------------------
 // 3-vectors and row-major 3x3 blocks in registers
@@ -215,37 +208,6 @@ __device__ M3 binv(const M3& M) {
   return inv;
 }
 
-// ---------------------------------------------------------------------------
-// Deterministic reductions: a fixed shared-memory tree per block, then every
-// block sums the per-block partials in index order.
-// ---------------------------------------------------------------------------
-
-// The block sum of val over the kThreads threads into part[blk], blk the
-// index of the 256-row block the threads cover (blockIdx.x in a staged
-// launch; one of the blocks a CTA walks in a persistent one).
-__device__ void block_sum_to(float val, float* part, int blk) {
-  __shared__ float s[kThreads];
-  const int t = threadIdx.x;
-  s[t] = val;
-  __syncthreads();
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if (t < stride) s[t] += s[t + stride];
-    __syncthreads();
-  }
-  if (t == 0) part[blk] = s[0];
-}
-
-__device__ float sum_partials(const float* part, int n) {
-  __shared__ float total;
-  if (threadIdx.x == 0) {
-    float acc = 0.f;
-    for (int i = 0; i < n; ++i) acc += part[i];
-    total = acc;
-  }
-  __syncthreads();
-  return total;
-}
-
 // Chain sub-diagonal L[m] = U[m-1]^T at level 0; the level's own L after.
 __device__ __forceinline__ M3 load_L(const float* Ls, const float* U0, int m) {
   if (Ls) return ld9(Ls, m);
@@ -314,63 +276,8 @@ __device__ __forceinline__ V3 pcr_apply_row(int n, int N, int k, const float* A,
 }
 
 // ---------------------------------------------------------------------------
-// Persistent stages on one thread-block cluster
+// The PCR levels as persistent stages (persistent.cuh)
 // ---------------------------------------------------------------------------
-//
-// A staged sequence (one launch per stage, n_blocks(N) blocks of kThreads
-// threads, thread t of block b on row b * kThreads + t) runs as ONE launch
-// of C = cluster_ctas(N) CTAs that form one cluster. CTA c walks the
-// 256-row blocks c, c + C, c + 2C, ... of every stage and handles each row
-// as the staged kernel does; a cluster barrier stands where the staged
-// sequence has a kernel boundary. Its release/acquire at cluster scope
-// makes one stage's global writes (vectors, block partials, scalars)
-// visible to every CTA of the next; they are read with plain loads, never
-// through __ldg or const __restrict__. Each 256-row block keeps its own
-// shared-memory tree and its own index in the partials, and every CTA sums
-// the partials in block order, so the results are bitwise those of the
-// staged launches. Every thread of a CTA walks the same number of blocks
-// and reaches every __syncthreads and every cluster barrier; rows past N
-// compute nothing.
-//
-// One cluster holds at most 16 CTAs (the non-portable size), so it spans at
-// most 16 of the H100's 132 SMs: width is traded for a barrier in hardware.
-// At N = 3500 a stage touches ~0.3 MB, all of it in the 50 MB L2, so the
-// stage's latency, not bandwidth, is what a launch boundary used to cost.
-
-#ifndef SE2_MAX_CLUSTER
-#define SE2_MAX_CLUSTER 16
-#endif
-constexpr int kMaxClusterCtas = SE2_MAX_CLUSTER;
-
-// CTAs of the persistent launch over N rows: one per 256-row block, at most
-// kMaxClusterCtas.
-inline int cluster_ctas(long long N) {
-  const int nb = n_blocks(N);
-  return nb < 1 ? 1 : nb < kMaxClusterCtas ? nb : kMaxClusterCtas;
-}
-
-__device__ __forceinline__ void cluster_sync() { cooperative_groups::this_cluster().sync(); }
-
-// f(n) for every row n < N of this CTA's blocks.
-template <typename F>
-__device__ __forceinline__ void for_rows(int N, F f) {
-  const int nb = n_blocks(N);
-  for (int blk = blockIdx.x; blk < nb; blk += gridDim.x) {
-    const int n = blk * kThreads + threadIdx.x;
-    if (n < N) f(n);
-  }
-}
-
-// f(n) for every row n < N of this CTA's blocks; its values (0 past N)
-// summed per 256-row block into part[blk].
-template <typename F>
-__device__ __forceinline__ void for_rows_sum(int N, float* part, F f) {
-  const int nb = n_blocks(N);
-  for (int blk = blockIdx.x; blk < nb; blk += gridDim.x) {
-    const int n = blk * kThreads + threadIdx.x;
-    block_sum_to(n < N ? f(n) : 0.f, part, blk);
-  }
-}
 
 // The K PCR factor levels of k_pcr_factor / cg_pcr_factor, a barrier after
 // each: level 0 reads D and U (L from U), later levels the ping-pong
@@ -417,49 +324,6 @@ __device__ __forceinline__ void pcr_apply_stages(int N, int K, const float* A, c
     }
     cluster_sync();
   }
-}
-
-// Launches kernel(args...) on stream s as ONE cluster of cluster_ctas(N)
-// CTAs of kThreads threads (cudaLaunchKernelEx with the cluster dimension;
-// above 8 CTAs the non-portable size is allowed first). Returns the CUDA
-// error of the attribute, of the occupancy query or of the launch, and
-// cudaErrorLaunchOutOfResources where the card cannot place such a cluster
-// (cudaOccupancyMaxActiveClusters < 1). There is no other launch shape to
-// fall back to. The attribute and the occupancy answer are kept per device
-// and cluster size after their first success.
-template <typename... KArgs, typename... Args>
-cudaError_t launch_cluster(void (*kernel)(KArgs...), long long N, cudaStream_t s,
-                           Args... args) {
-  static std::atomic<int> placed[8][kMaxClusterCtas + 1];
-  const int C = cluster_ctas(N);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  std::atomic<int>* known = dev >= 0 && dev < 8 ? &placed[dev][C] : nullptr;
-  if (!known || known->load(std::memory_order_relaxed) == 0) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    if (err != cudaSuccess) return err;
-    if (clusters < 1) return cudaErrorLaunchOutOfResources;
-    if (known) known->store(1, std::memory_order_relaxed);
-  }
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
 }
 
 }  // namespace

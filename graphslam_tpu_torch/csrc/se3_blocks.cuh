@@ -1,9 +1,11 @@
 // Device code shared by the SE(3) kernels csrc/gn6_kernel.cu (K4, K5) and
 // csrc/cg_step6.cu (K7a-c): 6-vectors and row-major 6x6 blocks (and their
 // 3x3 quadrants) in registers, SO(3)/SE(3) and the whitened between factor
-// in the TPU kernels' form, the PCR ridge, the 3x3 and 6x6 inverses, the PCR
-// factor row and apply row, and the deterministic block reductions. Line
-// references "gn6_kernel.py:N" are to graphslam_tpu/ops/gn6_kernel.py.
+// in the TPU kernels' form, the PCR ridge, the 3x3 and 6x6 inverses, the
+// PCR factor row and apply row, and the wide persistent stages of K4 (a
+// group of 6 threads a row; the block reductions and the cluster launch
+// are persistent.cuh's). Line references "gn6_kernel.py:N" are to
+// graphslam_tpu/ops/gn6_kernel.py.
 // Included inside no namespace; everything here has internal linkage, one
 // copy per library.
 
@@ -12,15 +14,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "persistent.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr float kPi = 3.14159265358979f;
-constexpr float kTiny = 1e-30f;
-
-__host__ __device__ inline int n_blocks(long long n) {
-  return (int)((n + kThreads - 1) / kThreads);
-}
 
 // ---------------------------------------------------------------------------
 // Small vectors and row-major blocks in registers
@@ -456,34 +454,6 @@ __device__ M6 binv6(const M6& M) {
   return from_quads(TL, TR, mT(TR), BR);
 }
 
-// ---------------------------------------------------------------------------
-// Deterministic reductions: a fixed shared-memory tree per block, then every
-// block sums the per-block partials in index order.
-// ---------------------------------------------------------------------------
-
-__device__ void block_sum_to(float val, float* part) {
-  __shared__ float s[kThreads];
-  const int t = threadIdx.x;
-  s[t] = val;
-  __syncthreads();
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if (t < stride) s[t] += s[t + stride];
-    __syncthreads();
-  }
-  if (t == 0) part[blockIdx.x] = s[0];
-}
-
-__device__ float sum_partials(const float* part, int n) {
-  __shared__ float total;
-  if (threadIdx.x == 0) {
-    float acc = 0.f;
-    for (int i = 0; i < n; ++i) acc += part[i];
-    total = acc;
-  }
-  __syncthreads();
-  return total;
-}
-
 // Chain sub-diagonal L[m] = U[m-1]^T at level 0; the level's own L after.
 __device__ __forceinline__ M6 load_L(const float* Ls, const float* U0, int m) {
   if (Ls) return ld36(Ls, m);
@@ -557,6 +527,375 @@ __device__ __forceinline__ V6 pcr6_apply_row(int n, int N, int k, const float* A
   if (last) o = m6vec(ld36(Dinv, n), o);
   st6(out, n, o);
   return o;
+}
+
+// ---------------------------------------------------------------------------
+// Wide persistent stages: a group of 6 threads on each 6x6 row
+// ---------------------------------------------------------------------------
+//
+// A persistent SE(3) kernel (K4's) runs on wide_shape's CTAs of kWide
+// threads, one cluster or a cooperative grid. Its heavy stages give each row a group of 6 threads,
+// thread a of the group on output component a (row a of a 6x6 product):
+// lanes 6j .. 6j + 5 of a warp hold the warp's row slot j (j < 5; lanes 30
+// and 31 hold none), so a CTA holds kSlots rows at once and every exchange
+// inside a group stays in one warp (__syncwarp and per-slot shared memory).
+// A group thread computes its component as the one-thread row of
+// pcr6_apply_row / pcr6_factor_row / K4's H@p computes it, sum for sum in
+// m6vec's and m6mul's order; binv6 stays whole in one thread of the group.
+// Lighter stages (linearize, assembly, retract, cost) take one thread a row
+// over the whole cluster (for_flat).
+//
+// A reduction of one value a row (v.Hv, r.z, the cost) goes through a row
+// buffer: the group's thread 0 writes the row's value, and after the next
+// cluster barrier every CTA sums the buffer with wide_sum, which forms each
+// 256-row block's tree of block_sum_to (one warp a block, the same pairs
+// in the same order, in registers and shuffles) and adds the blocks in
+// order as sum_partials does. So every number is bitwise the staged
+// launches' (gn6_kernel.cu's k6_* sequence), at any cluster size and any
+// number of passes a CTA walks.
+
+constexpr int kWide = 384;               // threads a CTA
+constexpr int kGroupRows = 5;            // row slots a warp (30 of its 32 lanes)
+constexpr int kSlots = kWide / 32 * kGroupRows;
+constexpr int kSlotFloats = 72;          // shared scratch a slot: two 6x6 blocks
+
+// The launch shape of the wide kernels over N rows, for one pass over the
+// rows (ceil(N / kSlots) CTAs): one cluster where that is at most
+// kMaxClusterCtas CTAs, else a cooperative grid of as many CTAs, at most
+// the CTAs of `kernel` the card holds at once (they then walk several
+// passes).
+template <typename... KArgs>
+cudaError_t wide_shape(void (*kernel)(KArgs...), long long N, Shape& sh) {
+  const long long pass = (N + kSlots - 1) / kSlots;
+  const int want = pass < 1 ? 1 : pass > (1 << 30) ? (1 << 30) : (int)pass;
+  if (want <= kMaxClusterCtas) {
+    sh = Shape{want, false};
+    return cudaSuccess;
+  }
+  int cap = 0;
+  const cudaError_t err = coresident_ctas(kernel, kWide, cap);
+  if (err != cudaSuccess) return err;
+  if (cap < 1) return cudaErrorLaunchOutOfResources;
+  sh = Shape{want < cap ? want : cap, true};
+  return cudaSuccess;
+}
+
+// f(i) for every i < M, one thread each over the whole launch.
+template <typename F>
+__device__ __forceinline__ void for_flat(long long M, F f) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < M; i += stride)
+    f((int)i);
+}
+
+// f(n, a, live, S) for every row n < N, on the 6 threads a = 0..5 of its
+// group, with S the slot's kSlotFloats floats of shared scratch. Every
+// thread of the cluster makes the same number of calls (live = false past
+// N and on lanes 30 and 31), so f may call __syncwarp.
+// The CTA's group scratch, kSlotFloats floats a slot (one array for every
+// stage: a __shared__ array in the template below would be one per stage).
+__device__ float* group_scratch() {
+  __shared__ float scratch[kSlots * kSlotFloats];
+  return scratch;
+}
+
+template <typename F>
+__device__ __forceinline__ void for_groups(int N, F f) {
+  float* scratch = group_scratch();
+  const int lane = threadIdx.x & 31;
+  const bool on = lane < 6 * kGroupRows;
+  const int slot = (threadIdx.x >> 5) * kGroupRows + (on ? lane / 6 : 0);
+  const int a = on ? lane % 6 : 0;
+  const long long span = (long long)gridDim.x * kSlots;
+  const int passes = (int)((N + span - 1) / span);
+  for (int ps = 0; ps < passes; ++ps) {
+    const long long n = ((long long)ps * gridDim.x + blockIdx.x) * kSlots + slot;
+    f((int)n, a, on && n < N, scratch + slot * kSlotFloats);
+  }
+}
+
+// The sum of vals[0:M) in the staged launches' order: per 256-row block the
+// tree of block_sum_to, then the blocks in index order from 0.f as
+// sum_partials adds them. Every thread of the CTA calls it and gets the sum.
+__device__ float wide_sum(const float* vals, int M) {
+  __shared__ float part[kWide / 32];
+  __shared__ float total;
+  const int nb = n_blocks(M), warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float acc = 0.f;
+  for (int b0 = 0; b0 < nb; b0 += warps) {
+    const int blk = b0 + warp;
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const long long i = (long long)blk * kThreads + lane + 32 * j;
+      v[j] = blk < nb && i < M ? vals[i] : 0.f;
+    }
+    // block_sum_to's strides 128, 64 and 32 in registers, 16 .. 1 across lanes
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] += v[j + 4];
+    v[0] += v[2];
+    v[1] += v[3];
+    v[0] += v[1];
+#pragma unroll
+    for (int stride = 16; stride > 0; stride >>= 1)
+      v[0] += __shfl_down_sync(0xffffffffu, v[0], stride);
+    if (lane == 0) part[warp] = v[0];
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int i = 0; i < warps && b0 + i < nb; ++i) acc += part[i];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) total = acc;
+  __syncthreads();
+  return total;
+}
+
+// Component a of pcr6_apply_row at row n (live), its group's slot scratch
+// S: out[n][a] = b[n][a] - (A[k] b[n-h])[a] - (G[k] b[n+h])[a], then times
+// Dinv[n] at the last level. With vals at the last level, the group's
+// thread 0 writes rdot[n].out[n] (v6dot's order) to vals[n].
+__device__ __forceinline__ void apply6_lane(int n, int a, bool live, float* S, int N, int k,
+                                            const float* A, const float* G, const float* Dinv,
+                                            const float* in, float* out, int last,
+                                            const float* rdot, float* vals) {
+  const int h = 1 << k;
+  float o = 0.f;
+  if (live) {
+    const long long kn = (long long)k * N + n;
+    o = in[6LL * n + a];
+    if (n - h >= 0) {
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < 6; ++q) s += A[36 * kn + 6 * a + q] * in[6LL * (n - h) + q];
+      o -= s;
+    }
+    if (n + h < N) {
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < 6; ++q) s += G[36 * kn + 6 * a + q] * in[6LL * (n + h) + q];
+      o -= s;
+    }
+  }
+  if (last) {
+    if (live) S[a] = o;
+    __syncwarp();
+    if (live) {
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < 6; ++q) s += Dinv[36LL * n + 6 * a + q] * S[q];
+      o = s;
+    }
+    __syncwarp();
+    if (vals) {
+      if (live) S[a] = o;
+      __syncwarp();
+      if (live && a == 0) {
+        float s = 0.f;
+#pragma unroll
+        for (int q = 0; q < 6; ++q) s += rdot[6LL * n + q] * S[q];
+        vals[n] = s;
+      }
+      __syncwarp();
+    }
+  }
+  if (live) out[6LL * n + a] = o;
+}
+
+// Row a of L[m] at a PCR level: the level's own Ls, or at level 0 row a of
+// U0[m-1]^T (zero at m = 0), as load_L.
+__device__ __forceinline__ float L_at(const float* Ls, const float* U0, int m, int a, int c) {
+  if (Ls) return Ls[36LL * m + 6 * a + c];
+  return m >= 1 ? U0[36LL * (m - 1) + 6 * c + a] : 0.f;
+}
+
+__device__ __forceinline__ void st36_at(float* S, const M6& M) {
+#pragma unroll
+  for (int e = 0; e < 36; ++e) S[e] = M.m[e];
+}
+
+// Row a of pcr6_factor_row at row n (live), on the group's scratch S (two
+// 6x6 blocks, S0 = S and S1 = S + 36): threads 0 and 1 of the group invert
+// the ridged D[n-h] into S0 and D[n+h] into S1 (binv6 whole in one
+// thread), each thread forms row a of alpha = L[n] S0 and gamma = U[n] S1,
+// then of alpha U[n-h] and gamma L[n+h] with those blocks staged in S0 and
+// S1, and of D' = ridge(D[n]) - alpha U[n-h] - gamma L[n+h]; the last level
+// gathers D' in S0 and thread 0 inverts it, else row a of L' = -alpha
+// L[n-h] and U' = -gamma U[n+h].
+__device__ __forceinline__ void factor6_lane(int n, int a, bool live, float* S, int N, int k,
+                                             float eps, const float* Ds, const float* Us,
+                                             const float* Ls, const float* U0, float* A,
+                                             float* G, float* Dinv, float* Dd, float* Ud,
+                                             float* Ld, int last) {
+  const int h = 1 << k;
+  const float eps6 = eps / 6.f;
+  const bool has_m = live && n - h >= 0, has_p = live && n + h < N;
+  float* S0 = S;
+  float* S1 = S + 36;
+  if (a < 2 && (a == 0 ? has_m : has_p)) {
+    const int m = a == 0 ? n - h : n + h;
+    st36_at(a == 0 ? S0 : S1, binv6(ridge(ld36(Ds, m), eps6)));
+  }
+  float Dn[6], alpha[6], gamma[6];
+  if (live) {
+    const float* d = Ds + 36LL * n;
+    const float tr = d[0] + d[7] + d[14] + d[21] + d[28] + d[35];
+    const float r = fabsf(tr) * eps6 + 1e-8f;
+#pragma unroll
+    for (int c = 0; c < 6; ++c) Dn[c] = d[6 * a + c];
+#pragma unroll
+    for (int c = 0; c < 6; ++c)
+      if (c == a) Dn[c] += r;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < 6; ++c) alpha[c] = gamma[c] = 0.f;
+  if (has_m) {
+    float Lr[6];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) Lr[q] = L_at(Ls, U0, n, a, q);
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < 6; ++q) s += Lr[q] * S0[6 * q + c];
+      alpha[c] = s;
+    }
+  }
+  if (has_p) {
+    float Ur[6];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) Ur[q] = Us[36LL * n + 6 * a + q];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < 6; ++q) s += Ur[q] * S1[6 * q + c];
+      gamma[c] = s;
+    }
+  }
+  __syncwarp();
+  if (has_m)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) S0[6 * a + c] = Us[36LL * (n - h) + 6 * a + c];
+  if (has_p)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) S1[6 * a + c] = L_at(Ls, U0, n + h, a, c);
+  __syncwarp();
+  float Dnew[6];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) Dnew[c] = live ? Dn[c] : 0.f;
+  if (has_m)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < 6; ++q) s += alpha[q] * S0[6 * q + c];
+      Dnew[c] -= s;
+    }
+  if (has_p)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < 6; ++q) s += gamma[q] * S1[6 * q + c];
+      Dnew[c] -= s;
+    }
+  const long long kn = (long long)k * N + n;
+  if (live)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      A[36 * kn + 6 * a + c] = alpha[c];
+      G[36 * kn + 6 * a + c] = gamma[c];
+    }
+  __syncwarp();
+  if (last) {
+    if (live)
+#pragma unroll
+      for (int c = 0; c < 6; ++c) S0[6 * a + c] = Dnew[c];
+    __syncwarp();
+    if (live && a == 0) {
+      M6 M;
+#pragma unroll
+      for (int e = 0; e < 36; ++e) M.m[e] = S0[e];
+      st36_at(S1, binv6(ridge(M, eps6)));
+    }
+    __syncwarp();
+    if (live)
+#pragma unroll
+      for (int c = 0; c < 6; ++c) Dinv[36LL * n + 6 * a + c] = S1[6 * a + c];
+    __syncwarp();
+    return;
+  }
+  if (live)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) Dd[36LL * n + 6 * a + c] = Dnew[c];
+  if (has_m)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) S0[6 * a + c] = L_at(Ls, U0, n - h, a, c);
+  if (has_p)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) S1[6 * a + c] = Us[36LL * (n + h) + 6 * a + c];
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    float l = 0.f, u = 0.f;
+    if (has_m) {
+#pragma unroll
+      for (int q = 0; q < 6; ++q) l += alpha[q] * S0[6 * q + c];
+    }
+    if (has_p) {
+#pragma unroll
+      for (int q = 0; q < 6; ++q) u += gamma[q] * S1[6 * q + c];
+    }
+    if (live) {
+      Ld[36LL * n + 6 * a + c] = -l;
+      Ud[36LL * n + 6 * a + c] = -u;
+    }
+  }
+  __syncwarp();
+}
+
+// The K PCR factor levels (factor6_lane), a barrier after each: level 0
+// reads D and U (L from U), later levels the ping-pong buffers (PD, PU,
+// PL)[(k - 1) & 1] and write [k & 1]; the last writes Dinv.
+__device__ __forceinline__ void factor6_stages(int N, int K, float eps, const float* D,
+                                               const float* U, float* PD0, float* PD1,
+                                               float* PU0, float* PU1, float* PL0, float* PL1,
+                                               float* A, float* G, float* Dinv) {
+  for (int k = 0; k < K; ++k) {
+    const bool odd = (k - 1) & 1;
+    const float* Ds = k == 0 ? D : odd ? PD1 : PD0;
+    const float* Us = k == 0 ? U : odd ? PU1 : PU0;
+    const float* Ls = k == 0 ? nullptr : odd ? PL1 : PL0;
+    float* Dd = k & 1 ? PD1 : PD0;
+    float* Ud = k & 1 ? PU1 : PU0;
+    float* Ld = k & 1 ? PL1 : PL0;
+    const int last = k == K - 1;
+    for_groups(N, [&](int n, int a, bool live, float* S) {
+      factor6_lane(n, a, live, S, N, k, eps, Ds, Us, Ls, U, A, G, Dinv, Dd, Ud, Ld, last);
+    });
+    stage_sync();
+  }
+}
+
+// The K PCR apply levels (apply6_lane), a barrier after each: in -> t0 ->
+// t1 -> t0 ... -> out, the last level times Dinv with rdot.out of each row
+// in vals.
+__device__ __forceinline__ void apply6_stages(int N, int K, const float* A, const float* G,
+                                              const float* Dinv, const float* in, float* t0,
+                                              float* t1, float* out, const float* rdot,
+                                              float* vals) {
+  const float* src = in;
+  for (int k = 0; k < K; ++k) {
+    const int last = k == K - 1;
+    float* dst = last ? out : k & 1 ? t1 : t0;
+    for_groups(N, [&](int n, int a, bool live, float* S) {
+      apply6_lane(n, a, live, S, N, k, A, G, Dinv, src, dst, last, rdot, vals);
+    });
+    src = dst;
+    stage_sync();
+  }
 }
 
 }  // namespace

@@ -18,9 +18,13 @@ The CUDA source is csrc/gn6_kernel.cu (plain C interface, built with nvcc
 by ops/_build.py, called through ctypes); it also holds K5
 (ops/pcg6_kernel.py). One ctypes call runs a whole solve with no host
 synchronization. At sphere2500 size every array sits in the 50 MB L2 and
-an iteration at exact PCR (K = 12) is 404 small launches on 10 blocks
-each: launch latency and the heavy 6x6 stages on few threads bound it, not
-bytes or FLOPs (PERF.md §5).
+an iteration at exact PCR (K = 12) is 404 dependent row stages: their
+latency bounds it, not bytes or FLOPs. So a solve runs as ONE launch of a
+persistent kernel (`Gn6Kernel.solve`, `lm_solve`: one thread-block cluster,
+or a cooperative grid where one pass over the rows needs more than 16
+CTAs), whose heavy stages give each 6x6 row a group of 6 threads;
+`solve_staged` and `lm_solve_staged` run the staged sequence of small
+launches, one thread a row, as the yardstick (bitwise equal).
 
 The TPU layout (packed (8, L) fields, 1024-pose padding, one-hot MXU
 gathers and scatters, hi/lo bf16 splits, page windows) is not carried

@@ -23,11 +23,14 @@ accepts or rejects it with the lambda schedule, all on the device: lam and
 the stats [chi2, lam, accepted steps, converged] never reach the host.
 
 The CUDA source is csrc/gn_kernel.cu (plain C interface, built with nvcc by
-ops/_build.py, called through ctypes). The host loop over GN and CG
-iterations runs in C: one ctypes call per solve, no host synchronization
-inside. What bounds it on an H100 at m3500 size is launch latency: every
-array is a few MB and sits in the 50 MB L2, and one GN iteration is about
-190 small launches. A persistent kernel or a CUDA graph is later work.
+ops/_build.py, called through ctypes): one ctypes call per solve, no
+host synchronization inside. At m3500 size every array is a few MB and
+sits in the 50 MB L2, and one GN iteration is about 190 row stages of a
+few microseconds each: as small launches (the staged sequence) the launch
+latency bounds it, so a solve runs as ONE launch of a persistent kernel on
+a thread-block cluster, with a cluster barrier between stages
+(`GnKernel.solve`, `lm_solve`; `solve_staged` and `lm_solve_staged` keep
+the staged sequence as the yardstick, bitwise equal).
 
 The TPU layout (sublane packing, one-hot MXU gathers, hi/lo bf16 splits,
 1024-node padding, 128-wide edge tiles, page windows) is not carried over;
@@ -521,9 +524,11 @@ _ENTRY_ARGS = (
     ("precond", [ctypes.c_void_p, ctypes.c_void_p]),
     ("cg", [ctypes.c_int, ctypes.c_int]),
     ("solve", [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]),
+    ("solve_staged", [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]),
     ("chi2", [ctypes.c_void_p, ctypes.c_void_p]),
     ("pcg", [ctypes.c_int]),
     ("lm_solve", [ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 6),
+    ("lm_solve_staged", [ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 6),
 )
 
 
@@ -583,7 +588,10 @@ def _check_f32(name: str, t: torch.Tensor, shape, device) -> None:
 class GnKernel:
     """One packed problem on the card with the kernel's buffers.
 
-    `solve` runs whole GN phases and `lm_solve` LM iterations; `system`,
+    `solve` runs whole GN phases and `lm_solve` LM iterations, each as ONE
+    launch of a persistent kernel on a thread-block cluster; `solve_staged`
+    and `lm_solve_staged` run the same computation as the staged sequence
+    of small launches (their yardsticks, bitwise equal); `system`,
     `factor`, `precond`, `cg`, `retract` and `chi2` run one stage each on
     the same buffers, so that a check can hold every stage against its plain
     twin. Results: D, U (N,T,T), b, x (N,T), poses (N,P) and, with lm, the
@@ -673,11 +681,20 @@ class GnKernel:
         self._call("retract")
 
     def solve(self, phases: Sequence[Tuple[int, int]], warm_start: bool) -> torch.Tensor:
+        """GN phases ((iterations, cg), ...) from the current poses, in one
+        launch; returns the poses."""
+        return self._solve("solve", phases, warm_start)
+
+    def solve_staged(self, phases: Sequence[Tuple[int, int]], warm_start: bool) -> torch.Tensor:
+        """`solve` as the staged sequence of launches."""
+        return self._solve("solve_staged", phases, warm_start)
+
+    def _solve(self, fn: str, phases, warm_start: bool) -> torch.Tensor:
         if any(cg > self.cg_max or cg < 0 or n < 0 for n, cg in phases):
             raise ValueError(f"phases {phases} outside cg_max {self.cg_max}")
         n_arr = (ctypes.c_int * len(phases))(*(n for n, _ in phases))
         cg_arr = (ctypes.c_int * len(phases))(*(cg for _, cg in phases))
-        self._call("solve", len(phases), ctypes.addressof(n_arr), ctypes.addressof(cg_arr),
+        self._call(fn, len(phases), ctypes.addressof(n_arr), ctypes.addressof(cg_arr),
                    int(warm_start))
         return self.poses
 
@@ -691,14 +708,22 @@ class GnKernel:
 
     def lm_solve(self, iterations: int, cg_iters: int, lam0: float, lam_factor: float,
                  lam_min: float, lam_max: float, abs_tol: float, rel_tol: float) -> torch.Tensor:
-        """`iterations` LM steps from the current poses; returns the stats."""
+        """`iterations` LM steps from the current poses, in one launch;
+        returns the stats."""
+        return self._lm("lm_solve", iterations, cg_iters,
+                        lam0, lam_factor, lam_min, lam_max, abs_tol, rel_tol)
+
+    def lm_solve_staged(self, iterations: int, cg_iters: int, *lm_args: float) -> torch.Tensor:
+        """`lm_solve` as the staged sequence of launches."""
+        return self._lm("lm_solve_staged", iterations, cg_iters, *lm_args)
+
+    def _lm(self, fn: str, iterations: int, cg_iters: int, *lm_args: float) -> torch.Tensor:
         if self.stats is None:
-            raise ValueError(f"lm_solve needs a {type(self).__name__} built with lm=True")
+            raise ValueError(f"{fn} needs a {type(self).__name__} built with lm=True")
         if not 0 <= cg_iters <= self.cg_max or iterations < 0:
             raise ValueError(f"cg_iters {cg_iters} outside [0, {self.cg_max}] "
                              f"or iterations {iterations} < 0")
-        self._call("lm_solve", int(iterations), int(cg_iters), *(
-            float(v) for v in (lam0, lam_factor, lam_min, lam_max, abs_tol, rel_tol)))
+        self._call(fn, int(iterations), int(cg_iters), *(float(v) for v in lm_args))
         return self.stats
 
 

@@ -5,17 +5,21 @@ Usage:  python scripts/emulate_gn_kernel.py [--poses N]
         python scripts/emulate_gn_kernel.py --se3 [--rings R --per-ring P]
         python scripts/emulate_gn_kernel.py --dist [--poses N]
         python scripts/emulate_gn_kernel.py --dist6 [--rings R --per-ring P]
-        python scripts/emulate_gn_kernel.py --persistent [--poses N] [--max-cluster C]
+        python scripts/emulate_gn_kernel.py --persistent [--kernels k3,k6c,k1,k4]
+               [--poses N[,N...]] [--rings R[,R...] --per-ring P[,P...]]
+               [--max-cluster C] [--unplaceable]
         python scripts/emulate_gn_kernel.py --vs-tree DIR [--poses N]
+               [--rings R --per-ring P]
         (each takes --build-dir DIR; default graphslam_tpu_torch/build/emu/)
 
 Rewrites every `k<<<grid, block, 0, s>>>(` launch of the CUDA source into a
-call of a C++ emulation (blocks in turn, the threads of a block as
-std::threads meeting at a std::barrier for __syncthreads) and every
-`__shared__` declaration into one copy per CTA, compiles it with g++
-against the emulation header below (kept here; it also maps
-cudaLaunchKernelEx with a cluster dimension onto a launch of every thread
-of every CTA at once, cluster.sync() onto a std::barrier over all of them),
+call of a C++ emulation (blocks in turn, each thread of a block a fiber
+on the calling thread, meeting at counting barriers for __syncthreads,
+__syncwarp and the shuffles) and every `__shared__` declaration into one
+copy per CTA, compiles it with g++ against the emulation header below
+(kept here; it also maps a cluster or cooperative cudaLaunchKernelEx onto
+a launch of every thread of every CTA at once, and cluster.sync() and
+grid.sync() onto barriers over all of them),
 loads it in place of the nvcc build and drives the port's own wrappers on
 CPU tensors, each against its plain torch twin:
 
@@ -37,24 +41,28 @@ CPU tensors, each against its plain torch twin:
            two ranks' shards of sphere(R, P) at exact PCR, and the kernel
            path of dist_fused6_gn_solve / dist_fused6_lm_solve; about a
            minute at sphere(6, 8)
-  --persistent  gn_kernel.cu and cg_step.cu: K3 and K6c, each one cluster
-           launch of a persistent kernel, against their staged sequences
-           (gn_factor + gn_cg; cg_step_staged) with torch.equal: K3 at lam 0
-           and 1e-3, masked and chain-only, K6c on two ranks without and
-           with Huber after 1 and 26 passes. --max-cluster C caps the
-           cluster at C CTAs, so that at N > 256 C a CTA walks several row
-           blocks; --unplaceable makes the occupancy query place no
-           cluster and checks that K3 and K6c raise while their staged
-           sequences still run (tests/test_torch_persistent_emu.py runs
-           all three)
-  --vs-tree DIR  gn_kernel.cu and cg_step.cu of this checkout against those
-           of the checkout DIR (e.g. `git archive` of the parent commit):
-           K1's GN and LM outputs, K3 and K6a-c held to torch.equal; the
-           check of an edit to a shared header or of a new launch shape
+  --persistent  the persistent kernels of --kernels against their staged
+           sequences with torch.equal: K3 (gn_factor + gn_cg) at lam 0 and
+           1e-3, masked and chain-only, K6c (cg_step_staged) on two ranks
+           without and with Huber after 1 and 26 passes, K1 and K4
+           (gn_solve_staged, gn_lm_solve_staged and their gn6 twins) in GN
+           mode with warm start and a cg ramp and in LM mode with Huber.
+           One build serves every size: lists of sizes give one JSON line
+           each (size i: manhattan(N_i), sphere(R_i, P_i)). --max-cluster
+           C caps the cluster, and the emulated card's SMs, at C CTAs, so
+           that a CTA walks several row blocks or passes; --unplaceable
+           makes the occupancy query place no cluster and checks that every
+           persistent entry raises while the staged sequences still run
+           (tests/test_torch_persistent_emu.py)
+  --vs-tree DIR  gn_kernel.cu, cg_step.cu, gn6_kernel.cu and cg_step6.cu of
+           this checkout against those of the checkout DIR (e.g. `git
+           archive` of the parent commit): K1 and K4 in GN and LM modes,
+           K3, K5, K6a-c and K7a-c held to torch.equal; the check of an
+           edit to a shared header or of a new launch shape
 
-Prints one JSON line: max errors (poses wrapped or over the 12 entries,
+Prints one JSON line (--persistent: one a size): max errors (poses wrapped or over the 12 entries,
 stages and K3/K5 relative to the largest entry) and the LM stats of kernel
-and twin, or the bitwise verdicts. Slow: a thread per emulated CUDA thread.
+and twin, or the bitwise verdicts. Slow: a fiber per emulated CUDA thread.
 """
 
 import argparse
@@ -85,6 +93,7 @@ HEADER = r"""#pragma once
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__
 #define __launch_bounds__(...)
 #define __shared__ static
 struct dim3 {
@@ -111,6 +120,8 @@ inline thread_local ucontext_t emu_sched;
 inline thread_local EmuFiber* emu_cur = nullptr;
 inline thread_local EmuBarrier* emu_bar = nullptr;      // the CTA's
 inline thread_local EmuBarrier* emu_cluster = nullptr;  // the cluster's
+inline thread_local EmuBarrier* emu_warp = nullptr;     // the warp's
+inline thread_local float* emu_lanes = nullptr;         // the warp's shuffle slots
 inline thread_local const std::function<void(unsigned)>* emu_job = nullptr;
 inline void emu_arrive(EmuBarrier* b) {
   if (++b->count == b->expected) {  // the last to arrive releases the rest
@@ -123,6 +134,33 @@ inline void emu_arrive(EmuBarrier* b) {
   swapcontext(&emu_cur->ctx, &emu_sched);
 }
 inline void __syncthreads() { emu_arrive(emu_bar); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_arrive(emu_warp); }
+// Every lane of the warp takes part (a full mask).
+inline float __shfl_down_sync(unsigned, float v, unsigned delta) {
+  const unsigned lane = threadIdx.x % 32;
+  emu_lanes[lane] = v;
+  emu_arrive(emu_warp);
+  const float r = lane + delta < 32 ? emu_lanes[lane + delta] : v;
+  emu_arrive(emu_warp);
+  return r;
+}
+// One barrier and 32 shuffle slots per warp of a CTA of `block` threads.
+struct EmuWarps {
+  std::vector<EmuBarrier> bars;
+  std::vector<float> lanes;
+  EmuWarps(unsigned ctas, unsigned block) : bars(ctas * ((block + 31) / 32)),
+                                            lanes(32 * bars.size()) {
+    for (size_t i = 0; i < bars.size(); ++i) {
+      const unsigned first = 32 * (i % ((block + 31) / 32));
+      bars[i].expected = block - first < 32 ? block - first : 32;
+    }
+  }
+  void enter(unsigned cta, unsigned t, unsigned block) {
+    const size_t i = cta * ((block + 31) / 32) + t / 32;
+    emu_warp = &bars[i];
+    emu_lanes = &lanes[32 * i];
+  }
+};
 inline void emu_entry() {
   EmuFiber* f = emu_cur;
   (*emu_job)(f->index);
@@ -178,11 +216,13 @@ typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1,
                    cudaErrorLaunchOutOfResources = 7 };
 enum cudaFuncAttribute { cudaFuncAttributeNonPortableClusterSizeAllowed = 9 };
-enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+enum cudaLaunchAttributeID { cudaLaunchAttributeCooperative = 2,
+                             cudaLaunchAttributeClusterDimension = 4 };
 struct cudaLaunchAttribute {
   cudaLaunchAttributeID id;
-  struct { struct { unsigned x, y, z; } clusterDim; } val;
+  struct { struct { unsigned x, y, z; } clusterDim; int cooperative; } val;
 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 struct cudaLaunchConfig_t {
   dim3 gridDim, blockDim;
   size_t dynamicSmemBytes;
@@ -193,6 +233,11 @@ struct cudaLaunchConfig_t {
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emu"; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+#ifndef EMU_SMS
+#define EMU_SMS 132
+#endif
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = EMU_SMS; return cudaSuccess; }
 inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   std::memset(p, v, n); return cudaSuccess; }
 template <typename T> cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) {
@@ -203,31 +248,41 @@ template <typename T> cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, in
 template <typename T>
 cudaError_t cudaOccupancyMaxActiveClusters(int* n, T*, const cudaLaunchConfig_t*) {
   *n = EMU_ACTIVE_CLUSTERS; return cudaSuccess; }
+template <typename T>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T*, int, size_t) {
+  *n = EMU_ACTIVE_CLUSTERS; return cudaSuccess; }
+inline thread_local unsigned emu_cluster_blocks = 1;  // CTAs of this launch's clusters
 // A staged launch: blocks in turn, the threads of a block at once.
 template <typename K, typename... A>
 void emu_launch(int grid, int block, K kernel, A... args) {
   EmuBarrier bar;
   bar.expected = block;
+  EmuWarps warps(1, block);
   for (int b = 0; b < grid; ++b) {
     emu_run(block, [&](unsigned) { kernel(args...); }, [&](unsigned t) {
       threadIdx.x = t; blockIdx.x = b; blockDim.x = block; gridDim.x = grid;
-      emu_bar = &bar; });
+      emu_bar = &bar; warps.enter(0, t, block); });
   }
 }
-// A cluster launch (the grid is one cluster): every thread of every CTA at
-// once; cluster.sync() is a barrier over all of them, __syncthreads one per
-// CTA.
+// A cluster launch (the grid is one cluster) or a cooperative one (a cluster
+// a CTA): every thread of every CTA at once; cluster.sync() of the one
+// cluster and grid.sync() are a barrier over all of them, __syncthreads one
+// per CTA, __syncwarp and the shuffles one per warp.
 template <typename... P, typename... A>
 cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(P...),
                                A&&... args) {
   const unsigned grid = cfg->gridDim.x, block = cfg->blockDim.x;
+  const bool cooperative = cfg->attrs[0].id == cudaLaunchAttributeCooperative;
   EmuBarrier cluster;
   cluster.expected = grid * block;
   std::vector<EmuBarrier> ctas(grid);
   for (auto& c : ctas) c.expected = block;
+  EmuWarps warps(grid, block);
   emu_run(grid * block, [&](unsigned) { kernel(args...); }, [&](unsigned i) {
     threadIdx.x = i % block; blockIdx.x = i / block; blockDim.x = block; gridDim.x = grid;
-    emu_bar = &ctas[i / block]; emu_cluster = &cluster; });
+    emu_bar = &ctas[i / block]; emu_cluster = &cluster;
+    emu_cluster_blocks = cooperative ? 1 : grid;
+    warps.enter(i / block, i % block, block); });
   return cudaSuccess;
 }
 """
@@ -237,8 +292,13 @@ COOPERATIVE_GROUPS = r"""#pragma once
 namespace cooperative_groups {
 struct cluster_group {
   void sync() const { emu_arrive(emu_cluster); }
+  unsigned long long num_blocks() const { return emu_cluster_blocks; }
 };
 inline cluster_group this_cluster() { return {}; }
+struct grid_group {
+  void sync() const { emu_arrive(emu_cluster); }
+};
+inline grid_group this_grid() { return {}; }
 }  // namespace cooperative_groups
 """
 
@@ -259,7 +319,8 @@ def build(name: str = "gn_kernel", out: Path = None, src_root: Path = ROOT,
     """g++-build csrc/<name>.cu of the checkout src_root under the emulation
     into out (default graphslam_tpu_torch/build/emu/); its csrc/ headers are
     rewritten beside it. max_cluster > 0 caps the persistent kernels' CTAs
-    (SE2_MAX_CLUSTER) so that a CTA walks several blocks at small N;
+    (PERSISTENT_MAX_CLUSTER, and the emulated card's SMs for a cooperative
+    grid of one CTA an SM) so that a CTA walks several blocks at small N;
     unplaceable makes the occupancy query place no cluster. Returns the
     library's path, or (path, the running g++) with start."""
     out = Path(out or ROOT / "graphslam_tpu_torch" / "build" / "emu")
@@ -274,7 +335,7 @@ def build(name: str = "gn_kernel", out: Path = None, src_root: Path = ROOT,
     cmd = ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{out}", "-o", str(lib),
            str(out / f"{name}_emu.cpp")]
     if max_cluster:
-        cmd.insert(1, f"-DSE2_MAX_CLUSTER={max_cluster}")
+        cmd[1:1] = [f"-DPERSISTENT_MAX_CLUSTER={max_cluster}", f"-DEMU_SMS={max_cluster}"]
     if unplaceable:
         cmd.insert(1, "-DEMU_ACTIVE_CLUSTERS=0")
     if start:
@@ -505,6 +566,58 @@ def k6c_persistent_checks(out, cs, pk, p0, K):
         out[f"k6c_{label}_finite"] = bool(torch.isfinite(runs[0][1][0]).all())
 
 
+LM_ARGS = (1e-5, 10.0, 1e-10, 1e7, 1e-9, 1e-6)  # lam0, factor, min, max, abs_tol, rel_tol
+
+
+def solve_persistent_checks(out, name, Kernel, p0, g, levels, twin_gn, twin_lm, pose_err):
+    """K1 or K4 (Kernel.solve and lm_solve, each one cluster launch) against
+    solve_staged and lm_solve_staged on fresh problems, bitwise: GN with
+    warm start and a cg ramp (poses and x) and LM with Huber 1.0 (poses
+    and stats); each also against its plain twin (errors printed)."""
+    ramp = ((2, 25), (1, 12))
+    runs = []
+    for staged in (False, True):
+        kern = Kernel(p0, g, -1.0, levels, cg_max=25)
+        (kern.solve_staged if staged else kern.solve)(ramp, True)
+        runs.append([kern.poses.clone(), kern.x.clone()])
+    ref = twin_gn(p0, g, 3, 25, pcr_levels=levels, warm_start=True, cg_ramp=ramp)
+    out[f"{name}_warm_ramp_bitwise"] = all(torch.equal(a, b) for a, b in zip(*runs))
+    out[f"{name}_warm_ramp_finite"] = bool(torch.isfinite(runs[0][0]).all()) and not \
+        torch.equal(runs[0][0], p0)
+    out[f"{name}_warm_ramp_vs_twin"] = pose_err(runs[0][0], ref)
+    runs = []
+    for staged in (False, True):
+        kern = Kernel(p0, g, 1.0, levels, cg_max=25, lm=True)
+        (kern.lm_solve_staged if staged else kern.lm_solve)(3, 25, *LM_ARGS)
+        runs.append([kern.poses.clone(), kern.stats.clone()])
+    ref = twin_lm(p0, g, iterations=3, cg_iters=25, huber_delta=1.0, pcr_levels=levels)
+    out[f"{name}_lm_huber_bitwise"] = all(torch.equal(a, b) for a, b in zip(*runs))
+    out[f"{name}_lm_huber_finite"] = bool(torch.isfinite(runs[0][0]).all()) and \
+        float(runs[0][1][2]) > 0
+    out[f"{name}_lm_huber_vs_twin"] = pose_err(runs[0][0], ref[0])
+    out[f"{name}_lm_stats"] = [[float(t) for t in runs[0][1]], [float(t) for t in ref[1:]]]
+
+
+def pose_max(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def solve_refusal_checks(out, name, Kernel, p0, g):
+    """Where the card cannot place the cluster, K1's or K4's solve and
+    lm_solve raise; their staged sequences still run."""
+    for mode, lm in (("", False), ("_lm", True)):
+        for suffix, staged in (("", False), ("_staged", True)):
+            kern = Kernel(p0, g, 1.0, None, cg_max=25, lm=lm)
+            try:
+                if lm:
+                    (kern.lm_solve_staged if staged else kern.lm_solve)(1, 5, *LM_ARGS)
+                else:
+                    (kern.solve_staged if staged else kern.solve)(((1, 5),), False)
+                out[f"{name}{mode}{suffix}_raised"] = None
+            except RuntimeError as e:
+                out[f"{name}{mode}{suffix}_raised"] = str(e)
+
+
 def refusal_checks(out, pk, cs, g, p0):
     """Where the card cannot place the cluster, K3 and K6c raise; the staged
     sequences still run (nothing falls back to them)."""
@@ -533,93 +646,170 @@ def refusal_checks(out, pk, cs, g, p0):
             out[f"{name}_raised"] = str(e)
 
 
-def main_persistent(n: int, build_dir, max_cluster: int, unplaceable: bool = False) -> None:
-    """K3 and K6c, each one launch of a persistent kernel on a cluster,
-    against their staged sequences on manhattan(n), bitwise; gn_kernel.cu
-    and cg_step.cu built at once. With unplaceable, the occupancy query
-    places no cluster, and K3 and K6c must raise instead."""
-    gl, gproc = build("gn_kernel", build_dir, max_cluster=max_cluster, start=True,
-                      unplaceable=unplaceable)
-    cl, cproc = build("cg_step", build_dir, max_cluster=max_cluster, start=True,
-                      unplaceable=unplaceable)
-    if gproc.wait() or cproc.wait():
+KERNELS = ("k3", "k6c", "k1", "k4")
+
+
+def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool = False,
+                    kernels=KERNELS) -> None:
+    """The persistent kernels against their staged sequences, bitwise: K3,
+    K6c and K1 (GN and LM) on manhattan(n), K4 (GN and LM) on sphere(rings,
+    per_ring); the sources they need built once, at once, for every size.
+    Size i is ns[i] and spheres[i] (a list of one stands for every i); one
+    JSON line a size. With unplaceable, the occupancy query places no
+    cluster, and every persistent entry must raise instead while the staged
+    sequences run."""
+    need = {"k3": "gn_kernel", "k1": "gn_kernel", "k6c": "cg_step", "k4": "gn6_kernel"}
+    names = {need[k] for k in kernels}
+    jobs = {name: build(name, build_dir, max_cluster=max_cluster, start=True,
+                        unplaceable=unplaceable) for name in sorted(names)}
+    if any(proc.wait() for _, proc in jobs.values()):
         raise SystemExit("g++ failed")
-    _, pk = load_ops({"gn_kernel": gl})
-    cs, _, _, _ = load_cg_step({"cg_step": cl})
+    libs = {name: lib for name, (lib, _) in jobs.items()}
+    mods = load_ops(libs, ("gn_kernel", "pcg_kernel", "gn6_kernel"))
+    gk, pk, g6 = mods
+    cs = load_cg_step({"cg_step": libs["cg_step"]})[0] if "cg_step" in libs else None
     from graphslam_tpu_torch.factors import from_dataset
     from graphslam_tpu_torch.io import datasets
-    from graphslam_tpu_torch.ops import gn_kernel as gk
 
-    data = datasets.manhattan(n_poses=n, loop_prob=0.25, seed=0)
-    g = from_dataset(data, device="cpu")
-    p0 = torch.from_numpy(data["poses"])
-    nb = -(-n // 256)
-    out = {"poses": n, "loop_edges": g.num_edges - g.chain_prefix,
-           "ctas": min(nb, max_cluster or 16), "blocks": nb}
-    if unplaceable:
-        refusal_checks(out, pk, cs, g, p0)
-        print(json.dumps(out))
-        return
-    k3_persistent_checks(out, pk, g, p0)
-    k6c_persistent_checks(out, cs, gk.pack_graph(g, n), p0, 4)
-    print(json.dumps(out))
+    for i in range(max(len(ns), len(spheres))):
+        n = ns[i if len(ns) > 1 else 0]
+        rings, per_ring = spheres[i if len(spheres) > 1 else 0]
+        data = datasets.manhattan(n_poses=n, loop_prob=0.25, seed=0)
+        g = from_dataset(data, device="cpu")
+        p0 = torch.from_numpy(data["poses"])
+        nb = -(-n // 256)
+        out = {"poses": n, "loop_edges": g.num_edges - g.chain_prefix,
+               "ctas": min(nb, max_cluster or 16), "blocks": nb}
+        if "k4" in kernels:
+            d6 = datasets.sphere(n_rings=rings, poses_per_ring=per_ring, seed=1)
+            g_6 = from_dataset(d6, device="cpu")
+            p_6 = torch.from_numpy(d6["poses"])
+            lib6 = ctypes.CDLL(str(libs["gn6_kernel"]))
+            n6 = p_6.shape[0]
+            ctas = lib6.gn6_wide_ctas(n6)  # negative: a cooperative grid
+            out.update(poses6=n6, slots6=lib6.gn6_wide_slots(), ctas6=abs(ctas), grid6=ctas < 0)
+        if unplaceable:
+            if {"k3", "k6c"} <= set(kernels):
+                refusal_checks(out, pk, cs, g, p0)
+            if "k1" in kernels:
+                solve_refusal_checks(out, "k1", gk.GnKernel, p0, g)
+            if "k4" in kernels:
+                solve_refusal_checks(out, "k4", g6.Gn6Kernel, p_6, g_6)
+            print(json.dumps(out), flush=True)
+            continue
+        if "k3" in kernels:
+            k3_persistent_checks(out, pk, g, p0)
+        if "k6c" in kernels:
+            k6c_persistent_checks(out, cs, gk.pack_graph(g, n), p0, 4)
+        if "k1" in kernels:
+            solve_persistent_checks(out, "k1", gk.GnKernel, p0, g, 4,
+                                    gk.fused_gn_solve_reference, gk.fused_lm_solve_reference,
+                                    wrapped_max)
+        if "k4" in kernels:
+            solve_persistent_checks(out, "k4", g6.Gn6Kernel, p_6, g_6, None,
+                                    g6.fused_gn6_solve_reference, g6.fused_lm6_solve_reference,
+                                    pose_max)
+        print(json.dumps(out), flush=True)
 
 
-def main_vs_tree(tree: Path, n: int, build_dir) -> None:
-    """gn_kernel.cu and cg_step.cu of this checkout against those of another
+class _StagedAliases:
+    """A build from before the persistent K1/K4, whose whole-solve entries
+    are the staged sequences: `<p>_solve_staged` and `<p>_lm_solve_staged`
+    resolve to its `<p>_solve` and `<p>_lm_solve`."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        if name.endswith("_staged") and not hasattr(self._lib, name):
+            name = name[: -len("_staged")]
+        return getattr(self._lib, name)
+
+
+def _two_rank_k67(cs, make_shard, Kernel, pack, K, p0):
+    """Two ranks' K6/K7 stage A, setup and 26 CG passes with Huber; every
+    output of rank 0 (the all-reduces summed here)."""
+    half = pack.El // 2
+    kerns = [Kernel(make_shard(pack, 0, half, K, 1.0, 1.0)),
+             Kernel(make_shard(pack, half, pack.El, K, 0.0, 1.0))]
+    outs = [[t.clone() for t in k.stage_a(p0)] for k in kerns]
+    sts = [k.gn_setup(outs[0][0] + outs[1][0], p0, torch.tensor([1e-3])) for k in kerns]
+    carries = [k.cg_state(sts[0].b) for k in kerns]
+    for _ in range(26):
+        for k, c in zip(kerns, carries):
+            k.cg_step(k.Aij, c)
+        big = carries[0].big + carries[1].big
+        for c in carries:
+            c.big.copy_(big)
+    return [t for o in outs for t in o] + list(sts[0]) + list(carries[0])
+
+
+def main_vs_tree(tree: Path, n: int, rings: int, per_ring: int, build_dir) -> None:
+    """The SE(2) sources (gn_kernel.cu, cg_step.cu) and the SE(3) ones
+    (gn6_kernel.cu, cg_step6.cu) of this checkout against those of another
     one (`tree`, e.g. `git archive` of the parent commit), both under the
-    emulation, on manhattan(n): K1's GN and LM solves, K3 and K6a-c (two
-    ranks, 26 K6c passes, Huber) held to torch.equal. Checks that a change
-    of csrc/se2_blocks.cuh or of the launch shape leaves the outputs as
-    they were."""
+    emulation: on manhattan(n) K1's GN (warm, cg ramp) and LM solves, K3
+    and K6a-c (two ranks, 26 K6c passes, Huber); on sphere(rings,
+    per_ring) K4's GN and LM solves, K5 and K7a-c likewise; every output
+    held to torch.equal. K1 and K4 run both as this checkout's persistent
+    entries and as its staged ones (an older tree's whole-solve entries
+    are staged: _StagedAliases). Checks that a change of a shared header
+    or of a launch shape leaves the outputs as they were."""
     base = Path(build_dir or ROOT / "graphslam_tpu_torch" / "build" / "emu")
+    names = ("gn_kernel", "cg_step", "gn6_kernel", "cg_step6")
     jobs = {(side, name): build(name, base / side, src_root=root, start=True)
-            for side, root in (("new", ROOT), ("old", Path(tree)))
-            for name in ("gn_kernel", "cg_step")}
+            for side, root in (("new", ROOT), ("old", Path(tree))) for name in names}
     if any(proc.wait() for _, proc in jobs.values()):
         raise SystemExit("g++ failed")
     libs = {key: ctypes.CDLL(str(lib)) for key, (lib, _) in jobs.items()}
-    gk, pk = load_ops({"gn_kernel": jobs["new", "gn_kernel"][0]})
-    cs, _, _, _ = load_cg_step({"cg_step": jobs["new", "cg_step"][0]})
+    for name in ("gn_kernel", "gn6_kernel"):
+        libs["old", name] = _StagedAliases(libs["old", name])
+    gk, pk, g6, p6 = load_ops({name: jobs["new", name][0] for name in names},
+                              ("gn_kernel", "pcg_kernel", "gn6_kernel", "pcg6_kernel"))
+    cs, cs6, _, _ = load_cg_step({name: jobs["new", name][0] for name in names})
     from graphslam_tpu_torch.factors import from_dataset
     from graphslam_tpu_torch.factors.linearize import linearize
     from graphslam_tpu_torch.io import datasets
     from graphslam_tpu_torch.ops import _build
+    from graphslam_tpu_torch.ops.pcg_kernel import pcr_levels_for
     from graphslam_tpu_torch.solver import normal_eq as ne
 
     data = datasets.manhattan(n_poses=n, loop_prob=0.25, seed=0)
     g = from_dataset(data, device="cpu")
     p0 = torch.from_numpy(data["poses"])
     sysm = ne.build_blocks(linearize(p0, g), g, n)
-    pack = gk.pack_graph(g, n)
-    half = pack.El // 2
+    d6 = datasets.sphere(n_rings=rings, poses_per_ring=per_ring, seed=1)
+    g_6 = from_dataset(d6, device="cpu")
+    p_6 = torch.from_numpy(d6["poses"])
+    n6 = p_6.shape[0]
+    sys6 = ne.build_blocks(linearize(p_6, g_6), g_6, n6)
+    ramp = ((2, 25), (1, 12))
+
+    def solves(res, key, Kernel, poses, graph, levels):
+        for suffix, staged in (("", False), ("_staged", True)):
+            kern = Kernel(poses, graph, -1.0, levels, cg_max=25)
+            res[f"{key}_gn{suffix}"] = [
+                (kern.solve_staged if staged else kern.solve)(ramp, True).clone(), kern.x.clone()]
+            kern = Kernel(poses, graph, 1.0, levels, cg_max=25, lm=True)
+            stats = (kern.lm_solve_staged if staged else kern.lm_solve)(3, 25, *LM_ARGS)
+            res[f"{key}_lm{suffix}"] = [kern.poses.clone(), stats.clone()]
 
     def run(side):
         _build.load = lambda name: libs[side, name]
         res = {}
-        kern = gk.GnKernel(p0, g, -1.0, 4, cg_max=25)
-        res["k1_gn"] = [kern.solve(((3, 25),), False).clone()]
-        kern = gk.GnKernel(p0, g, 1.0, None, cg_max=25, lm=True)
-        stats = kern.lm_solve(3, 25, 1e-5, 10.0, 1e-10, 1e7, 1e-9, 1e-6).clone()
-        res["k1_lm"] = [kern.poses.clone(), stats]
+        solves(res, "k1", gk.GnKernel, p0, g, 4)
         args = pk._chain_and_loops(sysm, torch.tensor(1e-3), True, g.chain_prefix)
         res["k3"] = [pk.PcgKernel(*args, 25).solve().clone()]
-        kerns = [cs.CgStepKernel(cs.make_shard(pack, 0, half, 4, 1.0, 1.0)),
-                 cs.CgStepKernel(cs.make_shard(pack, half, pack.El, 4, 0.0, 1.0))]
-        outs = [[t.clone() for t in k.stage_a(p0)] for k in kerns]
-        sts = [k.gn_setup(outs[0][0] + outs[1][0], p0, torch.tensor([1e-3])) for k in kerns]
-        carries = [k.cg_state(sts[0].b) for k in kerns]
-        for _ in range(26):
-            for k, c in zip(kerns, carries):
-                k.cg_step(k.Aij, c)
-            big = carries[0].big + carries[1].big
-            for c in carries:
-                c.big.copy_(big)
-        res["k6"] = [t for o in outs for t in o] + list(sts[0]) + list(carries[0])
+        res["k6"] = _two_rank_k67(cs, cs.make_shard, cs.CgStepKernel, gk.pack_graph(g, n), 4, p0)
+        solves(res, "k4", g6.Gn6Kernel, p_6, g_6, None)
+        args = p6._chain_and_loops(sys6, torch.tensor(1e-3), True, g_6.chain_prefix, T=6)
+        res["k5"] = [p6.Pcg6Kernel(*args, 25).solve().clone()]
+        res["k7"] = _two_rank_k67(cs6, cs6.make_shard6, cs6.CgStep6Kernel,
+                                  g6.pack_graph6(g_6, n6), pcr_levels_for(n6, None), p_6)
         return res
 
     new, old = run("new"), run("old")
-    out = {"poses": n, "tree": str(tree)}
+    out = {"poses": n, "poses6": n6, "tree": str(tree)}
     for key in new:
         out[f"{key}_bitwise"] = all(torch.equal(a, b) for a, b in zip(new[key], old[key]))
     print(json.dumps(out))
@@ -686,20 +876,30 @@ def main_se3(rings: int, per_ring: int) -> None:
     print(json.dumps(out))
 
 
+def _ints(text: str):
+    """[int, ...] of "a,b,..."; --poses, --rings and --per-ring take lists
+    in --persistent mode, one value elsewhere."""
+    return [int(t) for t in str(text).split(",")]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--poses", type=int, default=260)
+    ap.add_argument("--poses", default="260")
     ap.add_argument("--se3", action="store_true")
     ap.add_argument("--dist", action="store_true")
     ap.add_argument("--dist6", action="store_true")
     ap.add_argument("--persistent", action="store_true")
     ap.add_argument("--max-cluster", type=int, default=0)
     ap.add_argument("--unplaceable", action="store_true")
+    ap.add_argument("--kernels", default=",".join(KERNELS))
     ap.add_argument("--build-dir", type=Path, default=None)
     ap.add_argument("--vs-tree", type=Path, default=None)
-    ap.add_argument("--rings", type=int, default=6)
-    ap.add_argument("--per-ring", type=int, default=8)
+    ap.add_argument("--rings", default="6")
+    ap.add_argument("--per-ring", default="8")
     args = ap.parse_args()
+    if not args.persistent:
+        args.poses, args.rings, args.per_ring = (int(args.poses), int(args.rings),
+                                                 int(args.per_ring))
     if args.se3:
         return main_se3(args.rings, args.per_ring)
     if args.dist:
@@ -707,9 +907,14 @@ def main() -> None:
     if args.dist6:
         return main_dist6(args.rings, args.per_ring)
     if args.vs_tree:
-        return main_vs_tree(args.vs_tree, args.poses, args.build_dir)
+        return main_vs_tree(args.vs_tree, args.poses, args.rings, args.per_ring,
+                            args.build_dir)
     if args.persistent:
-        return main_persistent(args.poses, args.build_dir, args.max_cluster, args.unplaceable)
+        rings, per_ring = _ints(args.rings), _ints(args.per_ring)
+        if len(rings) != len(per_ring):
+            raise SystemExit("--rings and --per-ring need as many values")
+        return main_persistent(_ints(args.poses), list(zip(rings, per_ring)), args.build_dir,
+                               args.max_cluster, args.unplaceable, args.kernels.split(","))
     n = args.poses
     gk, pk = load_ops({"gn_kernel": build()})
     from graphslam_tpu_torch.factors import from_dataset

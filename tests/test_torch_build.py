@@ -9,10 +9,10 @@ from graphslam_tpu_torch.ops import _build
 def test_sources_follow_quoted_includes():
     names = {n: [p.name for p in _build.sources(n)] for n in
              ("gn_kernel", "cg_step", "gn6_kernel", "cg_step6", "icp_kernel")}
-    assert names["gn_kernel"] == ["gn_kernel.cu", "se2_blocks.cuh"]
-    assert names["cg_step"] == ["cg_step.cu", "se2_blocks.cuh"]
-    assert names["gn6_kernel"] == ["gn6_kernel.cu", "se3_blocks.cuh"]
-    assert names["cg_step6"] == ["cg_step6.cu", "se3_blocks.cuh"]
+    assert names["gn_kernel"] == ["gn_kernel.cu", "se2_blocks.cuh", "persistent.cuh"]
+    assert names["cg_step"] == ["cg_step.cu", "se2_blocks.cuh", "persistent.cuh"]
+    assert names["gn6_kernel"] == ["gn6_kernel.cu", "se3_blocks.cuh", "persistent.cuh"]
+    assert names["cg_step6"] == ["cg_step6.cu", "se3_blocks.cuh", "persistent.cuh"]
     assert names["icp_kernel"] == ["icp_kernel.cu"]
 
 

@@ -233,12 +233,19 @@ def test_cg_step_is_one_launch(graph):
     carry = kern.cg_state(st.b)
     cs.cg_step(sh, st, Aij, carry)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        cs.cg_step(sh, st, Aij, carry)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            cs.cg_step(sh, st, Aij, carry)
         torch.cuda.synchronize()
-    launches = {e.key: e.count for e in prof.key_averages() if "CgProblem" in e.key}
-    assert sum(launches.values()) == 1, launches
-    assert any("cg_step_persistent" in k for k in launches), launches
+    # one cluster launch a pass (cudaLaunchKernelExC; the staged kernels
+    # launch through cudaLaunchKernel); the device's records, where the
+    # profiler kept them (it kept none of a session in a process that ran
+    # several other test files first), name the persistent kernel alone
+    events = prof.key_averages()
+    calls = {e.key: e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC")}
+    assert calls == {"cudaLaunchKernelExC": 3}, calls
+    launches = {e.key: e.count for e in events if "CgProblem" in e.key}
+    assert all("cg_step_persistent" in k for k in launches) and sum(launches.values()) <= 3, launches
 
 
 def test_foreign_carry_is_refused(graph):

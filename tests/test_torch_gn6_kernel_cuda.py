@@ -33,6 +33,48 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
+LM_ARGS = (1e-5, 10.0, 1e-10, 1e7, 1e-9, 1e-6)  # lam0, factor, min, max, abs_tol, rel_tol
+
+
+def _persistent_and_staged(Kernel, p0, g, mode, levels):
+    """[(poses, x or stats)] of the persistent entry and of the staged
+    sequence on fresh problems: GN with warm start and a cg ramp, or LM
+    with Huber 1.0."""
+    runs = []
+    for staged in (False, True):
+        if mode == "gn":
+            kern = Kernel(p0, g, -1.0, levels, cg_max=25)
+            (kern.solve_staged if staged else kern.solve)(((3, 25), (2, 12)), True)
+            runs.append((kern.poses.clone(), kern.x.clone()))
+        else:
+            kern = Kernel(p0, g, 1.0, levels, cg_max=25, lm=True)
+            (kern.lm_solve_staged if staged else kern.lm_solve)(5, 25, *LM_ARGS)
+            runs.append((kern.poses.clone(), kern.stats.clone()))
+    torch.cuda.synchronize()
+    return runs
+
+
+def _launches(fn, calls: int = 3):
+    """({launch API: host calls a call of fn}, {kernel: device records})
+    over `calls` profiled calls. The staged kernels launch through
+    cudaLaunchKernel (<<<...>>>), a cluster or cooperative launch through
+    cudaLaunchKernelExC. The profiler may keep none of a session's device
+    records of a kernel (seen in a process that ran several other test
+    files first), so only the host's calls are counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    host = {e.key: e.count / calls for e in events
+            if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC")}
+    return host, {e.key: e.count for e in events if "Problem" in e.key}
+
+
 def max_err(a, b) -> float:
     return float((a - b).double().abs().max())
 
@@ -160,3 +202,29 @@ def test_wrappers_refuse_cpu_tensors(small):
     kern = g6.Gn6Kernel(p0, g, cg_max=25)
     with pytest.raises(ValueError, match="lm=True"):
         kern.lm_solve(1, 25, 1e-5, 10.0, 1e-10, 1e7, 1e-9, 1e-6)
+
+
+@pytest.mark.parametrize("mode", ["gn", "lm"])
+@pytest.mark.parametrize("name", ["sphere2500", "garage"])
+def test_persistent_solve_equals_staged_bitwise(dev, name, mode):
+    """gn6_solve / gn6_lm_solve (one launch of 384-thread CTAs, a group of
+    6 threads a row in the heavy stages: a cooperative grid of 42 CTAs at
+    sphere2500, one cluster of 16 at garage) against their staged sequences
+    at exact PCR."""
+    data = getattr(datasets, name)()
+    g, p0 = from_dataset(data, device=dev), torch.from_numpy(data["poses"]).to(dev)
+    a, b = _persistent_and_staged(g6.Gn6Kernel, p0, g, mode, None)
+    assert torch.isfinite(a[0]).all() and not torch.equal(a[0], p0)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_persistent_solve_is_one_launch(small):
+    g, p0 = small
+    for lm, name in ((False, "k6_gn_wide"), (True, "k6_lm_wide")):
+        kern = g6.Gn6Kernel(p0, g, 1.0 if lm else -1.0, None, cg_max=25, lm=lm)
+        host, kernels = _launches(lambda: kern.lm_solve(2, 25, *LM_ARGS) if lm
+                                  else kern.solve(((2, 25),), False))
+        # one cluster or cooperative launch a solve, which only the
+        # persistent entry makes; the device's records, where kept, name it
+        assert host == {"cudaLaunchKernelExC": 1}, host
+        assert all(name in k for k in kernels) and sum(kernels.values()) <= 3, kernels

@@ -183,9 +183,16 @@ def test_k3_is_one_launch(small):
     kern = pk.PcgKernel(*pk._chain_and_loops(sysm, lam, True, c), 25)
     kern.solve()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        kern.solve()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            kern.solve()
         torch.cuda.synchronize()
-    launches = {e.key: e.count for e in prof.key_averages() if "GnProblem" in e.key}
-    assert sum(launches.values()) == 1, launches
-    assert any("k_pcg_persistent" in k for k in launches), launches
+    # one cluster launch a solve (cudaLaunchKernelExC; the staged kernels
+    # launch through cudaLaunchKernel); the device's records, where the
+    # profiler kept them (it kept none of a session in a process that ran
+    # several other test files first), name the persistent kernel alone
+    events = prof.key_averages()
+    calls = {e.key: e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC")}
+    assert calls == {"cudaLaunchKernelExC": 3}, calls
+    launches = {e.key: e.count for e in events if "GnProblem" in e.key}
+    assert all("k_pcg_persistent" in k for k in launches) and sum(launches.values()) <= 3, launches

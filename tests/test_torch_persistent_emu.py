@@ -1,24 +1,36 @@
-"""The persistent K3 and K6c against their staged sequences, on the CPU.
+"""The persistent kernels against their staged sequences, on the CPU.
 
-K3 (`gn_pcg`, csrc/gn_kernel.cu) and K6c (`cg_step`, csrc/cg_step.cu) each
-run as one launch of a persistent kernel on a thread-block cluster, with a
-cluster barrier where the staged sequences (`gn_factor` + `gn_cg`,
-`cg_step_staged`) have a kernel boundary. Without a card, both sources are
-built with g++ under the emulation of scripts/emulate_gn_kernel.py: a
-cluster launch runs every thread of every CTA at once, `cluster.sync()` is
-a barrier over all of them and `__syncthreads` one per CTA. At ~300 poses
-the cluster has 2 CTAs; with the cluster capped at 2 CTAs, 600 poses make
-CTA 0 walk two of the three 256-row blocks. Each case holds the persistent
-kernels to their staged sequences with torch.equal (K3 at lam 0 and 1e-3,
-with masked loop slots and on the chain alone; K6c on two ranks, without
-and with Huber, the whole carry after 1 and 26 passes). Where the card
-cannot place the cluster (the emulated occupancy query places none), K3
-and K6c raise, and nothing falls back to the staged sequences.
+K3 (`gn_pcg`) and K6c (`cg_step`), and since K1 and K4 were redesigned the
+whole solves of K1 (`gn_solve`, `gn_lm_solve`, csrc/gn_kernel.cu) and K4
+(`gn6_solve`, `gn6_lm_solve`, csrc/gn6_kernel.cu), each run as one launch
+of a persistent kernel on a thread-block cluster, with a cluster barrier
+where the staged sequences (`gn_factor` + `gn_cg`, `cg_step_staged`,
+`gn_solve_staged`, `gn_lm_solve_staged` and their gn6 twins) have a kernel
+boundary. Without a card, the sources are built with g++ under the
+emulation of scripts/emulate_gn_kernel.py: a cluster launch runs every
+thread of every CTA at once, `cluster.sync()` is a barrier over all of
+them, `__syncthreads` one per CTA, `__syncwarp` and the shuffles one per
+warp. The cluster and the emulated card are capped at 2 CTAs. At 300
+poses the SE(2) cluster has 2 CTAs, one 256-row block each; 600 poses make
+CTA 0 walk two of the three blocks. K4's CTAs hold 60 rows at once (384
+threads, a group of 6 a row) and form one cluster where one pass over the
+rows takes at most the cap, else a cooperative grid with a grid barrier:
+sphere(10, 10) (100 poses) runs on a cluster of 2 CTAs, and sphere(9, 60)
+(540 poses: three 256-row blocks, so that the block partials' order
+shows) on a grid of 2 CTAs that walk five passes. Each case holds the persistent kernels to
+their staged sequences with torch.equal (K3 at lam 0 and 1e-3, with masked
+loop slots and on the chain alone; K6c on two ranks, without and with
+Huber, the whole carry after 1 and 26 passes; K1 and K4 in GN mode with
+warm start and a cg ramp, poses and x, and in LM mode with Huber, poses and
+stats). Where the card cannot place the cluster (the emulated occupancy
+query places none, and a cooperative grid finds no room), every
+persistent entry raises, and nothing falls back to the staged sequences.
 
 The emulation runs in a subprocess with a timeout, so that a barrier that
-not every thread reaches fails the test instead of hanging it.
+not every thread reaches fails the test instead of hanging it. One build
+and one subprocess serve both sizes of a family; under pytest-xdist the
+cases share it through tests/_torch_port.py::once_per_session.
 """
-
 import json
 import shutil
 import subprocess
@@ -27,8 +39,13 @@ from pathlib import Path
 
 import pytest
 
+from _torch_port import once_per_session
+
 ROOT = Path(__file__).resolve().parent.parent
 TIMEOUT_S = 240
+MAX_CLUSTER = 2
+SE2_POSES = {"2ctas": 300, "ctas_walk_blocks": 600}
+SE3_SPHERES = {"k4_cluster_2ctas": (10, 10), "k4_grid_ctas_walk_passes": (9, 60)}
 
 
 @pytest.fixture(scope="module")
@@ -37,32 +54,86 @@ def gxx():
         pytest.skip("needs g++ for the CPU emulation of the CUDA sources")
 
 
-def _emulate(tmp_path, *args) -> dict:
-    """The last JSON line of scripts/emulate_gn_kernel.py --persistent args."""
+def _emulate(build_dir, *args) -> list:
+    """The JSON lines of scripts/emulate_gn_kernel.py --persistent args,
+    one a size."""
     cmd = [sys.executable, str(ROOT / "scripts" / "emulate_gn_kernel.py"), "--persistent",
-           "--build-dir", str(tmp_path), *args]
+           "--build-dir", str(build_dir), *args]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=TIMEOUT_S, cwd=ROOT)
     except subprocess.TimeoutExpired:
         pytest.fail(f"the emulation did not end in {TIMEOUT_S} s: a barrier deadlock?")
     assert proc.returncode == 0, proc.stderr[-4000:]
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    return [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
 
 
-@pytest.mark.parametrize("poses,max_cluster", [(300, 0), (600, 2)],
-                         ids=["2ctas", "ctas_walk_blocks"])
-def test_persistent_kernels_equal_their_staged_sequences(gxx, tmp_path, poses, max_cluster):
-    args = ["--poses", str(poses)] + (["--max-cluster", str(max_cluster)] if max_cluster else [])
-    out = _emulate(tmp_path, *args)
+def _family(tmp_path_factory, name, *args) -> dict:
+    """{case id: JSON line} of one emulation over a family's sizes."""
+    sizes = SE2_POSES if name == "se2" else SE3_SPHERES
+
+    def compute():
+        outs = _emulate(tmp_path_factory.mktemp(f"emu_{name}"), *args,
+                        "--max-cluster", str(MAX_CLUSTER))
+        assert len(outs) == len(sizes), outs
+        return dict(zip(sizes, outs))
+    return once_per_session(f"persistent_emu_{name}", compute, tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def se2_runs(gxx, tmp_path_factory):
+    # K1's solves ride in the same run as K3 and K6c (one build of gn_kernel.cu)
+    return _family(tmp_path_factory, "se2", "--kernels", "k3,k6c,k1",
+                   "--poses", ",".join(str(n) for n in SE2_POSES.values()))
+
+
+@pytest.fixture(scope="module")
+def se3_runs(gxx, tmp_path_factory):
+    return _family(tmp_path_factory, "se3", "--kernels", "k4",
+                   "--rings", ",".join(str(r) for r, _ in SE3_SPHERES.values()),
+                   "--per-ring", ",".join(str(p) for _, p in SE3_SPHERES.values()))
+
+
+def _solves_near_their_twins(out, family):
+    """K1's or K4's persistent solves near their plain twins (float32,
+    another summation order), the LM steps accepted alike."""
+    for mode in ("warm_ramp", "lm_huber"):
+        assert out[f"{family}_{mode}_vs_twin"] < 1e-3, out
+    stats, twin = out[f"{family}_lm_stats"]
+    assert stats[2:] == twin[2:] and stats[2] > 0, out
+
+
+@pytest.mark.parametrize("case", list(SE2_POSES))
+def test_persistent_kernels_equal_their_staged_sequences(se2_runs, case):
+    out, poses = se2_runs[case], SE2_POSES[case]
     nb = -(-poses // 256)
     assert (out["poses"], out["blocks"]) == (poses, nb)
-    assert out["ctas"] == min(nb, max_cluster or 16)
+    assert out["ctas"] == min(nb, MAX_CLUSTER) == 2
     checks = {k: v for k, v in out.items() if k.endswith(("_bitwise", "_finite"))}
-    assert len(checks) == 12 and all(checks.values()), checks
+    assert len(checks) == 16 and all(checks.values()), checks
+    _solves_near_their_twins(out, "k1")
+
+
+@pytest.mark.parametrize("case", list(SE3_SPHERES))
+def test_persistent_solves_equal_their_staged_sequences(se3_runs, case):
+    out = se3_runs[case]
+    rings, per_ring = SE3_SPHERES[case]
+    poses, slots = out["poses6"], out["slots6"]
+    assert poses == rings * per_ring
+    want = -(-poses // slots)  # CTAs of one pass over the rows
+    assert out["grid6"] == (want > MAX_CLUSTER) and out["ctas6"] == min(want, MAX_CLUSTER) == 2
+    walks = -(-poses // (slots * out["ctas6"]))
+    assert walks >= 2 if out["grid6"] else walks == 1, out
+    checks = {k: v for k, v in out.items() if k.endswith(("_bitwise", "_finite"))}
+    assert len(checks) == 4 and all(checks.values()), checks
+    _solves_near_their_twins(out, "k4")
 
 
 def test_unplaceable_cluster_raises_without_fallback(gxx, tmp_path):
-    out = _emulate(tmp_path, "--poses", "300", "--unplaceable")
-    for name in ("k3", "k6c"):
+    # K4 at 180 poses with 2 CTAs at most takes the cooperative grid, for
+    # which the emulated card holds no CTA (gn6_wide_ctas: 0, an error)
+    (out,) = _emulate(tmp_path, "--poses", "300", "--rings", "6", "--per-ring", "30",
+                      "--max-cluster", str(MAX_CLUSTER), "--unplaceable")
+    assert out["ctas6"] == 0, out
+    for name in ("k3", "k6c", "k1", "k1_lm", "k4", "k4_lm"):
         assert out[f"{name}_raised"] and "failed: CUDA error" in out[f"{name}_raised"], out
         assert out[f"{name}_staged_raised"] is None, out
