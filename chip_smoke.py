@@ -54,12 +54,19 @@ a nonzero exit:
      from the same state: decisions and factor counts equal, keyframe
      poses wrapped atol 2e-3; gn_solve bitwise equal to gn_solve_staged
      at the replay's solve (one CTA).
-  8. timing: replay frames/s through the kernels (median of 3), the plain
-     path on the card over the first 60 scans, the K2 IRLS rounds that ran
-     over a replay (the sum of each match's ctrl[1]) beside those enqueued,
-     K2 and K8 per launch against their twins and K8 against torch.cdist,
-     and one profiled replay (device busy share, kernels and host
-     synchronizations per scan)
+  8. timing: replay frames/s through the kernels (median of 3) in turns
+     with the replay whose K2 runs its staged launches (icp_match_staged),
+     the plain path on the card over the first 60 scans; the replay
+     through icp_match (one launch a match) bitwise equal to the replay
+     through icp_match_staged (every state field and step info); the K2
+     IRLS rounds that ran over a replay (the sum of each match's ctrl[1])
+     beside those the staged entry enqueues; K2's C entries in turns with
+     their staged sequences, one round at full width (icp_iteration) and
+     one match (icp_match), with host launch calls a match (profiler: 1)
+     and ptxas registers and spills; gicp_match in turns through both
+     entries; K8 per launch against its twin and torch.cdist; and one
+     profiled replay (device busy share, kernels and host synchronizations
+     per scan)
   9. LM kernels against their twins on manhattan(260): K1's LM mode, 5
      Huber iterations at pcr_levels 4 and exact (poses wrapped atol 3e-3,
      chi2 within 1%, accepted steps and converged equal; its cost pass
@@ -97,8 +104,9 @@ a nonzero exit:
      entries <= 5e-3, the repo's SE(3) kernel-vs-XLA tolerance); K4-LM, 5
      Huber steps (poses <= 8e-3, chi2 within 1%, accepted steps and
      converged equal, its cost pass alone rel 1e-5); K5 at lam 0 and 1e-3
-     (rel 1e-3); K4's gn6_solve and gn6_lm_solve (one launch, a group of
-     6 threads a 6x6 row) bitwise equal to their
+     (rel 1e-3), and gn6_pcg (one launch) bitwise equal to gn6_factor +
+     gn6_cg and to a second call; K4's gn6_solve and gn6_lm_solve (one
+     launch, a group of 6 threads a 6x6 row) bitwise equal to their
      staged sequences on the chain-only, masked and warm + ramp inputs and
      5 Huber LM steps
  13. the SE(3) main paths on cuda, scripts/bench_all.py's configs:
@@ -116,7 +124,9 @@ a nonzero exit:
      the twin on the card (median of 3 reps of back-to-back solves); garage
      LM it/s through K4-LM (in turns with its twin) and through
      _lm_loop(pcg_fused); K5 per call at garage (its C entry on a prepared
-     problem, and the whole wrapper) against its twin (CUDA events);
+     problem, and the whole wrapper, each in turns with the staged
+     gn6_factor + gn6_cg; host launch calls a call, 1; ptxas registers and
+     spills) against its twin (CUDA events);
      gn6_solve (sphere2500, garage) and gn6_lm_solve (garage) C entries in
      turns with their staged sequences, host launch calls a solve (1),
      ptxas registers and spills; launches per iteration by source and the
@@ -177,12 +187,17 @@ a nonzero exit:
 Before the last line it prints one JSON object describing the kernels
 (max_abs_err: gn_kernel the larger of its m3500 and replay-solve pose
 errors, icp_kernel gicp_match's delta through the kernel against the plain
-path, nn_kernel the distances at full width, gn_kernel_lm its largest pose
+path, and its "ms" is one round's C entry, "ms_staged" the staged one's in
+turns, "ms_match_entry" / "ms_gicp_match" a match's, the launches a match
+and the replay's frames/s with K2 staged beside; nn_kernel the distances at
+full width, gn_kernel_lm its largest pose
 error against the twin, pcg_kernel its largest dx error against the twin,
 and its "ms" is the C entry's, "ms_staged" the staged gn_factor + gn_cg's
 in turns, "ms_wrapper" the whole fused_pcg_solve's;
 gn6_kernel, gn6_kernel_lm and pcg6_kernel likewise from phases 12-14, with
-"ms" per sphere2500 GN solve, per garage LM solve and per K5 C-entry call;
+"ms" per sphere2500 GN solve, per garage LM solve and per K5 C-entry call
+(pcg6_kernel also "ms_staged" and "ms_wrapper_staged" in turns, launches a
+call, registers and spills);
 the rows redesigned as one launch a solve (gn_kernel, gn_kernel_lm,
 gn6_kernel, gn6_kernel_lm; "redesigned": true, as for pcg_kernel and
 cg_step_cg_step, one launch a call) add "ms_entry" (the C entry) and
@@ -919,59 +934,146 @@ def phase_timing_frontend(torch, tour, k2_full):
     kern_60 = make_slam_replay(cfg, n60)
     plain_60 = make_slam_replay(cfg, n60, use_kernels=False)
     s60, o60 = tour["scans"][:n60], tour["odom"][:n60]
-    runs_full = [fps(kern_full, tour["scans"], tour["odom"], n) for _ in range(3)]
+    loop_k2 = ik.fused_icp_loop
+
+    def staged_k2(fn):
+        """fn() with gicp_match's loop through the staged K2 entry."""
+        ik.fused_icp_loop = ik.fused_icp_loop_staged
+        try:
+            return fn()
+        finally:
+            ik.fused_icp_loop = loop_k2
+
+    def replay_full():
+        return fps(kern_full, tour["scans"], tour["odom"], n)
+
+    # in turns: staged K2, K2, K2, K2, staged K2
+    runs_staged = [staged_k2(replay_full)]
+    runs_full = [replay_full() for _ in range(3)]
+    runs_staged.append(staged_k2(replay_full))
     runs_60 = [fps(kern_60, s60, o60, n60) for _ in range(3)]
     plain = fps(plain_60, s60, o60, n60)
     out["fps"] = statistics.median(runs_full)
+    out["fps_k2_staged"] = max(runs_staged)
     out["fps_60"] = statistics.median(runs_60)
     out["plain_fps_60"] = plain
     log(f"  card: {tour['card']}")
     log(f"  replay through the kernels: {out['fps']:.2f} frames/s over {n} scans (median of 3: "
-        f"{', '.join(f'{x:.2f}' for x in runs_full)})")
+        f"{', '.join(f'{x:.2f}' for x in runs_full)}); with K2 through icp_match_staged "
+        f"{runs_staged[0]:.2f} before and {runs_staged[1]:.2f} after")
     log(f"  first {n60} scans: kernels {out['fps_60']:.2f} frames/s (median of 3), plain twins "
         f"on the card {plain:.2f} frames/s (one run)")
 
+    # The replay through K2's one launch a match against the replay through
+    # its staged launches: every state field and step info bit for bit.
+    state_a, infos_a = kern_full(init_state(cfg), tour["scans"], tour["odom"])
+    state_b, infos_b = staged_k2(lambda: kern_full(init_state(cfg), tour["scans"], tour["odom"]))
+    torch.cuda.synchronize()
+    for f in dataclasses.fields(state_a):
+        if not torch.equal(getattr(state_a, f.name), getattr(state_b, f.name)):
+            fail(f"the replay through icp_match and through icp_match_staged differ in {f.name}")
+    for a, b in zip(infos_a, infos_b):
+        if not torch.equal(a, b):
+            fail("the replay through icp_match and through icp_match_staged differ in their "
+                 "step infos")
+    log(f"  replay through icp_match (one launch a match) vs icp_match_staged: bitwise equal "
+        f"(every state field and step info; {int(state_a.num_kf)} keyframes, "
+        f"{int(state_a.num_loops)} loops)")
+
     # K2's IRLS rounds that ran over one replay (the sum of each match's
-    # ctrl[1]) beside those enqueued (icp_iterations a match): under early exit a round
-    # after convergence returns at its first line.
-    ctrls, problem = [], ik._problem
+    # ctrl[1]) beside the rounds the staged entry enqueues (icp_iterations a
+    # match): the one-launch loop runs no round after convergence.
+    ctrls, loop = [], ik._loop
 
     def counting(*a, **kw):
-        prob, keep = problem(*a, **kw)
-        ctrls.append(keep[9])
-        return prob, keep
+        res, ctrl = loop(*a, **kw)
+        ctrls.append(ctrl)
+        return res, ctrl
 
-    ik._problem = counting
+    ik._loop = counting
     try:
         kern_full(init_state(cfg), tour["scans"], tour["odom"])
     finally:
-        ik._problem = problem
+        ik._loop = loop
     rounds = cfg.frontend.icp_iterations
     out["k2_matches"] = len(ctrls)
     out["k2_rounds_enqueued"] = rounds * len(ctrls)
     out["k2_rounds_run"] = int(torch.stack(ctrls)[:, 1].sum()) if ctrls else 0
-    log(f"  K2 IRLS rounds over the replay: {out['k2_rounds_run']} run of "
-        f"{out['k2_rounds_enqueued']} enqueued ({out['k2_matches']} matches, {rounds} rounds "
-        f"each)")
+    log(f"  K2 IRLS rounds over the replay: {out['k2_rounds_run']} run in {out['k2_matches']} "
+        f"matches ({out['k2_rounds_enqueued']} enqueued by icp_match_staged: {rounds} rounds "
+        f"a match)")
 
-    # K2: one IRLS iteration at full width, the C entry on a prepared problem
-    # (two launches) against the twin; the whole device loop per match.
+    # K2: one IRLS iteration at full width, the C entries on a prepared
+    # problem in turns (staged, one launch, one launch, staged), against the
+    # twin; the C entries of a whole match likewise, and their launches.
     args = k2_full
     prob, keep = ik._problem(args[0], args[1], args[6], args[2], args[3], args[4],
                              ik._packed(args[5]), 1.0, 1e-6)
     lib = ik._lib()
-    out["k2_us"] = _event_us(torch, lambda: lib.icp_iteration(ctypes.byref(prob)), 500)
+
+    def round_(fn):
+        return lambda: getattr(lib, fn)(ctypes.byref(prob))
+    t_sa = _event_us(torch, round_("icp_iteration_staged"), 500)
+    t_na = _event_us(torch, round_("icp_iteration"), 500)
+    t_nb = _event_us(torch, round_("icp_iteration"), 500)
+    t_sb = _event_us(torch, round_("icp_iteration_staged"), 500)
+    out["k2_us"], out["k2_staged_us"] = min(t_na, t_nb), min(t_sa, t_sb)
     out["k2_plain_us"] = _event_us(torch, lambda: ik.fused_icp_iteration_reference(
         *args, max_corr2=1.0, eps=1e-6), 50)
+    log(f"  K2, one IRLS iteration at P = Q = {args[0].shape[0]} on {lib.icp_ctas(args[0].shape[0])} "
+        f"CTAs (C entries in turns, CUDA events): one launch {t_na:.2f} and {t_nb:.2f} us, "
+        f"staged (2 launches) {t_sa:.2f} and {t_sb:.2f} us ({out['k2_staged_us'] / out['k2_us']:.2f}x); "
+        f"plain twin {out['k2_plain_us']:.2f} us")
+
     pair = (tour["pts"][1], tour["masks"][1], tour["pts"][0], tour["masks"][0])
-    out["match_us"] = _event_us(torch, lambda: icp.gicp_match(
-        *pair, init_delta=tour["odom"][1], iterations=32), 50)
+    Cs = icp.surfel_covs(pair[0], pair[1], 4, 1e-3)
+    Ct = icp.surfel_covs(pair[2], pair[3], 4, 1e-3)
+    mprob, mkeep = ik._problem(pair[0], None, ik._packed(Cs), pair[1], pair[2], pair[3],
+                               ik._packed(Ct), 1.0, 1e-6, 1e-5)
+    delta = tour["odom"][1].clone()
+    mprob.delta = delta.data_ptr()
+
+    def match_entry(fn):
+        def call():
+            delta.copy_(tour["odom"][1])
+            getattr(lib, fn)(ctypes.byref(mprob), 32, 1)
+        return call
+    t_sa = _event_us(torch, match_entry("icp_match_staged"), 200)
+    t_na = _event_us(torch, match_entry("icp_match"), 200)
+    t_nb = _event_us(torch, match_entry("icp_match"), 200)
+    t_sb = _event_us(torch, match_entry("icp_match_staged"), 200)
+    out["k2_match_entry_us"], out["k2_match_entry_staged_us"] = min(t_na, t_nb), min(t_sa, t_sb)
+    host, _ = _launches_per_call(torch, lambda: lib.icp_match(ctypes.byref(mprob), 32, 1),
+                                 "IcpProblem")
+    host_s, _ = _launches_per_call(torch, lambda: lib.icp_match_staged(ctypes.byref(mprob), 32, 1),
+                                   "IcpProblem")
+    out["k2_launches_per_match"], out["k2_staged_launches_per_match"] = host, host_s
+    match_entry("icp_match")()
+    torch.cuda.synchronize()
+    out["k2_rounds_pair"] = int(mkeep[10][1])
+    out["k2_ptxas"] = {e: _ptxas("icp_kernel", e) for e in ("k_icp_roundsILb1E",
+                                                           "k_icp_roundsILb0E")}
+    log(f"  K2, one match at full width (scan 1 on scan 0, 32 rounds, early exit: "
+        f"{out['k2_rounds_pair']} run; C entries in turns, CUDA events): icp_match {t_na:.2f} "
+        f"and {t_nb:.2f} us, icp_match_staged {t_sa:.2f} and {t_sb:.2f} us; host launch calls a "
+        f"match (profiler, 10 calls): {host:g}, staged {host_s:g}; ptxas "
+        + ", ".join(f"k_icp_rounds<{'true' if '1E' in e else 'false'}> {r} registers, {sp} bytes "
+                    f"spill stores" for e, (r, sp) in out["k2_ptxas"].items()))
+    if host != 1:
+        fail(f"icp_match made {host} launch calls a match, not 1")
+
+    def match():
+        return icp.gicp_match(*pair, init_delta=tour["odom"][1], iterations=32)
+    t_sa = _event_us(torch, lambda: staged_k2(match), 50)
+    t_na = _event_us(torch, match, 50)
+    t_nb = _event_us(torch, match, 50)
+    t_sb = _event_us(torch, lambda: staged_k2(match), 50)
+    out["match_us"], out["match_staged_us"] = min(t_na, t_nb), min(t_sa, t_sb)
     out["match_plain_us"] = _event_us(torch, lambda: icp.gicp_match(
         *pair, init_delta=tour["odom"][1], iterations=32, use_kernel=False), 10)
-    log(f"  K2, one IRLS iteration at P = Q = {args[0].shape[0]}: {out['k2_us']:.2f} us per call "
-        f"(2 launches) vs {out['k2_plain_us']:.2f} us for the plain twin")
-    log(f"  gicp_match, scan 1 on scan 0 (32 iterations, early exit): {out['match_us']:.2f} us "
-        f"through the kernel vs {out['match_plain_us']:.2f} us plain")
+    log(f"  gicp_match, scan 1 on scan 0 (32 iterations, early exit; in turns): {t_na:.2f} and "
+        f"{t_nb:.2f} us through icp_match, {t_sa:.2f} and {t_sb:.2f} us through "
+        f"icp_match_staged, {out['match_plain_us']:.2f} us plain")
 
     # K8 at full width against the twin and torch.cdist over the valid targets.
     src, tgt, valid = args[0], args[3], args[4]
@@ -1538,6 +1640,16 @@ def phase_se3_kernels(torch, datasets, from_dataset, lm):
                 fail("K5 produced a non-finite solution")
             errs["k5"] = max(errs["k5"], float((x - xr).abs().max()))
             _check(f"{name} K5 at lam {lam}, rel", rel_err(x, xr), TOL_CG_REL)
+            kern5 = p6.Pcg6Kernel(*p6._chain_and_loops(sysm, torch.tensor(lam, device=dev), True,
+                                                       c, T=6), 25)
+            a, b, again = kern5.solve().clone(), kern5.staged().clone(), kern5.solve().clone()
+            torch.cuda.synchronize()
+            same = torch.equal(a, b) and torch.equal(a, again)
+            log(f"  K5 {name} at lam {lam}: gn6_pcg (one launch) vs gn6_factor + gn6_cg, and "
+                f"two calls: {'bitwise equal' if same else 'DIFFERENT'}")
+            if not (same and torch.isfinite(a).all()):
+                fail(f"K5 on {name} at lam {lam}: gn6_pcg differs from its staged sequence "
+                     f"(max |d| {float((a - b).abs().max()):.3e})")
     return errs
 
 
@@ -1694,15 +1806,46 @@ def phase_se3_timing(torch, card, graphs, lm):
     sysm = lm._linearized_system(p0, g, cfg5)
     lam = torch.tensor(cfg5.init_lambda, device=p0.device)
     kern5 = p6.Pcg6Kernel(*p6._chain_and_loops(sysm, lam, True, g.chain_prefix, T=6), 25)
-    out["k5_us"] = _event_us(torch, kern5.solve, 50)
-    out["k5_wrapper_us"] = _event_us(torch, lambda: p6.fused_pcg6_solve(
-        sysm, lam, max_iters=25, chain_prefix=g.chain_prefix), 20)
+    # in turns: staged, one launch, one launch, staged
+    t_sa = _event_us(torch, kern5.staged, 20)
+    t_na = _event_us(torch, kern5.solve, 50)
+    t_nb = _event_us(torch, kern5.solve, 50)
+    t_sb = _event_us(torch, kern5.staged, 20)
+    out["k5_us"], out["k5_staged_us"] = min(t_na, t_nb), min(t_sa, t_sb)
+    host, dev_n = _launches_per_call(torch, kern5.solve, "Gn6Problem")
+    host_s, dev_s = _launches_per_call(torch, kern5.staged, "Gn6Problem")
+    out["k5_launches_per_call"], out["k5_staged_launches_per_call"] = host, host_s
+    out["k5_ptxas"] = {"k6_pcg_wide": _ptxas("gn6_kernel", "k6_pcg_wide")}
+    regs, spill = out["k5_ptxas"]["k6_pcg_wide"]
+    log(f"  K5 at garage (exact PCR, K = {math.ceil(math.log2(p0.shape[0]))}, cg 25), C entries "
+        f"in turns (CUDA events): gn6_pcg (one launch) {t_na:.2f} and {t_nb:.2f} us, staged "
+        f"gn6_factor + gn6_cg {t_sa:.2f} and {t_sb:.2f} us ({out['k5_staged_us'] / out['k5_us']:.2f}x); "
+        f"launches a call (profiler, 10 calls; host launch calls / device kernels): {host:g} / "
+        f"{dev_n:g}, staged {host_s:g} / {dev_s:g}; ptxas k6_pcg_wide {regs} registers, {spill} "
+        f"bytes spill stores")
+    if host != 1:
+        fail(f"K5 made {host} launch calls a call, not 1")
+
+    def wrapper():
+        return p6.fused_pcg6_solve(sysm, lam, max_iters=25, chain_prefix=g.chain_prefix)
+
+    def wrapper_staged():
+        solve = p6.Pcg6Kernel.solve
+        p6.Pcg6Kernel.solve = p6.Pcg6Kernel.staged
+        try:
+            return wrapper()
+        finally:
+            p6.Pcg6Kernel.solve = solve
+    t_sa = _event_us(torch, wrapper_staged, 20)
+    t_na = _event_us(torch, wrapper, 20)
+    t_nb = _event_us(torch, wrapper, 20)
+    t_sb = _event_us(torch, wrapper_staged, 20)
+    out["k5_wrapper_us"], out["k5_wrapper_staged_us"] = min(t_na, t_nb), min(t_sa, t_sb)
     out["k5_plain_us"] = _event_us(torch, lambda: p6.fused_pcg6_solve_reference(
         sysm, lam, max_iters=25, chain_prefix=g.chain_prefix), 3, warmup=1)
-    log(f"  K5 at garage (exact PCR, K = {math.ceil(math.log2(p0.shape[0]))}, "
-        f"cg 25; CUDA events): {out['k5_us']:.2f} us per call of the C entry on a prepared "
-        f"problem, {out['k5_wrapper_us']:.2f} us per fused_pcg6_solve, {out['k5_plain_us']:.2f} us "
-        f"for the twin")
+    log(f"  K5 through fused_pcg6_solve (the wrapper's torch preparation included; in turns): "
+        f"{t_na:.2f} and {t_nb:.2f} us, with the staged sequence {t_sa:.2f} and {t_sb:.2f} us; "
+        f"the twin {out['k5_plain_us']:.2f} us")
 
     entries = (("gn6_kernel", "k6_gn_wide"),)
     for name in ("sphere2500", "garage"):
@@ -2679,14 +2822,26 @@ def main() -> int:
         {
             "name": "icp_kernel",
             "route": "cuda",
+            "redesigned": True,
             "source": "graphslam_tpu_torch/csrc/icp_kernel.cu",
             "replaces": "graphslam_tpu/ops/icp_kernel.py:30",
             "launches": launches["icp_kernel"],
             "rounds_run": t["k2_rounds_run"],
-            "rounds_enqueued": t["k2_rounds_enqueued"],
+            "rounds_enqueued_staged": t["k2_rounds_enqueued"],
             "max_abs_err": fe["match_err"],
             "iteration_err_over_limit": fe["k2_ratio"],
             "ms": t["k2_us"] / 1e3,
+            "ms_staged": t["k2_staged_us"] / 1e3,
+            "ms_match_entry": t["k2_match_entry_us"] / 1e3,
+            "ms_match_entry_staged": t["k2_match_entry_staged_us"] / 1e3,
+            "ms_gicp_match": t["match_us"] / 1e3,
+            "ms_gicp_match_staged": t["match_staged_us"] / 1e3,
+            "launches_per_match": t["k2_launches_per_match"],
+            "staged_launches_per_match": t["k2_staged_launches_per_match"],
+            "replay_fps": t["fps"],
+            "replay_fps_k2_staged": t["fps_k2_staged"],
+            "registers": {k: v[0] for k, v in t["k2_ptxas"].items()},
+            "spill_store_bytes": {k: v[1] for k, v in t["k2_ptxas"].items()},
             "plain_ms": t["k2_plain_us"] / 1e3,
             "bound_ms": k2_bound,
             "bound_by": k2_by,
@@ -2773,12 +2928,19 @@ def main() -> int:
         {
             "name": "pcg6_kernel",
             "route": "cuda",
+            "redesigned": True,
             "source": "graphslam_tpu_torch/csrc/gn6_kernel.cu",
             "replaces": "graphslam_tpu/ops/pcg6_kernel.py:207",
             "launches": se3_main["garage_lm_pcg_fused"]["launches"],
             "max_abs_err": se3_err["k5"],
             "ms": st["k5_us"] / 1e3,
+            "ms_staged": st["k5_staged_us"] / 1e3,
+            "launches_per_call": st["k5_launches_per_call"],
+            "staged_launches_per_call": st["k5_staged_launches_per_call"],
+            "registers": {k: v[0] for k, v in st["k5_ptxas"].items()},
+            "spill_store_bytes": {k: v[1] for k, v in st["k5_ptxas"].items()},
             "ms_wrapper": st["k5_wrapper_us"] / 1e3,
+            "ms_wrapper_staged": st["k5_wrapper_staged_us"] / 1e3,
             "plain_ms": st["k5_plain_us"] / 1e3,
             "bound_ms": k5_bound,
             "bound_by": k5_by,

@@ -46,7 +46,7 @@
 //       launch per stage (k6_*, one thread a row, n_blocks(N) blocks of
 //       256) on the caller's stream, 404 an iteration at sphere2500 (K =
 //       12, cg 25). The yardstick: the wide kernels give bitwise its poses,
-//       x and stats. K5 (gn6_pcg) runs the same staged kernels.
+//       x and stats.
 //
 // What bounds it: at sphere2500 size (2500 poses, 2450 loop edges) every
 // array is a few MB and sits in the 50 MB L2; neither bytes nor FLOPs bound
@@ -63,8 +63,10 @@
 //
 // K5 (gn6_pcg) is the PCR factor at the exact K = ceil(log2 N) and a cold CG
 // on a D, U, b and loop blocks that the caller supplies (damped in torch
-// beforehand, as the JAX package damps in XLA); it reuses the staged
-// kernels.
+// beforehand, as the JAX package damps in XLA): ONE launch of k6_pcg_wide,
+// K4's wide factor and CG stages in K4's shape (garage: one 16-CTA
+// cluster); gn6_factor + gn6_cg, the staged kernels (347 launches at
+// garage), are its yardstick, bitwise equal.
 //
 // The SO(3) log calls acosf in its generic branch, as geometry/so3.py's log
 // does; the TPU kernel's _acos_no_trig (gn6_kernel.py:321) only works around
@@ -646,6 +648,14 @@ __global__ void __launch_bounds__(kWide, 1) k6_gn_wide(Gn6Problem p, Ws w, Phase
   }
 }
 
+// K5: the K factor levels on the caller's D and U, then a cold CG of
+// cg_iters with the caller's loop blocks p.lA (hvp6_lane reads them as
+// k6_hvp does): run_factor + run_cg(warm = 0), K + 1 + (K + 1) + cg (K + 3)
+// stages (337 at garage: K = 10, cg 25).
+__global__ void __launch_bounds__(kWide, 1) k6_pcg_wide(Gn6Problem p, Ws w, int cg_iters) {
+  solve6_stages(p, w, cg_iters, 0);
+}
+
 // K4's LM mode: the cost of the poses and lm_init6, then per iteration the
 // GN stages with a cold CG, the retract into the candidate, its cost (c +
 // El + N rows), its sum and lm_decide6 on CTA 0 between two barriers, and
@@ -824,14 +834,19 @@ int gn6_chi2(const Gn6Problem* pp, const float* poses, float* out) {
 }
 
 // K5: exact-K PCR factor and a cold CG of cg_iters on the caller's D, U, b
-// and loop blocks p->lA; the solution lands in p->x.
+// and loop blocks p->lA; the solution lands in p->x. One launch of
+// k6_pcg_wide in wide_shape's shape (garage: one 16-CTA cluster);
+// gn6_factor then gn6_cg(cg_iters, 0) on the same problem is the same
+// computation as a staged sequence of 2K + 2 + cg_iters (K + 3) launches
+// (347 at garage), bitwise equal. No host synchronization.
 int gn6_pcg(const Gn6Problem* pp, int cg_iters) {
   const Gn6Problem& p = *pp;
-  if (cg_iters > p.cg_max) return (int)cudaErrorInvalidValue;
-  const Ws w = ws_of(p);
-  const cudaStream_t s = (cudaStream_t)p.stream;
-  GN_TRY(run_factor(p, w, s));
-  return run_cg(p, w, cg_iters, 0, s);
+  if (cg_iters < 0 || cg_iters > p.cg_max) return (int)cudaErrorInvalidValue;
+  Shape sh;
+  const cudaError_t err = wide_shape(k6_pcg_wide, p.N, sh);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_persistent(k6_pcg_wide, sh, kWide, (cudaStream_t)p.stream, p, ws_of(p),
+                                cg_iters);
 }
 
 // K4's LM mode (gn6_kernel.py:917-955): `iterations` damped steps, each a

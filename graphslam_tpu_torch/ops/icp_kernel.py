@@ -9,20 +9,29 @@ reduction to the 3-dof normal equations H, g and the match statistics
 
 The CUDA source is csrc/icp_kernel.cu (plain C interface, built with nvcc
 by ops/_build.py, called through ctypes); its header says what bounds it
-on an H100 and how. Two entry points:
+on an H100 and how. Two entry points, each ONE launch of a persistent
+kernel on a thread-block cluster (a group of threads a source point scans
+the targets, resident in shared memory):
 
   fused_icp_iteration  one iteration on given moved points (K2 as the JAX
                        package exposes it)
   fused_icp_loop       the whole IRLS loop of frontend/icp.py::gicp_match
-                       on the device: one ctypes call enqueues every
-                       iteration, with the early-exit test on a device flag
+                       on the device, no host synchronization; with early
+                       exit the loop ends on the device after the round
+                       whose |upd| < tol
+
+`fused_icp_iteration_staged` and `fused_icp_loop_staged` run the same
+computation as the staged launches (two a round: one thread a point
+scanning every target, then one thread's update), their yardstick: delta,
+H, stats and |upd| are bitwise equal.
 
 `fused_icp_iteration` takes its plain twin (`fused_icp_iteration_reference`)
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
-raises. `fused_icp_loop` takes CUDA tensors only: on the CPU, gicp_match
-runs its plain IRLS loop instead. Each counts its successful launches in
-`.launches`. The TPU layout (the one-hot MXU gather of a packed (Q, 6)
-table, (8, 128) output blocks) is not carried over.
+raises. The loops and the staged entries take CUDA tensors only: on the
+CPU, gicp_match runs its plain IRLS loop instead. Each counts its
+successful launch calls in `.launches`. The TPU layout (the one-hot MXU
+gather of a packed (Q, 6) table, (8, 128) output blocks) is not carried
+over.
 """
 
 from __future__ import annotations
@@ -115,7 +124,7 @@ class _Problem(ctypes.Structure):
 
     _fields_ = [(f, ctypes.c_void_p) for f in (
         "pts", "jtheta", "cov", "src_mask", "tgt", "tgt_valid", "ct",
-        "partials", "delta", "out", "ctrl", "stream",
+        "partials", "rows", "delta", "out", "ctrl", "stream",
     )] + [(f, ctypes.c_int) for f in ("P", "Q")] + [
         (f, ctypes.c_float) for f in ("max_corr2", "eps", "tol")
     ]
@@ -131,10 +140,18 @@ def _lib():
     lib.icp_error_string.restype = ctypes.c_char_p
     lib.icp_partials_floats.argtypes = [ctypes.c_int]
     lib.icp_partials_floats.restype = ctypes.c_int
-    lib.icp_iteration.argtypes = [P]
-    lib.icp_iteration.restype = ctypes.c_int
-    lib.icp_match.argtypes = [P, ctypes.c_int, ctypes.c_int]
-    lib.icp_match.restype = ctypes.c_int
+    lib.icp_rows_floats.argtypes = [ctypes.c_int]
+    lib.icp_rows_floats.restype = ctypes.c_longlong
+    lib.icp_ctas.argtypes = [ctypes.c_int]
+    lib.icp_ctas.restype = ctypes.c_int
+    lib.icp_loop_tile.argtypes = []
+    lib.icp_loop_tile.restype = ctypes.c_int
+    for fn in ("icp_iteration", "icp_iteration_staged"):
+        getattr(lib, fn).argtypes = [P]
+        getattr(lib, fn).restype = ctypes.c_int
+    for fn in ("icp_match", "icp_match_staged"):
+        getattr(lib, fn).argtypes = [P, ctypes.c_int, ctypes.c_int]
+        getattr(lib, fn).restype = ctypes.c_int
     lib.nn_search.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.nn_search.restype = ctypes.c_int
     return lib
@@ -175,13 +192,13 @@ def _problem(src, jtheta, cov, src_mask, tgt, tgt_valid, ct, max_corr2, eps, tol
         _check("tgt_valid", tgt_valid, torch.bool, (Q,), dev),
         _check("target covariances", ct, f32, (Q, 3), dev),
         torch.empty(_lib().icp_partials_floats(P), dtype=f32, device=dev),
+        torch.empty(_lib().icp_rows_floats(P), dtype=f32, device=dev),
         torch.zeros(16, dtype=f32, device=dev),
         torch.zeros(2, dtype=torch.int32, device=dev),
     ]
     ptr = [0 if t is None else t.data_ptr() for t in keep]
     prob = _Problem(
-        ptr[0], ptr[1], ptr[2], ptr[3], ptr[4], ptr[5], ptr[6], ptr[7], None, ptr[8], ptr[9],
-        torch.cuda.current_stream(dev).cuda_stream, P, Q,
+        *ptr[:9], None, ptr[9], ptr[10], torch.cuda.current_stream(dev).cuda_stream, P, Q,
         float(max_corr2), float(eps), float(tol),
     )
     return prob, keep
@@ -190,6 +207,16 @@ def _problem(src, jtheta, cov, src_mask, tgt, tgt_valid, ct, max_corr2, eps, tol
 def _packed(C: torch.Tensor) -> torch.Tensor:
     """(N, 2, 2) symmetric covariances -> (N, 3) [c11, c12, c22]."""
     return torch.stack([C[:, 0, 0], C[:, 0, 1], C[:, 1, 1]], dim=-1)
+
+
+def _iteration(fn, moved, jtheta, src_mask, tgt, tgt_valid, Ct, Csr, max_corr2, eps):
+    """(H, g, stats) of one IRLS iteration through the C entry `fn`."""
+    prob, keep = _problem(moved, jtheta, Csr, src_mask, tgt, tgt_valid, _packed(Ct),
+                          max_corr2, eps)
+    _raise_on(getattr(_lib(), fn)(ctypes.byref(prob)), fn)
+    acc = keep[9]
+    H = acc[[0, 1, 3, 1, 2, 4, 3, 4, 5]].reshape(3, 3)
+    return H, acc[6:9], acc[9:13]
 
 
 def fused_icp_iteration(
@@ -203,21 +230,47 @@ def fused_icp_iteration(
     max_corr2: float,
     eps: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(H (3,3), g (3,), stats (4,)) of one IRLS iteration: the kernel for
-    CUDA tensors, `fused_icp_iteration_reference` for CPU tensors."""
+    """(H (3,3), g (3,), stats (4,)) of one IRLS iteration: the kernel (one
+    launch) for CUDA tensors, `fused_icp_iteration_reference` for CPU
+    tensors."""
     if moved.device.type == "cpu":
         return fused_icp_iteration_reference(
             moved, jtheta, src_mask, tgt, tgt_valid, Ct, Csr, max_corr2, eps)
-    prob, keep = _problem(moved, jtheta, Csr, src_mask, tgt, tgt_valid, _packed(Ct),
-                          max_corr2, eps)
-    _raise_on(_lib().icp_iteration(ctypes.byref(prob)), "icp_iteration")
+    out = _iteration("icp_iteration", moved, jtheta, src_mask, tgt, tgt_valid, Ct, Csr,
+                     max_corr2, eps)
     fused_icp_iteration.launches += 1
-    acc = keep[8]
-    H = acc[[0, 1, 3, 1, 2, 4, 3, 4, 5]].reshape(3, 3)
-    return H, acc[6:9], acc[9:13]
+    return out
 
 
 fused_icp_iteration.launches = 0
+
+
+def fused_icp_iteration_staged(moved, jtheta, src_mask, tgt, tgt_valid, Ct, Csr,
+                               max_corr2: float, eps: float):
+    """`fused_icp_iteration` through the staged launches (its yardstick, two
+    launches); CUDA tensors only."""
+    out = _iteration("icp_iteration_staged", moved, jtheta, src_mask, tgt, tgt_valid, Ct, Csr,
+                     max_corr2, eps)
+    fused_icp_iteration_staged.launches += 1
+    return out
+
+
+fused_icp_iteration_staged.launches = 0
+
+
+def _loop(fn, src, src_mask, tgt, tgt_valid, Cs, Ct, delta0, iterations, max_corr2, eps, tol,
+          early_exit):
+    """The IRLS loop through the C entry `fn`: (delta, H_last, stats_last,
+    last |upd|), and the device's [done, rounds run]."""
+    if iterations < 1:
+        raise ValueError(f"iterations must be >= 1, got {iterations}")
+    prob, keep = _problem(src, None, _packed(Cs), src_mask, tgt, tgt_valid, _packed(Ct),
+                          max_corr2, eps, tol)
+    delta = _check("delta0", delta0, torch.float32, (3,), src.device).clone()
+    prob.delta = delta.data_ptr()
+    _raise_on(getattr(_lib(), fn)(ctypes.byref(prob), int(iterations), int(early_exit)), fn)
+    out = keep[9]
+    return (delta, out[:9].reshape(3, 3), out[9:13], out[13]), keep[10]
 
 
 def fused_icp_loop(
@@ -236,20 +289,26 @@ def fused_icp_loop(
 ):
     """The IRLS loop of gicp_match: (delta, H_last, stats_last, last |upd|).
 
-    One ctypes call enqueues `iterations` rounds of the kernel with no host
-    synchronization; with early_exit the rounds after the one whose
-    |upd| < tol return at once on the device. CUDA tensors only."""
-    if iterations < 1:
-        raise ValueError(f"iterations must be >= 1, got {iterations}")
-    prob, keep = _problem(src, None, _packed(Cs), src_mask, tgt, tgt_valid, _packed(Ct),
-                          max_corr2, eps, tol)
-    delta = _check("delta0", delta0, torch.float32, (3,), src.device).clone()
-    prob.delta = delta.data_ptr()
-    _raise_on(_lib().icp_match(ctypes.byref(prob), int(iterations), int(early_exit)),
-              "icp_match")
+    ONE launch runs up to `iterations` rounds with no host synchronization;
+    with early_exit the loop ends on the device after the round whose
+    |upd| < tol. CUDA tensors only."""
+    out, _ = _loop("icp_match", src, src_mask, tgt, tgt_valid, Cs, Ct, delta0, iterations,
+                   max_corr2, eps, tol, early_exit)
     fused_icp_loop.launches += 1
-    out = keep[8]
-    return delta, out[:9].reshape(3, 3), out[9:13], out[13]
+    return out
 
 
 fused_icp_loop.launches = 0
+
+
+def fused_icp_loop_staged(src, src_mask, tgt, tgt_valid, Cs, Ct, delta0, iterations: int,
+                          max_corr2: float, eps: float, tol: float, early_exit: bool = True):
+    """`fused_icp_loop` through the staged launches (its yardstick: two a
+    round, `iterations` rounds enqueued); CUDA tensors only."""
+    out, _ = _loop("icp_match_staged", src, src_mask, tgt, tgt_valid, Cs, Ct, delta0,
+                   iterations, max_corr2, eps, tol, early_exit)
+    fused_icp_loop_staged.launches += 1
+    return out
+
+
+fused_icp_loop_staged.launches = 0

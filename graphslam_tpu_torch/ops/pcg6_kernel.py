@@ -5,11 +5,14 @@ Port of graphslam_tpu/ops/pcg6_kernel.py::fused_pcg6_solve (mode
 exact PCR (K = ceil(log2 N)) of the chain part with the fused SE(3)
 kernel's ridge and 6x6 inverse, then a fixed count of guarded CG iterations
 on an assembled T=6 BlockSystem. For CUDA tensors it runs `gn6_pcg` of
-csrc/gn6_kernel.cu, the same PCR and CG launches as K4 (ops/gn6_kernel.py)
-on a D damped here in torch, as the JAX package damps in XLA; for CPU
-tensors its plain twin `fused_pcg6_solve_reference`. Loop edges whose block
-is all zero (masked slots) add exactly zero to H@v and are left out of the
-kernel's CSR.
+csrc/gn6_kernel.cu on a D damped here in torch, as the JAX package damps
+in XLA: K4's wide PCR factor and CG stages (ops/gn6_kernel.py; a group of
+6 threads a 6x6 row), all of them in ONE launch of a persistent kernel
+(one thread-block cluster at garage), with a barrier where the staged
+sequence (`gn6_factor` then `gn6_cg`, 347 launches at garage) has a kernel
+boundary, and bitwise equal to it. For CPU tensors it runs its plain twin
+`fused_pcg6_solve_reference`. Loop edges whose block is all zero (masked
+slots) add exactly zero to H@v and are left out of the kernel's CSR.
 """
 
 from __future__ import annotations
@@ -55,9 +58,10 @@ fused_pcg6_solve.launches = 0
 
 
 class Pcg6Kernel(PcgKernel):
-    """K5's problem on the card (csrc/gn6_kernel.cu `gn6_pcg`):
+    """K5's problem on the card (csrc/gn6_kernel.cu `gn6_pcg`, one launch):
     ops/pcg_kernel.py::PcgKernel at T = 6, with D, U (N,6,6), b (N,6) and
-    the loop blocks A (El,6,6); `solve` returns x (N,6)."""
+    the loop blocks A (El,6,6); `solve` returns x (N,6), `staged` the same
+    x through gn6_factor + gn6_cg."""
 
     @staticmethod
     def fused():

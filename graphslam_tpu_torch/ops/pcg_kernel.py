@@ -185,8 +185,8 @@ class PcgKernel:
     and CG entries, one launch per stage (K3's yardstick). No host read:
     the edge ids are checked on the device (`torch._assert_async`). Raises
     for tensors not on a CUDA device. T = 3 here;
-    ops/pcg6_kernel.py::Pcg6Kernel is K5 at T = 6, the staged launches in
-    csrc/gn6_kernel.cu."""
+    ops/pcg6_kernel.py::Pcg6Kernel is K5 at T = 6 (`gn6_pcg`, one launch,
+    and its staged launches in csrc/gn6_kernel.cu)."""
 
     @staticmethod
     def fused():

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""End-to-end paths and K4's launch shape, one tree to a process, in turns
-on one NVIDIA GPU: what chip_smoke.py cannot compare inside one process.
+"""End-to-end paths and the persistent kernels' launch shapes, one tree to
+a process, in turns on one NVIDIA GPU: what chip_smoke.py cannot compare
+inside one process.
 
 Usage, from the root of a checkout:
 
   python3 scripts/bench_persistent.py [--parent DIR] [--rounds R]
+                                      [--parts replay,dist,k4,k2,k5]
 
 Trees:
   this         this checkout's graphslam_tpu_torch
@@ -17,13 +19,19 @@ Trees:
                shape: sphere2500 on one 16-CTA cluster walking 3 passes
                over the rows instead of a 42-CTA cooperative grid, garage
                on a 16-CTA cooperative grid instead of a 16-CTA cluster
+  k2-group16, k2-group32, k2-threads256, k2-threads512
+               copies likewise whose csrc/icp_kernel.cu gives each source
+               point a group of 16 or 32 threads instead of 8 (kGroup), or
+               runs CTAs of 256 or 512 threads instead of 1024
+               (kLoopThreads)
 
 Each tree runs in a fresh process (`--child DIR`), in the order parent,
-this, other-shape, other-shape, this, parent, R times. A process builds
-its tree's kernels (cached in the tree), warms up and prints one JSON
-line:
+this, the copies, then the reverse, R times. A process builds its tree's
+kernels (cached in the tree), warms up and prints one JSON line:
   replay  frames/s of the 278-scan closed-loop replay (chip_smoke.py's
-          phase 8 configuration), median of 3; and ms per call of K1's C
+          phase 8 configuration), median of 3, and a digest of the
+          replay's keyframe poses, keyframe count and loop count (equal
+          digests: bitwise equal replays); and ms per call of K1's C
           entry (GnKernel.solve: one launch in this tree, the staged
           sequence in a tree from before the persistent K1) at the
           replay's last solve
@@ -35,11 +43,22 @@ line:
   k4      ms per fused_gn6_solve at sphere2500 and garage (20 iterations,
           cg 25, exact PCR) and per fused_lm6_solve at garage (20 Huber
           steps), median of 3 chains of 5; the CTAs of the wide launch
-The other-shape tree runs k4 only. The card's name and power limit come
-first; the last line is a JSON summary of every process's numbers.
+  k2      us per call of K2's C entries at full width on the replay's
+          scans 1 and 0 (P = Q = 1152): one round (icp_iteration) over 500
+          calls, one match (icp_match, 32 rounds, early exit) over 200,
+          and us per gicp_match (surfel covariances included) over 50,
+          CUDA events
+  k5      us per fused_pcg6_solve at garage (exact PCR, cg 25, the LM
+          loop's initial damping) over 50 calls, CUDA events, and garage
+          LM it/s through lm_solve(mode="pcg_fused") (20 iterations, cg
+          25, Huber 1.0), median of 3
+The other-shape tree runs k4 only, the k2-* trees k2 only. The card's
+name and power limit come first; the last line is a JSON summary of every
+process's numbers.
 """
 
 import argparse
+import hashlib
 import json
 import shutil
 import statistics
@@ -55,6 +74,17 @@ ROOT = Path(__file__).resolve().parent.parent
 # at 16), the cooperative grid where it takes at most 16.
 SHAPE_RULE = ("  if (want <= kMaxClusterCtas) {\n    sh = Shape{want, false};",
               "  if (want > kMaxClusterCtas) {\n    sh = Shape{kMaxClusterCtas, false};")
+# K2's launch shape (csrc/icp_kernel.cu) and the copies that take another:
+# {tree: (kept line, its replacement)}.
+K2_SHAPES = {
+    "k2-group16": ("constexpr int kGroup = 8;", "constexpr int kGroup = 16;"),
+    "k2-group32": ("constexpr int kGroup = 8;", "constexpr int kGroup = 32;"),
+    "k2-threads256": ("constexpr int kLoopThreads = 1024;", "constexpr int kLoopThreads = 256;"),
+    "k2-threads512": ("constexpr int kLoopThreads = 1024;", "constexpr int kLoopThreads = 512;"),
+}
+# The kernel sources each part needs built.
+NEEDS = {"replay": ["gn_kernel", "icp_kernel"], "dist": ["gn_kernel", "cg_step", "cg_step6"],
+         "k4": ["gn6_kernel"], "k2": ["icp_kernel"], "k5": ["gn6_kernel"]}
 
 
 def _seconds(torch, fn, reps: int, chain: int) -> float:
@@ -93,6 +123,10 @@ def child_replay(torch):
     # K1's C entry at the replay's own last solve: the final map in its
     # bucket, the warm iterations at the replay's cg, exact PCR
     state, _ = replay(init_state(cfg), scans, odom)
+    nkf = int(state.num_kf)
+    digest = hashlib.sha256(state.kf_poses[:nkf].cpu().numpy().tobytes())
+    digest.update(f"{nkf} {int(state.num_loops)}".encode())
+    out["replay_digest"] = digest.hexdigest()[:16]
     B = next(b for b in _solve_buckets(cfg.max_keyframes, cfg.solve_bucket_min)
              if b >= int(state.num_kf))
     p0 = state.kf_poses[:B].clone()
@@ -158,6 +192,81 @@ def child_k4(torch):
     return out
 
 
+def _event_us(torch, fn, reps: int) -> float:
+    """Microseconds a call of fn, by CUDA events around `reps` calls after
+    3 warm-up calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return 1e3 * a.elapsed_time(b) / reps
+
+
+def child_k2(torch):
+    import ctypes
+
+    import numpy as np
+    from graphslam_tpu_torch.config import FrontendConfig
+    from graphslam_tpu_torch.frontend import icp
+    from graphslam_tpu_torch.frontend.projection import beam_angles, scan_to_points
+    from graphslam_tpu_torch.ops import icp_kernel as ik
+    from graphslam_tpu_torch.sim import simulate_trajectory
+
+    fc = FrontendConfig()
+    sim = simulate_trajectory(fc, step_len=0.25, seed=1)
+    dev = torch.device("cuda")
+    angles = beam_angles(fc.num_beams, fc.fov_rad, device=dev)
+    (sp, sm), (tp, tm) = (scan_to_points(torch.from_numpy(sim["scans"][t]).to(dev), angles,
+                                         fc.min_range, fc.max_range, fc.max_points)
+                          for t in (1, 0))
+    init = torch.from_numpy(np.asarray(sim["odom_deltas"][0], np.float32)).to(dev)
+    Cs, Ct = icp.surfel_covs(sp, sm, 4, 1e-3), icp.surfel_covs(tp, tm, 4, 1e-3)
+    lib = ik._lib()
+    moved, jtheta = ik._round_inputs(sp, init)
+    rprob, rkeep = ik._problem(moved, jtheta, ik.rotated_covs(ik._packed(Cs), init[2]), sm, tp,
+                               tm, ik._packed(Ct), 1.0, 1e-6)
+    mprob, mkeep = ik._problem(sp, None, ik._packed(Cs), sm, tp, tm, ik._packed(Ct), 1.0, 1e-6,
+                               1e-5)
+    delta = init.clone()
+    mprob.delta = delta.data_ptr()
+
+    def match():
+        delta.copy_(init)
+        lib.icp_match(ctypes.byref(mprob), 32, 1)
+    return {
+        "k2_round_us": _event_us(torch, lambda: lib.icp_iteration(ctypes.byref(rprob)), 500),
+        "k2_match_us": _event_us(torch, match, 200),
+        "k2_gicp_match_us": _event_us(torch, lambda: icp.gicp_match(
+            sp, sm, tp, tm, init_delta=init, iterations=32), 50),
+    }
+
+
+def child_k5(torch):
+    from graphslam_tpu_torch.config import SolverConfig
+    from graphslam_tpu_torch.factors import from_dataset
+    from graphslam_tpu_torch.io import datasets
+    from graphslam_tpu_torch.ops import pcg6_kernel as p6
+    from graphslam_tpu_torch.solver import lm
+
+    dev = torch.device("cuda")
+    d = datasets.garage()
+    g, p0 = from_dataset(d, device=dev), torch.from_numpy(d["poses"]).to(dev)
+    cfg = SolverConfig(mode="pcg_fused", cg_max_iterations=25, max_iterations=20,
+                       use_huber_on_loops=True)
+    sysm = lm._linearized_system(p0, g, cfg)
+    lam = torch.tensor(cfg.init_lambda, device=dev)
+    out = {"k5_wrapper_us": _event_us(torch, lambda: p6.fused_pcg6_solve(
+        sysm, lam, max_iters=25, chain_prefix=g.chain_prefix), 50)}
+    out["k5_garage_lm_it_s"] = cfg.max_iterations / _seconds(
+        torch, lambda: lm.lm_solve(p0, g, cfg), 3, 1)
+    return out
+
+
 def child(tree: str, what: str) -> int:
     sys.path.insert(0, tree)
     import torch
@@ -167,27 +276,29 @@ def child(tree: str, what: str) -> int:
 
     if Path(graphslam_tpu_torch.__file__).resolve().parent.parent != Path(tree).resolve():
         raise RuntimeError(f"imported {graphslam_tpu_torch.__file__}, not the tree {tree}")
-    _build.build_all(["gn_kernel", "icp_kernel", "gn6_kernel", "cg_step", "cg_step6"])
+    parts = what.split(",")
+    _build.build_all(sorted({name for part in parts for name in NEEDS[part]}))
     out = {}
-    for part in what.split(","):
-        out.update({"replay": child_replay, "dist": child_dist, "k4": child_k4}[part](torch))
+    for part in parts:
+        out.update({"replay": child_replay, "dist": child_dist, "k4": child_k4, "k2": child_k2,
+                    "k5": child_k5}[part](torch))
     print(json.dumps(out), flush=True)
     return 0
 
 
-def other_shape_tree() -> Path:
-    """This checkout's package copied under its build directory, with
-    wide_shape's rule swapped (SHAPE_RULE)."""
-    dst = ROOT / "graphslam_tpu_torch" / "build" / "other-shape"
+def edited_tree(label: str, source: str, old: str, new: str) -> Path:
+    """This checkout's package copied under its build directory as tree
+    `label`, with `old` replaced by `new` in csrc/<source>."""
+    dst = ROOT / "graphslam_tpu_torch" / "build" / label
     pkg = dst / "graphslam_tpu_torch"
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(ROOT / "graphslam_tpu_torch", pkg,
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
-    hdr = pkg / "csrc" / "se3_blocks.cuh"
-    text = hdr.read_text()
-    if text.count(SHAPE_RULE[0]) != 1:
-        raise RuntimeError(f"wide_shape's rule not found once in {hdr}")
-    hdr.write_text(text.replace(*SHAPE_RULE))
+    path = pkg / "csrc" / source
+    text = path.read_text()
+    if text.count(old) != 1:
+        raise RuntimeError(f"{old!r} not found once in {path}")
+    path.write_text(text.replace(old, new))
     return dst
 
 
@@ -195,6 +306,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="root of another checkout to compare with")
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--parts", default="replay,dist,k4,k2,k5")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--what", default="replay,dist,k4", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -208,10 +320,16 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}", flush=True)
-    trees = {"this": (ROOT, "replay,dist,k4"), "other-shape": (other_shape_tree(), "k4")}
-    order = ["this", "other-shape"]
+    parts = args.parts.split(",")
+    trees = {"this": (ROOT, args.parts)}
+    if "k4" in parts:
+        trees["other-shape"] = (edited_tree("other-shape", "se3_blocks.cuh", *SHAPE_RULE), "k4")
+    if "k2" in parts:
+        for label, edit in K2_SHAPES.items():
+            trees[label] = (edited_tree(label, "icp_kernel.cu", *edit), "k2")
+    order = list(trees)
     if args.parent:
-        trees["parent"] = (Path(args.parent).resolve(), "replay,dist,k4")
+        trees["parent"] = (Path(args.parent).resolve(), args.parts)
         order = ["parent"] + order
     results = {k: [] for k in trees}
     for _ in range(args.rounds):

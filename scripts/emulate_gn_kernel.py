@@ -5,7 +5,7 @@ Usage:  python scripts/emulate_gn_kernel.py [--poses N]
         python scripts/emulate_gn_kernel.py --se3 [--rings R --per-ring P]
         python scripts/emulate_gn_kernel.py --dist [--poses N]
         python scripts/emulate_gn_kernel.py --dist6 [--rings R --per-ring P]
-        python scripts/emulate_gn_kernel.py --persistent [--kernels k3,k6c,k1,k4]
+        python scripts/emulate_gn_kernel.py --persistent [--kernels k3,k6c,k1,k4,k5,k2]
                [--poses N[,N...]] [--rings R[,R...] --per-ring P[,P...]]
                [--max-cluster C] [--unplaceable]
         python scripts/emulate_gn_kernel.py --vs-tree DIR [--poses N]
@@ -46,9 +46,13 @@ CPU tensors, each against its plain torch twin:
            1e-3, masked and chain-only, K6c (cg_step_staged) on two ranks
            without and with Huber after 1 and 26 passes, K1 and K4
            (gn_solve_staged, gn_lm_solve_staged and their gn6 twins) in GN
-           mode with warm start and a cg ramp and in LM mode with Huber.
+           mode with warm start and a cg ramp and in LM mode with Huber, K5
+           (gn6_factor + gn6_cg) at lam 0 and at 1e-3 masked, K2
+           (icp_match_staged, icp_iteration_staged) bit for bit on a
+           simulated scan pair and random points (k2_persistent_checks).
            One build serves every size: lists of sizes give one JSON line
-           each (size i: manhattan(N_i), sphere(R_i, P_i)). --max-cluster
+           each (size i: manhattan(N_i), sphere(R_i, P_i)), K2 one line of
+           its own first. --max-cluster
            C caps the cluster, and the emulated card's SMs, at C CTAs, so
            that a CTA walks several row blocks or passes; --unplaceable
            makes the occupancy query place no cluster and checks that every
@@ -57,7 +61,8 @@ CPU tensors, each against its plain torch twin:
   --vs-tree DIR  gn_kernel.cu, cg_step.cu, gn6_kernel.cu and cg_step6.cu of
            this checkout against those of the checkout DIR (e.g. `git
            archive` of the parent commit): K1 and K4 in GN and LM modes,
-           K3, K5, K6a-c and K7a-c held to torch.equal; the check of an
+           K3, K5 (persistent and staged), K6a-c and K7a-c held to
+           torch.equal; the check of an
            edit to a shared header or of a new launch shape
 
 Prints one JSON line (--persistent: one a size): max errors (poses wrapped or over the 12 entries,
@@ -102,6 +107,7 @@ struct dim3 {
   dim3(unsigned a, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+struct float4 { float x, y, z, w; };
 // Every emulated CUDA thread of a launch is a fiber (ucontext) on the
 // calling thread; a barrier switches to the scheduler, which resumes the
 // fibers in turn and aborts when none can move (a barrier some thread never
@@ -135,21 +141,34 @@ inline void emu_arrive(EmuBarrier* b) {
 }
 inline void __syncthreads() { emu_arrive(emu_bar); }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_arrive(emu_warp); }
-// Every lane of the warp takes part (a full mask).
+// Every lane of the warp takes part (a full mask). The warp's 64 slots
+// alternate by its barrier's generation: a lane writes the next shuffle's
+// half only after every lane has left this one's barrier, and the half
+// after that only after every lane has read this one's (one barrier a
+// shuffle).
 inline float __shfl_down_sync(unsigned, float v, unsigned delta) {
   const unsigned lane = threadIdx.x % 32;
-  emu_lanes[lane] = v;
+  float* slots = emu_lanes + 32 * (emu_warp->gen & 1);
+  slots[lane] = v;
   emu_arrive(emu_warp);
-  const float r = lane + delta < 32 ? emu_lanes[lane + delta] : v;
-  emu_arrive(emu_warp);
-  return r;
+  return lane + delta < 32 ? slots[lane + delta] : v;
 }
-// One barrier and 32 shuffle slots per warp of a CTA of `block` threads.
+inline int __shfl_down_sync(unsigned mask, int v, unsigned delta) {
+  float f;
+  std::memcpy(&f, &v, sizeof f);
+  f = __shfl_down_sync(mask, f, delta);
+  std::memcpy(&v, &f, sizeof v);
+  return v;
+}
+// Rounded float32 operations, as g++ (-ffp-contract=off) computes every one.
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+// One barrier and 2 x 32 shuffle slots per warp of a CTA of `block` threads.
 struct EmuWarps {
   std::vector<EmuBarrier> bars;
   std::vector<float> lanes;
   EmuWarps(unsigned ctas, unsigned block) : bars(ctas * ((block + 31) / 32)),
-                                            lanes(32 * bars.size()) {
+                                            lanes(64 * bars.size()) {
     for (size_t i = 0; i < bars.size(); ++i) {
       const unsigned first = 32 * (i % ((block + 31) / 32));
       bars[i].expected = block - first < 32 ? block - first : 32;
@@ -158,7 +177,7 @@ struct EmuWarps {
   void enter(unsigned cta, unsigned t, unsigned block) {
     const size_t i = cta * ((block + 31) / 32) + t / 32;
     emu_warp = &bars[i];
-    emu_lanes = &lanes[32 * i];
+    emu_lanes = &lanes[64 * i];
   }
 };
 inline void emu_entry() {
@@ -302,7 +321,7 @@ inline grid_group this_grid() { return {}; }
 }  // namespace cooperative_groups
 """
 
-_LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),\s*0,\s*s>>>\(")
+_LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<([^,]+),\s*([^,]+),\s*0,\s*s>>>\(")
 _SHARED = re.compile(r"__shared__\s+([\w:<> ]+?)\s+(\w+)((?:\[[^\]]+\])*)\s*;")
 
 
@@ -332,7 +351,8 @@ def build(name: str = "gn_kernel", out: Path = None, src_root: Path = ROOT,
         (out / hdr.name).write_text(emulated(hdr.read_text()))
     (out / f"{name}_emu.cpp").write_text(emulated((csrc / f"{name}.cu").read_text()))
     lib = out / f"lib{name}_emu.so"
-    cmd = ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{out}", "-o", str(lib),
+    cmd = ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC", f"-I{out}",
+           "-o", str(lib),
            str(out / f"{name}_emu.cpp")]
     if max_cluster:
         cmd[1:1] = [f"-DPERSISTENT_MAX_CLUSTER={max_cluster}", f"-DEMU_SMS={max_cluster}"]
@@ -347,7 +367,8 @@ def build(name: str = "gn_kernel", out: Path = None, src_root: Path = ROOT,
 def load_ops(libs, names=("gn_kernel", "pcg_kernel")):
     """The port's ops modules `names`, with the emulated libraries `libs`
     ({source name: path}) in place of the nvcc builds and the CUDA device
-    checks dropped."""
+    checks dropped (icp_kernel's entries launch the kernels for CPU tensors
+    too)."""
     import graphslam_tpu_torch.ops as ops_pkg
     from graphslam_tpu_torch.ops import _build
 
@@ -361,6 +382,8 @@ def load_ops(libs, names=("gn_kernel", "pcg_kernel")):
         sys.modules[mod.__name__] = mod
         setattr(ops_pkg, name, mod)
         code = path.read_text().replace('.type != "cuda"', '.type == "never"')
+        if name == "icp_kernel":
+            code = code.replace('.device.type == "cpu"', '.device.type == "never"')
         exec(compile(code, str(path), "exec"), mod.__dict__)
         mods.append(mod)
     return mods
@@ -566,6 +589,141 @@ def k6c_persistent_checks(out, cs, pk, p0, K):
         out[f"k6c_{label}_finite"] = bool(torch.isfinite(runs[0][1][0]).all())
 
 
+def bits_equal(a, b) -> bool:
+    """a and b bit for bit (NaNs included, which torch.equal calls unequal)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def k5_persistent_checks(out, p6, g, p0):
+    """K5 (Pcg6Kernel.solve, one launch of the wide kernel) against the
+    staged gn6_factor + gn6_cg on the same problem, bitwise: at lam 0, and
+    at lam 1e-3 with masked loop slots clipped onto node 0."""
+    from graphslam_tpu_torch.factors.linearize import linearize
+    from graphslam_tpu_torch.solver import normal_eq as ne
+
+    n, c = p0.shape[0], g.chain_prefix
+    mask, edges = g.edge_mask.clone(), g.edges.clone()
+    mask[c::2] = False
+    edges[c::2] = 0
+    for name, graph, lam in (("k5", g, 0.0),
+                             ("k5_lam1e-3_masked", g.replace(edge_mask=mask, edges=edges), 1e-3)):
+        sysm = ne.build_blocks(linearize(p0, graph), graph, n)
+        kern = p6.Pcg6Kernel(*p6._chain_and_loops(sysm, torch.tensor(lam), True, c, T=6), 25)
+        a = kern.solve().clone()
+        b = kern.staged().clone()
+        out[f"{name}_bitwise"] = bool(torch.equal(a, b))
+        out[f"{name}_finite"] = bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0
+
+
+def _scan_pair(ik):
+    """Two simulated scans of the default world (300 beams in 320 points)
+    at nearby poses: (src, src_mask, tgt, tgt_mask) and the initial guess."""
+    from graphslam_tpu_torch.config import FrontendConfig
+    from graphslam_tpu_torch.frontend.projection import beam_angles, scan_to_points
+    from graphslam_tpu_torch.geometry import se2
+    from graphslam_tpu_torch.sim import world
+
+    fc = FrontendConfig(num_beams=300, max_points=320)
+    angles = beam_angles(fc.num_beams, fc.fov_rad, device="cpu")
+    wd = world.default_world("cpu")
+
+    def scan(pose):
+        r = world.raycast(wd, torch.tensor(pose), angles, fc.max_range)
+        return scan_to_points(r, angles, fc.min_range, fc.max_range, fc.max_points)
+
+    tgt_pose, src_pose = [-7.0, -5.0, 0.2], [-6.85, -4.9, 0.27]
+    (sp, sm), (tp, tm) = scan(src_pose), scan(tgt_pose)
+    init = se2.between(torch.tensor(tgt_pose), torch.tensor(src_pose)) + torch.tensor(
+        [0.03, -0.03, 0.02])
+    return (sp, sm, tp, tm), init
+
+
+def k2_persistent_checks(out, ik):
+    """K2 (icp_match and icp_iteration, one launch of k_icp_rounds) against
+    the staged icp_match_staged / icp_iteration_staged, bitwise: delta, H,
+    stats, |upd| and ctrl [done, rounds run] of the loop, H, g and stats of
+    a round. Cases: a scan pair with early exit (it converges) and without
+    (every round runs); the source scan on itself (done after round 1); a
+    tolerance of 0 (never converges, every round runs); masked source
+    points, invalid and duplicate targets (ties in d2); Q above the CTAs'
+    shared-memory tile; one round on random points, with no valid target,
+    with NaN points and with infinite points."""
+    import numpy as np
+
+    from graphslam_tpu_torch.frontend import icp
+
+    lib = ik._lib()
+    (sp, sm, tp, tm), init = _scan_pair(ik)
+    out["k2_points"] = int(sp.shape[0])
+    out["k2_ctas"] = lib.icp_ctas(sp.shape[0])
+    out["k2_tile"] = lib.icp_loop_tile()
+
+    def covs(pts, mask):
+        return icp.surfel_covs(pts, mask, 4, 1e-3)
+
+    def loop(name, src, smask, tgt, tmask, delta0, iterations, tol, early):
+        runs = []
+        for fn in ("icp_match", "icp_match_staged"):
+            res, ctrl = ik._loop(fn, src, smask, tgt, tmask, covs(src, smask), covs(tgt, tmask),
+                                 delta0, iterations, 1.0, 1e-6, tol, early)
+            runs.append([t.clone() for t in res] + [ctrl.clone()])
+        out[f"{name}_bitwise"] = all(bits_equal(a, b) for a, b in zip(*runs))
+        out[f"{name}_finite"] = bool(torch.isfinite(runs[0][0]).all())
+        out[f"{name}_ctrl"] = runs[0][4].tolist()
+
+    loop("k2_pair_early", sp, sm, tp, tm, init, 16, 1e-5, True)
+    loop("k2_pair_fixed", sp, sm, tp, tm, init, 16, 1e-5, False)
+    loop("k2_self_round1", sp, sm, sp, sm, torch.zeros(3), 16, 1e-5, True)
+    loop("k2_tol0_all_rounds", sp, sm, tp, tm, init, 12, 0.0, True)
+    rng = np.random.default_rng(3)
+    smask = sm & torch.from_numpy(rng.random(sm.shape[0]) < 0.8)
+    tgt, tmask = tp.clone(), tm & torch.from_numpy(rng.random(tm.shape[0]) < 0.85)
+    tgt[1::5] = tgt[0::5][: tgt[1::5].shape[0]]  # duplicates: ties in d2
+    loop("k2_masked_ties", sp, smask, tgt, tmask, init, 16, 1e-5, True)
+
+    # Q above one tile: random points around the scan pair's
+    P, Q = 100, out["k2_tile"] + 164
+    src = torch.from_numpy(rng.normal(size=(P, 2)).astype(np.float32))
+    tgt = torch.from_numpy(rng.normal(size=(Q, 2)).astype(np.float32))
+    tmask = torch.from_numpy(rng.random(Q) < 0.9)
+    tgt[Q - 40:] = src[:40] + 0.01  # the nearest targets in the last tile
+    loop("k2_tiles", src, torch.ones(P, dtype=torch.bool), tgt, tmask,
+         torch.tensor([0.01, -0.02, 0.01]), 4, 1e-5, False)
+    out["k2_tiles_q"] = Q
+
+    def round_(name, args):
+        a = [t.clone() for t in ik.fused_icp_iteration(*args, max_corr2=1.0, eps=1e-6)]
+        b = [t.clone() for t in ik.fused_icp_iteration_staged(*args, max_corr2=1.0, eps=1e-6)]
+        out[f"{name}_bitwise"] = all(bits_equal(x, y) for x, y in zip(a, b))
+
+    f = np.float32
+    P, Q = 200, 256
+    A = (rng.normal(size=(Q, 2, 2)) * 0.3).astype(f)
+    args = [torch.from_numpy(x) for x in (
+        rng.normal(size=(P, 2)).astype(f), rng.normal(size=(P, 2)).astype(f),
+        rng.random(P) < 0.9, rng.normal(size=(Q, 2)).astype(f), rng.random(Q) < 0.85,
+        (np.einsum("qij,qkj->qik", A, A) + 0.1 * np.eye(2)).astype(f),
+        (np.abs(rng.normal(size=(P, 3))) * np.array([1.0, 0.1, 1.0])).astype(f))]
+    round_("k2_round", args)
+    round_("k2_round_tiles", [args[0][:P], args[1], args[2], torch.cat([args[3]] * 7),
+                              torch.cat([args[4]] * 7), torch.cat([args[5]] * 7), args[6]])
+    no_valid = list(args)
+    no_valid[4] = torch.zeros(Q, dtype=torch.bool)
+    round_("k2_round_no_valid", no_valid)
+    nan_pts = list(args)
+    nan_pts[0] = args[0].clone()
+    nan_pts[0][::7] = float("nan")
+    round_("k2_round_nan_points", nan_pts)
+    _, g, st = ik.fused_icp_iteration(*nan_pts, max_corr2=1.0, eps=1e-6)
+    out["k2_round_nan_points_nan"] = bool(torch.isnan(g).all() and torch.isnan(st[3]))
+    inf_pts = list(args)
+    inf_pts[0] = args[0].clone()
+    inf_pts[0][::11] = float("inf")  # +inf distances to every valid target
+    round_("k2_round_inf_points", inf_pts)
+
+
 LM_ARGS = (1e-5, 10.0, 1e-10, 1e7, 1e-9, 1e-6)  # lam0, factor, min, max, abs_tol, rel_tol
 
 
@@ -646,7 +804,47 @@ def refusal_checks(out, pk, cs, g, p0):
             out[f"{name}_raised"] = str(e)
 
 
-KERNELS = ("k3", "k6c", "k1", "k4")
+def k2_refusal_checks(out, ik):
+    """Where the card cannot place the cluster, K2's icp_match and
+    icp_iteration raise; their staged entries still run."""
+    (sp, sm, tp, tm), init = _scan_pair(ik)
+    from graphslam_tpu_torch.frontend import icp
+
+    cs, ct = icp.surfel_covs(sp, sm, 4, 1e-3), icp.surfel_covs(tp, tm, 4, 1e-3)
+    moved, jtheta = ik._round_inputs(sp, init)
+    rargs = (moved, jtheta, sm, tp, tm, ct, ik.rotated_covs(ik._packed(cs), init[2]))
+    for name, fn in (
+            ("k2", lambda: ik.fused_icp_loop(sp, sm, tp, tm, cs, ct, init, 4, 1.0, 1e-6, 1e-5)),
+            ("k2_staged", lambda: ik.fused_icp_loop_staged(sp, sm, tp, tm, cs, ct, init, 4, 1.0,
+                                                           1e-6, 1e-5)),
+            ("k2_round", lambda: ik.fused_icp_iteration(*rargs, max_corr2=1.0, eps=1e-6)),
+            ("k2_round_staged", lambda: ik.fused_icp_iteration_staged(*rargs, max_corr2=1.0,
+                                                                      eps=1e-6))):
+        try:
+            fn()
+            out[f"{name}_raised"] = None
+        except RuntimeError as e:
+            out[f"{name}_raised"] = str(e)
+
+
+def k5_refusal_checks(out, p6, g, p0):
+    """Where the card cannot place the cluster, K5 raises; gn6_factor +
+    gn6_cg still run."""
+    from graphslam_tpu_torch.factors.linearize import linearize
+    from graphslam_tpu_torch.solver import normal_eq as ne
+
+    sysm = ne.build_blocks(linearize(p0, g), g, p0.shape[0])
+    kern = p6.Pcg6Kernel(*p6._chain_and_loops(sysm, torch.tensor(0.0), True, g.chain_prefix,
+                                              T=6), 25)
+    for name, fn in (("k5", kern.solve), ("k5_staged", kern.staged)):
+        try:
+            fn()
+            out[f"{name}_raised"] = None
+        except RuntimeError as e:
+            out[f"{name}_raised"] = str(e)
+
+
+KERNELS = ("k3", "k6c", "k1", "k4", "k5", "k2")
 
 
 def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool = False,
@@ -658,19 +856,29 @@ def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool 
     JSON line a size. With unplaceable, the occupancy query places no
     cluster, and every persistent entry must raise instead while the staged
     sequences run."""
-    need = {"k3": "gn_kernel", "k1": "gn_kernel", "k6c": "cg_step", "k4": "gn6_kernel"}
+    need = {"k3": "gn_kernel", "k1": "gn_kernel", "k6c": "cg_step", "k4": "gn6_kernel",
+            "k5": "gn6_kernel", "k2": "icp_kernel"}
     names = {need[k] for k in kernels}
     jobs = {name: build(name, build_dir, max_cluster=max_cluster, start=True,
                         unplaceable=unplaceable) for name in sorted(names)}
     if any(proc.wait() for _, proc in jobs.values()):
         raise SystemExit("g++ failed")
     libs = {name: lib for name, (lib, _) in jobs.items()}
-    mods = load_ops(libs, ("gn_kernel", "pcg_kernel", "gn6_kernel"))
-    gk, pk, g6 = mods
+    mods = load_ops(libs, ("gn_kernel", "pcg_kernel", "gn6_kernel", "pcg6_kernel",
+                           "icp_kernel"))
+    gk, pk, g6, p6, ik = mods
     cs = load_cg_step({"cg_step": libs["cg_step"]})[0] if "cg_step" in libs else None
     from graphslam_tpu_torch.factors import from_dataset
     from graphslam_tpu_torch.io import datasets
 
+    if "k2" in kernels and not unplaceable:
+        # K2 has one size of its own: one JSON line before the others
+        out = {}
+        k2_persistent_checks(out, ik)
+        print(json.dumps(out), flush=True)
+        kernels = [k for k in kernels if k != "k2"]
+        if not kernels:
+            return
     for i in range(max(len(ns), len(spheres))):
         n = ns[i if len(ns) > 1 else 0]
         rings, per_ring = spheres[i if len(spheres) > 1 else 0]
@@ -680,7 +888,7 @@ def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool 
         nb = -(-n // 256)
         out = {"poses": n, "loop_edges": g.num_edges - g.chain_prefix,
                "ctas": min(nb, max_cluster or 16), "blocks": nb}
-        if "k4" in kernels:
+        if {"k4", "k5"} & set(kernels):
             d6 = datasets.sphere(n_rings=rings, poses_per_ring=per_ring, seed=1)
             g_6 = from_dataset(d6, device="cpu")
             p_6 = torch.from_numpy(d6["poses"])
@@ -695,6 +903,10 @@ def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool 
                 solve_refusal_checks(out, "k1", gk.GnKernel, p0, g)
             if "k4" in kernels:
                 solve_refusal_checks(out, "k4", g6.Gn6Kernel, p_6, g_6)
+            if "k5" in kernels:
+                k5_refusal_checks(out, p6, g_6, p_6)
+            if "k2" in kernels:
+                k2_refusal_checks(out, ik)
             print(json.dumps(out), flush=True)
             continue
         if "k3" in kernels:
@@ -709,6 +921,8 @@ def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool 
             solve_persistent_checks(out, "k4", g6.Gn6Kernel, p_6, g_6, None,
                                     g6.fused_gn6_solve_reference, g6.fused_lm6_solve_reference,
                                     pose_max)
+        if "k5" in kernels:
+            k5_persistent_checks(out, p6, g_6, p_6)
         print(json.dumps(out), flush=True)
 
 
@@ -803,7 +1017,8 @@ def main_vs_tree(tree: Path, n: int, rings: int, per_ring: int, build_dir) -> No
         res["k6"] = _two_rank_k67(cs, cs.make_shard, cs.CgStepKernel, gk.pack_graph(g, n), 4, p0)
         solves(res, "k4", g6.Gn6Kernel, p_6, g_6, None)
         args = p6._chain_and_loops(sys6, torch.tensor(1e-3), True, g_6.chain_prefix, T=6)
-        res["k5"] = [p6.Pcg6Kernel(*args, 25).solve().clone()]
+        kern5 = p6.Pcg6Kernel(*args, 25)
+        res["k5"] = [kern5.solve().clone(), kern5.staged().clone()]
         res["k7"] = _two_rank_k67(cs6, cs6.make_shard6, cs6.CgStep6Kernel,
                                   g6.pack_graph6(g_6, n6), pcr_levels_for(n6, None), p_6)
         return res

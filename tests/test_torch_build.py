@@ -13,7 +13,7 @@ def test_sources_follow_quoted_includes():
     assert names["cg_step"] == ["cg_step.cu", "se2_blocks.cuh", "persistent.cuh"]
     assert names["gn6_kernel"] == ["gn6_kernel.cu", "se3_blocks.cuh", "persistent.cuh"]
     assert names["cg_step6"] == ["cg_step6.cu", "se3_blocks.cuh", "persistent.cuh"]
-    assert names["icp_kernel"] == ["icp_kernel.cu"]
+    assert names["icp_kernel"] == ["icp_kernel.cu", "persistent.cuh"]
 
 
 def test_an_edited_header_renames_every_library_that_includes_it(tmp_path, monkeypatch):

@@ -22,7 +22,7 @@ from graphslam_tpu.io import datasets as jax_datasets
 from graphslam_tpu.ops.gn_kernel import _pack_loop_edges
 from graphslam_tpu.parallel import cg_step as jcg
 
-from _torch_port import carry
+from _torch_port import carry, once_per_session
 from graphslam_tpu_torch.ops import gn_kernel as gk
 from graphslam_tpu_torch.ops.pcg_kernel import _shift_blocks, pcr_apply_reference
 from graphslam_tpu_torch.parallel import cg_step as cs
@@ -98,6 +98,38 @@ def _jax_stage_a(ji, w, huber):
                        tiles_per_dev=1, huber_delta=huber, win=0, interpret=True)
 
 
+def _jax_gn_setup(ji, big, lam):
+    """The JAX K6b's outputs at damping lam, as numpy."""
+    outs = jcg.gn_setup(jnp.full((1, 1), lam, jnp.float32), big, ji["poses"], ji["pz"],
+                        ji["pR"], N=N, K=K, Q=Q, L=L, eps=3e-4, interpret=True)
+    return tuple(np.asarray(o) for o in outs)
+
+
+_SHARED = {}
+
+
+def _shared(name, compute, tmp_path_factory):
+    """compute() once per process and, under xdist, once per session
+    (tests/_torch_port.py::once_per_session): the interpret-mode JAX kernels
+    that several tests of this file run on the same inputs."""
+    if name not in _SHARED:
+        _SHARED[name] = once_per_session(f"test_torch_cg_step_{name}", compute,
+                                         tmp_path_factory)
+    return _SHARED[name]
+
+
+def _jax_k6a_rank0(ji, tmp_path_factory):
+    """The JAX K6a of rank 0 without Huber: (big, aij) as numpy."""
+    return _shared("k6a_rank0",
+                   lambda: tuple(np.asarray(o) for o in _jax_stage_a(ji, 1.0, -1.0)),
+                   tmp_path_factory)
+
+
+def _jax_k6b_lam0(ji, big, tmp_path_factory):
+    """The JAX K6b at lam 0 on rank 0's K6a payload."""
+    return _shared("k6b_lam0", lambda: _jax_gn_setup(ji, big, 0.0), tmp_path_factory)
+
+
 def _payload_of(big):
     """The JAX K6a output -> the port's payload: chain rows plus the loop
     accumulator, as JAX's gn_setup adds them."""
@@ -111,9 +143,12 @@ def _payload_of(big):
 
 @pytest.mark.parametrize("w,huber", [(1.0, -1.0), (0.0, -1.0), (1.0, 1.0)],
                          ids=["rank0", "rank1", "huber"])
-def test_stage_a_twin_matches_jax_kernel(problem, w, huber):
+def test_stage_a_twin_matches_jax_kernel(problem, w, huber, tmp_path_factory):
     ji, pk, poses = problem
-    big, aij = _jax_stage_a(ji, w, huber)
+    if (w, huber) == (1.0, -1.0):
+        big, aij = _jax_k6a_rank0(ji, tmp_path_factory)
+    else:
+        big, aij = _jax_stage_a(ji, w, huber)
     sh = cs.make_shard(pk, 0, pk.El, K, w, huber)
     payload, Aij = cs.stage_a_reference(sh, poses)
     for name, a, b in zip("DUg", cs.unpack_payload(payload, N), _payload_of(big)):
@@ -126,20 +161,20 @@ def test_stage_a_twin_matches_jax_kernel(problem, w, huber):
 
 
 @pytest.fixture(scope="module")
-def setup(problem):
-    """The JAX K6a and K6b at lam 0, and the port's Shard."""
+def setup(problem, tmp_path_factory):
+    """The JAX K6a of rank 0, and the port's Shard."""
     ji, pk, poses = problem
-    big, aij = _jax_stage_a(ji, 1.0, -1.0)
+    big, aij = _jax_k6a_rank0(ji, tmp_path_factory)
     sh = cs.make_shard(pk, 0, pk.El, K, 1.0, -1.0)
     return ji, sh, poses, big, aij
 
 
 @pytest.mark.parametrize("lam", [0.0, 1e-3])
-def test_gn_setup_twin_matches_jax_kernel(setup, lam):
+def test_gn_setup_twin_matches_jax_kernel(setup, lam, tmp_path_factory):
     ji, sh, poses, big, _ = setup
-    outs = jcg.gn_setup(jnp.full((1, 1), lam, jnp.float32), big, ji["poses"], ji["pz"], ji["pR"],
-                        N=N, K=K, Q=Q, L=L, eps=3e-4, interpret=True)
-    dpl, upl, lpl, afac, gfac, dinv, b24 = (np.asarray(o) for o in outs)
+    outs = (_jax_k6b_lam0(ji, big, tmp_path_factory) if lam == 0.0
+            else _jax_gn_setup(ji, big, lam))
+    dpl, upl, lpl, afac, gfac, dinv, b24 = outs
     payload = torch.cat([torch.from_numpy(np.ascontiguousarray(t)).reshape(-1)
                          for t in _payload_of(big)])
     st = cs.gn_setup_reference(sh, payload, poses, torch.tensor([lam]))
@@ -153,11 +188,9 @@ def test_gn_setup_twin_matches_jax_kernel(setup, lam):
     assert _rel(st.b, _vec(b24)) <= TOL_AB
 
 
-def test_cg_step_twin_matches_jax_kernel(setup):
+def test_cg_step_twin_matches_jax_kernel(setup, tmp_path_factory):
     ji, sh, poses, big, aij = setup
-    outs = jcg.gn_setup(jnp.zeros((1, 1), jnp.float32), big, ji["poses"], ji["pz"], ji["pR"],
-                        N=N, K=K, Q=Q, L=L, eps=3e-4, interpret=True)
-    dpl, upl, lpl, afac, gfac, dinv, b24 = outs
+    dpl, upl, lpl, afac, gfac, dinv, b24 = _jax_k6b_lam0(ji, big, tmp_path_factory)
     to_t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
     st = cs.Setup(D=to_t(_planes(dpl)), U=to_t(_planes(upl)),
                   A=torch.stack([to_t(_planes(np.asarray(afac)[72 * k: 72 * (k + 1)]))

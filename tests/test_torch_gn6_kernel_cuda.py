@@ -1,4 +1,5 @@
-"""K4 and K5 (csrc/gn6_kernel.cu) against their plain torch twins on the card.
+"""K4 and K5 (csrc/gn6_kernel.cu) against their plain torch twins on the card,
+and their one-launch entries against their staged sequences, bitwise.
 
 Needs an NVIDIA GPU and nvcc; without a card every case skips. The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -228,3 +229,34 @@ def test_persistent_solve_is_one_launch(small):
         # persistent entry makes; the device's records, where kept, name it
         assert host == {"cudaLaunchKernelExC": 1}, host
         assert all(name in k for k in kernels) and sum(kernels.values()) <= 3, kernels
+
+
+def _k5_kernel(dev, name, lam):
+    data = getattr(datasets, name)()
+    g, p0 = from_dataset(data, device=dev), torch.from_numpy(data["poses"]).to(dev)
+    sysm = lm._linearized_system(p0, g, SolverConfig(use_huber_on_loops=True))
+    args = p6._chain_and_loops(sysm, torch.tensor(lam, device=dev), True, g.chain_prefix, T=6)
+    return p6.Pcg6Kernel(*args, 25)
+
+
+@pytest.mark.parametrize("lam", [0.0, 1e-3])
+def test_k5_equals_staged_bitwise(dev, lam):
+    """gn6_pcg (one launch of K4's wide factor and CG stages: one 16-CTA
+    cluster at garage) against gn6_factor + gn6_cg, and two calls."""
+    kern = _k5_kernel(dev, "garage", lam)
+    a = kern.solve().clone()
+    b = kern.staged().clone()
+    again = kern.solve().clone()
+    torch.cuda.synchronize()
+    assert torch.isfinite(a).all() and float(a.abs().max()) > 0
+    assert torch.equal(a, b) and torch.equal(a, again)
+
+
+def test_k5_is_one_launch(dev):
+    kern = _k5_kernel(dev, "garage", 1e-3)
+    host, kernels = _launches(kern.solve)
+    assert host == {"cudaLaunchKernelExC": 1}, host
+    assert all("k6_pcg_wide" in k for k in kernels) and sum(kernels.values()) <= 3, kernels
+    host, _ = _launches(kern.staged)
+    assert host == {"cudaLaunchKernel": 347}, host  # K = 10, cg 25: 2K + 2 + 25 (K + 3)
+

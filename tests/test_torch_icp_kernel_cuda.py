@@ -8,7 +8,11 @@ atol 1e-2 (tests/test_icp_kernel.py's; the kernel sums in another order);
 K8 indices equal and distances rtol 1e-6 (both compute them with the same
 roundings); gicp_match through the kernel against the plain path, delta
 atol 5e-3 (the repo's fused-vs-XLA tolerance, tests/test_icp_kernel.py).
+The one-launch entries (`icp_match`, `icp_iteration`: a persistent kernel
+on one cluster) against their staged launch sequences: bit for bit.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -151,3 +155,101 @@ def test_wrappers_check_inputs(dev):
         correspondence.nearest_neighbors(args[0], args[3], args[4].int())
     with pytest.raises(ValueError, match="at least one"):
         correspondence.nearest_neighbors(args[0], args[3][:0], args[4][:0])
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """float32 as its bits (NaNs compare equal where their bits do)."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _host_launches(fn, calls: int = 3):
+    """{launch API: host calls a call of fn} over `calls` profiled calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count / calls for e in prof.key_averages()
+            if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC")}
+
+
+@pytest.fixture(scope="module")
+def tour(dev):
+    """Full-width scans (1152 points) of the tour that chip_smoke.py replays."""
+    from graphslam_tpu_torch.sim import simulate_trajectory
+
+    cfg = FrontendConfig()
+    sim = simulate_trajectory(cfg, step_len=0.25, seed=1)
+    angles = beam_angles(cfg.num_beams, cfg.fov_rad, device=dev)
+    pts = {}
+    for t in (0, 1, 100, 101, 200, 201):
+        r = torch.from_numpy(sim["scans"][t]).to(dev)
+        pts[t] = scan_to_points(r, angles, cfg.min_range, cfg.max_range, cfg.max_points)
+    return pts, torch.from_numpy(sim["odom_deltas"]).to(dev)
+
+
+@pytest.mark.parametrize("early_exit", [True, False], ids=["early_exit", "fixed_length"])
+@pytest.mark.parametrize("t", [0, 100, 200])
+def test_icp_loop_equals_staged_bitwise(tour, t, early_exit):
+    pts, odom = tour
+    (sp, sm), (tp, tm) = pts[t + 1], pts[t]
+    Cs, Ct = icp.surfel_covs(sp, sm, 4, 1e-3), icp.surfel_covs(tp, tm, 4, 1e-3)
+    runs = []
+    for fn in ("icp_match", "icp_match_staged"):
+        res, ctrl = icp_kernel._loop(fn, sp, sm, tp, tm, Cs, Ct, odom[t], 32, 1.0, 1e-6, 1e-5,
+                                     early_exit)
+        runs.append([*res, ctrl])
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(_bits(a), _bits(b))
+    done, rounds = runs[0][4].tolist()
+    if early_exit:  # done where it converged within the 32 rounds
+        assert 1 <= rounds <= 32 and (done == 1 or rounds == 32)
+    else:
+        assert (done, rounds) == (0, 32)
+
+
+@pytest.mark.parametrize("case", ["full_width", "no_valid", "nan_points"])
+def test_icp_round_equals_staged_bitwise(dev, case):
+    args = full_width_inputs(dev)
+    if case == "no_valid":
+        args[4] = torch.zeros_like(args[4])
+    if case == "nan_points":
+        args[0] = args[0].clone()
+        args[0][::9] = float("nan")
+    a = icp_kernel.fused_icp_iteration(*args, max_corr2=1.0, eps=1e-6)
+    b = icp_kernel.fused_icp_iteration_staged(*args, max_corr2=1.0, eps=1e-6)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(_bits(x), _bits(y))
+    if case == "no_valid":
+        assert float(a[2][2]) == 0.0 and torch.all(a[0] == 0)
+    if case == "nan_points":
+        assert torch.isnan(a[1]).all()
+
+
+def test_icp_match_and_round_are_one_launch(dev):
+    """One cluster launch a match and a round (the C entries on a prepared
+    problem); the staged entries two launches a round."""
+    (sp, sm, tp, tm), init = scan_pair(dev)
+    Cs, Ct = icp.surfel_covs(sp, sm, 4, 1e-3), icp.surfel_covs(tp, tm, 4, 1e-3)
+    prob, keep = icp_kernel._problem(sp, None, icp_kernel._packed(Cs), sm, tp, tm,
+                                     icp_kernel._packed(Ct), 1.0, 1e-6, 1e-5)
+    delta = init.clone()
+    prob.delta = delta.data_ptr()
+    lib = icp_kernel._lib()
+
+    def match(fn):
+        return lambda: getattr(lib, fn)(ctypes.byref(prob), 32, 1)
+    assert _host_launches(match("icp_match")) == {"cudaLaunchKernelExC": 1}
+    assert _host_launches(match("icp_match_staged")) == {"cudaLaunchKernel": 64}
+    args = full_width_inputs(dev)
+    prob, keep = icp_kernel._problem(args[0], args[1], args[6], args[2], args[3], args[4],
+                                     icp_kernel._packed(args[5]), 1.0, 1e-6)
+    assert _host_launches(lambda: lib.icp_iteration(ctypes.byref(prob))) == {
+        "cudaLaunchKernelExC": 1}
+    assert lib.icp_ctas(sp.shape[0]) == 16
+

@@ -1,11 +1,13 @@
 """The persistent kernels against their staged sequences, on the CPU.
 
-K3 (`gn_pcg`) and K6c (`cg_step`), and since K1 and K4 were redesigned the
-whole solves of K1 (`gn_solve`, `gn_lm_solve`, csrc/gn_kernel.cu) and K4
-(`gn6_solve`, `gn6_lm_solve`, csrc/gn6_kernel.cu), each run as one launch
+K3 (`gn_pcg`) and K6c (`cg_step`), the whole solves of K1 (`gn_solve`,
+`gn_lm_solve`, csrc/gn_kernel.cu) and K4 (`gn6_solve`, `gn6_lm_solve`,
+csrc/gn6_kernel.cu), K5 (`gn6_pcg`) and K2's IRLS loop and round
+(`icp_match`, `icp_iteration`, csrc/icp_kernel.cu), each run as one launch
 of a persistent kernel on a thread-block cluster, with a cluster barrier
 where the staged sequences (`gn_factor` + `gn_cg`, `cg_step_staged`,
-`gn_solve_staged`, `gn_lm_solve_staged` and their gn6 twins) have a kernel
+`gn_solve_staged`, `gn_lm_solve_staged` and their gn6 twins, `gn6_factor`
++ `gn6_cg`, `icp_match_staged`, `icp_iteration_staged`) have a kernel
 boundary. Without a card, the sources are built with g++ under the
 emulation of scripts/emulate_gn_kernel.py: a cluster launch runs every
 thread of every CTA at once, `cluster.sync()` is a barrier over all of
@@ -17,14 +19,25 @@ threads, a group of 6 a row) and form one cluster where one pass over the
 rows takes at most the cap, else a cooperative grid with a grid barrier:
 sphere(10, 10) (100 poses) runs on a cluster of 2 CTAs, and sphere(9, 60)
 (540 poses: three 256-row blocks, so that the block partials' order
-shows) on a grid of 2 CTAs that walk five passes. Each case holds the persistent kernels to
-their staged sequences with torch.equal (K3 at lam 0 and 1e-3, with masked
-loop slots and on the chain alone; K6c on two ranks, without and with
-Huber, the whole carry after 1 and 26 passes; K1 and K4 in GN mode with
-warm start and a cg ramp, poses and x, and in LM mode with Huber, poses and
-stats). Where the card cannot place the cluster (the emulated occupancy
-query places none, and a cooperative grid finds no room), every
-persistent entry raises, and nothing falls back to the staged sequences.
+shows) on a grid of 2 CTAs that walk five passes; K5 rides in the same
+run. Each case holds the persistent kernels to
+their staged sequences with torch.equal (K3 at lam 0 and 1e-3, with
+masked loop slots and on the chain alone, K5 at lam 0 and at 1e-3 with
+masked loop slots; K6c on two ranks,
+without and with Huber, the whole carry after 1 and 26 passes; K1 and K4
+in GN mode with warm start and a cg ramp, poses and x, and in LM mode with
+Huber, poses and stats). K2 runs once, on a simulated scan pair of 320
+points (2 CTAs of 160, 128 a pass: 2 passes), bit for bit: the loop's
+delta, H, stats, |upd| and [done, rounds run] with early exit (converged
+after some rounds) and without (every round), the source scan on itself
+(done after round 1), a tolerance of 0 (every round, never done), masked
+source points with invalid and duplicate targets (ties), and 1700 random
+targets (above the 1536 a CTA holds in shared memory: a tile at a time);
+a round on random points, on targets above one tile, with no valid
+target, with NaN points and with infinite points. Where the card cannot
+place the cluster (the emulated occupancy query places none, and a
+cooperative grid finds no room), every persistent entry raises, and
+nothing falls back to the staged sequences.
 
 The emulation runs in a subprocess with a timeout, so that a barrier that
 not every thread reaches fails the test instead of hanging it. One build
@@ -46,6 +59,8 @@ TIMEOUT_S = 240
 MAX_CLUSTER = 2
 SE2_POSES = {"2ctas": 300, "ctas_walk_blocks": 600}
 SE3_SPHERES = {"k4_cluster_2ctas": (10, 10), "k4_grid_ctas_walk_passes": (9, 60)}
+K2_CASES = ("pair_early", "pair_fixed", "self_round1", "tol0_all_rounds", "masked_ties",
+            "tiles")
 
 
 @pytest.fixture(scope="module")
@@ -69,7 +84,7 @@ def _emulate(build_dir, *args) -> list:
 
 def _family(tmp_path_factory, name, *args) -> dict:
     """{case id: JSON line} of one emulation over a family's sizes."""
-    sizes = SE2_POSES if name == "se2" else SE3_SPHERES
+    sizes = {"se2": SE2_POSES, "se3": SE3_SPHERES, "k2": {"k2": None}}[name]
 
     def compute():
         outs = _emulate(tmp_path_factory.mktemp(f"emu_{name}"), *args,
@@ -88,7 +103,8 @@ def se2_runs(gxx, tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def se3_runs(gxx, tmp_path_factory):
-    return _family(tmp_path_factory, "se3", "--kernels", "k4",
+    # K5 rides in K4's run (one build of gn6_kernel.cu)
+    return _family(tmp_path_factory, "se3", "--kernels", "k4,k5",
                    "--rings", ",".join(str(r) for r, _ in SE3_SPHERES.values()),
                    "--per-ring", ",".join(str(p) for _, p in SE3_SPHERES.values()))
 
@@ -124,8 +140,37 @@ def test_persistent_solves_equal_their_staged_sequences(se3_runs, case):
     walks = -(-poses // (slots * out["ctas6"]))
     assert walks >= 2 if out["grid6"] else walks == 1, out
     checks = {k: v for k, v in out.items() if k.endswith(("_bitwise", "_finite"))}
-    assert len(checks) == 4 and all(checks.values()), checks
+    assert len(checks) == 8 and all(checks.values()), checks
     _solves_near_their_twins(out, "k4")
+
+
+@pytest.fixture(scope="module")
+def k2_run(gxx, tmp_path_factory):
+    return _family(tmp_path_factory, "k2", "--kernels", "k2")["k2"]
+
+
+@pytest.mark.parametrize("case", K2_CASES)
+def test_icp_loop_equals_its_staged_sequence(k2_run, case):
+    out = k2_run
+    assert out["k2_ctas"] == MAX_CLUSTER, out
+    assert out[f"k2_{case}_bitwise"] and out[f"k2_{case}_finite"], out
+    # [done, rounds run]; None: converged after a few of the 16 rounds
+    done, rounds = out[f"k2_{case}_ctrl"]
+    want_done, want_rounds = {"pair_early": (1, None), "pair_fixed": (0, 16),
+                              "self_round1": (1, 1), "tol0_all_rounds": (0, 12),
+                              "masked_ties": (1, None), "tiles": (0, 4)}[case]
+    assert done == want_done, out
+    assert 1 < rounds < 16 if want_rounds is None else rounds == want_rounds, out
+    if case == "tiles":
+        assert out["k2_tiles_q"] > out["k2_tile"], out
+
+
+def test_icp_round_equals_its_staged_sequence(k2_run):
+    out = k2_run
+    for case in ("round", "round_tiles", "round_no_valid", "round_nan_points",
+                 "round_inf_points"):
+        assert out[f"k2_{case}_bitwise"], (case, out)
+    assert out["k2_round_nan_points_nan"], out
 
 
 def test_unplaceable_cluster_raises_without_fallback(gxx, tmp_path):
@@ -134,6 +179,6 @@ def test_unplaceable_cluster_raises_without_fallback(gxx, tmp_path):
     (out,) = _emulate(tmp_path, "--poses", "300", "--rings", "6", "--per-ring", "30",
                       "--max-cluster", str(MAX_CLUSTER), "--unplaceable")
     assert out["ctas6"] == 0, out
-    for name in ("k3", "k6c", "k1", "k1_lm", "k4", "k4_lm"):
+    for name in ("k3", "k6c", "k1", "k1_lm", "k4", "k4_lm", "k5", "k2", "k2_round"):
         assert out[f"{name}_raised"] and "failed: CUDA error" in out[f"{name}_raised"], out
         assert out[f"{name}_staged_raised"] is None, out
