@@ -163,7 +163,10 @@ a nonzero exit:
  19. K7a-c (csrc/cg_step6.cu) against their twins as phase 15 holds K6, on
      sphere(10, 10) and the garage at exact PCR, without and with Huber,
      two ranks in one process, at phase 15's tolerances; two K7 sequences
-     bitwise equal
+     bitwise equal; K7b (gn_setup6) and K7c (cg_step6), one persistent
+     launch a call each, bitwise equal to their staged sequences
+     (gn_setup_staged, cg_step_staged): the Setup and the carry after 1 and
+     26 passes, two ranks, without and with Huber
  20. the distributed SE(3) main paths on cuda, world size 1 over NCCL:
      sphere2500 and garage through dist_fused6_gn_solve (K7, 20 iterations
      at scripts/bench_all.py:251-283's cell: cg 25, edge_tile 256, exact
@@ -181,8 +184,13 @@ a nonzero exit:
  22. distributed SE(3) timing at sphere2500: dist_fused6 GN it/s through K7
      in turns with K4 (_gn_loop gn_fused, the same config) and with the
      plain path on the card; K7a, K7b and K7c per call and their twins
-     (CUDA events); the all_reduce at world size 1; launches per GN
-     iteration by source and the idle share (profiler)
+     (CUDA events); the C entries of K7b and K7c in turns with their staged
+     sequences (CUDA events), host launch calls a call (profiler: 1), ptxas
+     registers and spills of cg6_gn_setup_wide and cg6_step_wide; the
+     all_reduce at world size 1; launches per GN iteration by source and
+     the idle share (profiler), and the cg_step6.cu launches an iteration
+     from the wrappers' counts times their launches a call (2 + 1 + 26 =
+     29)
 
 Before the last line it prints one JSON object describing the kernels
 (max_abs_err: gn_kernel the larger of its m3500 and replay-solve pose
@@ -211,7 +219,10 @@ cg_step_staged in turns), "launches" the count in
 the GN main path and "launches_lm" in the LM one; cg_step6_stage_a,
 cg_step6_gn_setup and cg_step6_cg_step (K7a-c) likewise from phases 19-22,
 "launches" in the sphere2500 GN main path, "launches_garage" in the garage
-one, "launches_lm" in the garage LM one, "ms" at sphere2500);
+one, "launches_lm" in the garage LM one, "ms" at sphere2500; K7b and K7c,
+redesigned as one launch a call, add "ms_entry" (the C entry) and
+"ms_staged" (its staged sequence's, in turns), the host launch calls a
+call of each, and the ptxas registers and spills);
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, it exits nonzero and prints no result.
@@ -1925,12 +1936,13 @@ def _k6_two_ranks(cs, gk, g, p0, huber=-1.0):
 
 
 def _k_sequence(torch, cs, shs, p0, lam, passes, kernel: bool, sfx: str = "",
-                staged: bool = False):
+                staged: bool = False, staged_setup: bool = False):
     """K6a (K7a with sfx "6" and cs parallel/cg_step6.py), the payloads
     summed (the all-reduce), K6b and `passes` K6c passes on two ranks,
     through the kernels or the twins (with staged, K6c as its staged
-    sequence, cg_step_staged); returns (per-rank payloads and Aij, rank 0's
-    Setup, rank 0's carry after pass 1 and after the last)."""
+    sequence, cg_step_staged; with staged_setup, K7b as gn_setup_staged);
+    returns (per-rank payloads and Aij, rank 0's Setup, rank 0's carry
+    after pass 1 and after the last)."""
     stage_ref, setup_ref, step_ref = (getattr(cs, f"{n}{sfx}_reference")
                                       for n in ("stage_a", "gn_setup", "cg_step"))
     step_kern = getattr(cs, f"cg_step{sfx}")
@@ -1939,7 +1951,8 @@ def _k_sequence(torch, cs, shs, p0, lam, passes, kernel: bool, sfx: str = "",
         outs = [k.stage_a(p0) for k in kerns]
         outs = [(pay.clone(), A.clone()) for pay, A in outs]
         reduced = outs[0][0] + outs[1][0]
-        setups = [k.gn_setup(reduced.clone(), p0, lam) for k in kerns]
+        setups = [(k.gn_setup_staged if staged_setup else k.gn_setup)(reduced.clone(), p0, lam)
+                  for k in kerns]
         step = lambda i, A, c: step_kern(shs[i], setups[i], kerns[i].Aij, c)  # noqa: E731
         if staged:
             step = lambda i, A, c: kerns[i].cg_step_staged(kerns[i].Aij, c)  # noqa: E731
@@ -2433,8 +2446,29 @@ def phase_k7_kernels(torch, graphs):
     from graphslam_tpu_torch.ops import gn6_kernel as g6
     from graphslam_tpu_torch.parallel import cg_step6 as cs6
 
-    return _k_family_checks(torch, cs6, "6", "K7", graphs,
+    errs = _k_family_checks(torch, cs6, "6", "K7", graphs,
                             lambda g, p0, huber: _k7_two_ranks(cs6, g6, g, p0, huber))
+    # K7b and K7c, one persistent launch a call each, against the staged
+    # sequences they replaced: the Setup and the whole carry after 1 and 26
+    # passes bitwise (fresh shards each, so that no buffer is shared)
+    lam = torch.tensor([1e-3], device=torch.device("cuda"))
+    for name, g, p0 in graphs:
+        for huber in (-1.0, 1.0):
+            _, ks, k1, kn = _k_sequence(torch, cs6, _k7_two_ranks(cs6, g6, g, p0, huber), p0, lam,
+                                        26, True, "6")
+            ks = [t.clone() for t in ks]
+            _, ss, s1, sn = _k_sequence(torch, cs6, _k7_two_ranks(cs6, g6, g, p0, huber), p0, lam,
+                                        26, True, "6", staged=True, staged_setup=True)
+            torch.cuda.synchronize()
+            same_b = all(torch.equal(a, b) for a, b in zip(ks, ss))
+            same_c = all(torch.equal(a, b) for x, y in ((k1, s1), (kn, sn)) for a, b in zip(x, y))
+            log(f"  {name}, Huber {huber}: K7b gn_setup6 (one launch) vs gn_setup_staged, the "
+                f"Setup: {'bitwise equal' if same_b else 'DIFFERENT'}; K7c cg_step6 (one launch) "
+                f"vs cg_step_staged, two ranks, carry after 1 and 26 passes: "
+                f"{'bitwise equal' if same_c else 'DIFFERENT'}")
+            if not (same_b and same_c):
+                fail(f"{name}: the persistent K7b or K7c differs from its staged sequence")
+    return errs
 
 
 def phase_dist6_main(torch, graphs, chi2, metrics, mesh):
@@ -2630,6 +2664,38 @@ def phase_dist6_timing(torch, card, graphs, mesh):
     out["stage_a_us"] = _event_us(torch, lambda: cs6.stage_a6(sh, p0), 200)
     out["gn_setup_us"] = _event_us(torch, lambda: cs6.gn_setup6(sh, payload, p0, lam), 100)
     out["cg_step_us"] = _event_us(torch, lambda: cs6.cg_step6(sh, st, Aij, carry), 500)
+    # K7b and K7c's C entries in turns with the staged sequences they
+    # replaced: staged, one launch, one launch, staged (CUDA events)
+    import ctypes
+
+    kern.prob.stream = torch.cuda.current_stream(p0.device).cuda_stream
+    lib, prob, step_args = kern.lib, ctypes.byref(kern.prob), kern._step_args[1:]
+    entries = {
+        "gn_setup": (lambda: lib.cg6_gn_setup(prob, lam.data_ptr()),
+                     lambda: lib.cg6_gn_setup_staged(prob, lam.data_ptr()), 100),
+        "cg_step": (lambda: lib.cg6_step(prob, *step_args),
+                    lambda: lib.cg6_step_staged(prob, *step_args), 500),
+    }
+    for key, (new, old, reps) in entries.items():
+        t_sa = _event_us(torch, old, reps)
+        t_na = _event_us(torch, new, reps)
+        t_nb = _event_us(torch, new, reps)
+        t_sb = _event_us(torch, old, reps)
+        host, dev_n = _launches_per_call(torch, new, "Cg6Problem")
+        host_s, dev_s = _launches_per_call(torch, old, "Cg6Problem")
+        kname = {"gn_setup": "cg6_gn_setup_wide", "cg_step": "cg6_step_wide"}[key]
+        regs, spill = _ptxas("cg_step6", kname)
+        out[f"{key}_entry"] = dict(us=min(t_na, t_nb), us_staged=min(t_sa, t_sb), launches=host,
+                                   staged_launches=host_s, ptxas={kname: (regs, spill)})
+        tag = {"gn_setup": "K7b", "cg_step": "K7c"}[key]
+        log(f"  {tag} at sphere2500, C entries in turns (CUDA events): cg6_{key.replace('cg_', '')} "
+            f"(one launch) {t_na:.2f} and {t_nb:.2f} us, staged {t_sa:.2f} and {t_sb:.2f} us "
+            f"({min(t_sa, t_sb) / min(t_na, t_nb):.2f}x); launches a call (profiler, 10 calls; "
+            f"host launch calls / device kernels): {host:g} / {dev_n:g}, staged {host_s:g} / "
+            f"{dev_s:g}; ptxas {kname} {regs} registers, {spill} bytes spill stores")
+        if host != 1:
+            fail(f"{tag} made {host} launch calls a call, not 1")
+    host_a, _ = _launches_per_call(torch, lambda: cs6.stage_a6(sh, p0), "Cg6Problem")
     out["stage_a_plain_us"] = _event_us(torch, lambda: cs6.stage_a6_reference(sh, p0), 10)
     ref_pay, ref_A = cs6.stage_a6_reference(sh, p0)
     out["gn_setup_plain_us"] = _event_us(
@@ -2642,7 +2708,7 @@ def phase_dist6_timing(torch, card, graphs, mesh):
     pay = torch.zeros(cs6.payload_size6(sh.N), device=p0.device)
     out["allreduce_big_us"] = _event_us(torch, lambda: mesh.all_reduce(big), 500)
     out["allreduce_payload_us"] = _event_us(torch, lambda: mesh.all_reduce(pay), 200)
-    out["k7_launch_counts_per_call"] = (2, 1 + sh.K, 4 + sh.K)
+    out["k7_launch_counts_per_call"] = (2, 1, 1)
     log(f"  per call at sphere2500 (K = {sh.K}; CUDA events, the wrapper included): K7a "
         f"{out['stage_a_us']:.2f} us, K7b {out['gn_setup_us']:.2f} us, K7c "
         f"{out['cg_step_us']:.2f} us; twins on the card {out['stage_a_plain_us']:.2f}, "
@@ -2652,11 +2718,23 @@ def phase_dist6_timing(torch, card, graphs, mesh):
         f"the payload ({cs6.payload_size6(sh.N)} floats)")
 
     n_it = 5
+    k7 = (cs6.stage_a6, cs6.gn_setup6, cs6.cg_step6)
+    _launch_counts(k7, zero=True)
     groups, span = _profile_launches(torch, lambda: dist_fused6_gn_solve(
         p0, g, mesh, cfg, iterations=n_it), top=10)
+    calls = _launch_counts(k7)
     out["launches_per_it"] = {k: c / n_it for k, (c, _) in groups.items()}
     out["idle_share"] = _log_profile(f"sphere2500 dist_fused6 GN through K7 ({n_it} iterations)",
                                      groups, span, n_it)
+    per_call = (host_a, out["gn_setup_entry"]["launches"], out["cg_step_entry"]["launches"])
+    per_it = sum(calls[f.__name__] * n for f, n in zip(k7, per_call)) / n_it
+    out["cg_step6_launches_per_it"] = per_it
+    log(f"  cg_step6.cu launches a dist_fused6 GN iteration: {per_it:g} (wrapper calls {calls} "
+        f"over {n_it} iterations times host launch calls a call {per_call}; K7a 2, K7b 1, 26 K7c "
+        f"passes 1 each: 29; staged: 2 + {1 + sh.K} + 26 x {4 + sh.K} = "
+        f"{2 + 1 + sh.K + 26 * (4 + sh.K)})")
+    if per_it != 2 + 1 + 26:
+        fail(f"{per_it} cg_step6.cu launches a dist_fused6 GN iteration, not 29")
     return out, sh
 
 
@@ -2796,6 +2874,15 @@ def main() -> int:
         return {"redesigned": True, "ms_entry": red["ms"], "ms_staged": red["ms_staged"],
                 "launches_per_solve": red["launches"],
                 "staged_launches_per_solve": red["staged_launches"], "idle_share": idle,
+                "registers": {k: v[0] for k, v in red["ptxas"].items()},
+                "spill_store_bytes": {k: v[1] for k, v in red["ptxas"].items()}}
+
+    def k7_redesign(red):
+        """The kernels line's fields of K7b or K7c, one launch a call."""
+        return {"redesigned": True, "ms_entry": red["us"] / 1e3, "ms_staged": red["us_staged"] / 1e3,
+                "launches_per_call": red["launches"],
+                "staged_launches_per_call": red["staged_launches"],
+                "launches_per_it_cg_step6": t6["cg_step6_launches_per_it"],
                 "registers": {k: v[0] for k, v in red["ptxas"].items()},
                 "spill_store_bytes": {k: v[1] for k, v in red["ptxas"].items()}}
 
@@ -3011,6 +3098,7 @@ def main() -> int:
             "launches_lm": d6["lm_counts"]["gn_setup6"],
             "max_abs_err": k7_err["gn_setup"],
             "ms": t6["gn_setup_us"] / 1e3,
+            **k7_redesign(t6["gn_setup_entry"]),
             "plain_ms": t6["gn_setup_plain_us"] / 1e3,
             "bound_ms": k7b_bound,
             "bound_by": k7b_by,
@@ -3026,6 +3114,7 @@ def main() -> int:
             "max_abs_err_1_pass": k7_err["cg_step_1"],
             "max_abs_err_two_ranks": two_rank6_err,
             "ms": t6["cg_step_us"] / 1e3,
+            **k7_redesign(t6["cg_step_entry"]),
             "plain_ms": t6["cg_step_plain_us"] / 1e3,
             "bound_ms": k7c_bound,
             "bound_by": k7c_by,

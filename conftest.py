@@ -92,7 +92,7 @@ _SLOW = {
     "tests/test_gn_kernel.py::test_fused_gn_warm_start_and_ramp": 187,
     "tests/test_gn_kernel.py::test_warm_start_at_optimum_stays_finite": 169,
     "tests/test_torch_pipeline.py": 150,
-    "tests/test_torch_persistent_emu.py": 149,
+    "tests/test_torch_persistent_emu.py": 165,
     "tests/test_dist_fused.py::test_dist_fused_cg_kernel_lm_and_mesh_invariance": 148,
     "tests/test_gn_kernel.py::test_fused_gn_page_windowed_matches_plain": 134,
     "tests/test_pipeline.py::TestWarmStartedSolves::test_warm_bucketed_solve_in_pipeline": 120,

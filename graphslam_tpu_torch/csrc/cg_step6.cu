@@ -4,9 +4,8 @@
 // :111), `gn_setup6` (K7b, _gn_setup6_kernel :240) and `cg_step6` (K7c,
 // _cg_step6_kernel :341). They are csrc/cg_step.cu's K6a-c with SE(3) poses
 // and 6x6 blocks. One process runs them per rank; the all-reduces between
-// them are the caller's (torch.distributed), so each entry point is a short
-// fixed sequence of launches on the caller's stream with no host
-// synchronization:
+// them are the caller's (torch.distributed), so each entry point runs on
+// the caller's stream with no host synchronization:
 //
 //   cg6_stage_a   cg6_linearize  one thread per chain edge and per loop edge
 //                                of this rank: between, SO(3) log, Jr^-1,
@@ -20,25 +19,46 @@
 //                                edge order (no atomics); U = w Aij; g alike.
 //                                w = w_chain is 1 on rank 0 and 0 elsewhere,
 //                                so the all-reduce counts the chain once.
-//   cg6_gn_setup  cg6_setup      one thread per node: + prior blocks (one
-//                                prior per node), D_ii (1 + lam) on the 6
-//                                diagonal entries, b = -g
-//                 cg6_pcr_factor one launch per PCR level, K levels
-//   cg6_step      cg6_update     alpha = rz / (s0 + s1), guarded; x += alpha
-//                                p; r -= alpha (chain_Ap + tile_Ap)
-//                 cg6_pcr_apply  one launch per level; the last applies Dinv
-//                                and writes block partials of r.z
-//                 cg6_direction  beta, p = z + beta p
-//                 cg6_hvp        chain_Ap = (D + U + L) p and this rank's
-//                                loop H p, each with block partials of p.()
-//                 cg6_finish     one thread: rz, s0 and the s1 partial
+//   cg6_gn_setup  ONE launch of cg6_gn_setup_wide (below)
+//                   setup      one thread per node: + prior blocks (one
+//                              prior per node), D_ii (1 + lam) on the 6
+//                              diagonal entries, b = -g
+//                   PCR factor K levels, a group of 6 threads a 6x6 row
+//   cg6_step      ONE launch of cg6_step_wide (below), one CG pass:
+//                   update     alpha = rz / (s0 + s1), guarded; x += alpha
+//                              p; r -= alpha (chain_Ap + tile_Ap)
+//                   PCR apply  K levels, a group of 6 threads a row; the
+//                              last applies Dinv and writes r.z a row
+//                   direction  beta, p = z + beta p
+//                   H@p        chain_Ap = (D + U + L) p and this rank's
+//                              loop H p, a group of 6 threads a row, with
+//                              p.chain_Ap and p.tile_Ap a row
+//                   finish     CTA 0: rz, s0 and the s1 partial
+//   cg6_gn_setup_staged, cg6_step_staged  the same as 1 + K and K + 4 small
+//                 launches (cg6_setup and K cg6_pcr_factor; cg6_update, K
+//                 cg6_pcr_apply, cg6_direction, cg6_hvp, cg6_finish: one
+//                 thread a row, n_blocks(N) blocks of 256), bitwise equal:
+//                 the yardsticks, never on the path
 //
-// so a CG pass is K + 4 launches and a GN iteration 2 + (K + 1) + (cg + 1)
-// (K + 4): 431 at sphere2500's exact K = 12 and cg 25. The scalars rz, s0
-// (scal) and s1 (the last entry of the all-reduced [tile_Ap; s1]) stay in
-// device memory; every reduction is a fixed shared-memory tree per block
-// and a sum of the block partials in index order, so two runs on one card
-// are bitwise equal.
+// so a CG pass is one launch and a GN iteration 2 + 1 + (cg + 1): 29 at
+// sphere2500's cg 25 (staged: 2 + (K + 1) + (cg + 1) (K + 4) = 431 at K =
+// 12). The scalars rz, s0 (scal) and s1 (the last entry of the all-reduced
+// [tile_Ap; s1]) stay in device memory; every reduction is a fixed tree per
+// 256-row block and a sum of the block partials in index order, so two runs
+// on one card are bitwise equal.
+//
+// The two persistent kernels run on K4's wide stages (se3_blocks.cuh):
+// CTAs of kWide = 384 threads, each 6x6 row on a group of 6 threads with
+// its slot of shared scratch, in wide_shape's shape: one pass over the rows
+// (60 rows a CTA) on one cluster where that takes at most 16 CTAs, else a
+// cooperative grid of as many CTAs (sphere2500: 42), a barrier where the
+// staged sequence has a kernel boundary. The light rows (setup, update,
+// direction) take one thread a row or a component over the whole launch.
+// A reduction goes through a row buffer (va, vb, vc below) that wide_sum
+// adds in the staged launches' order, so the persistent kernels give
+// bitwise the staged sequences' outputs. Where the card cannot place the
+// cluster or the grid, the entry returns the CUDA error; nothing falls
+// back to the staged sequence.
 //
 // The 6x6, SE(3) and PCR device code is the fused SE(3) kernel's
 // (csrc/gn6_kernel.cu), shared through se3_blocks.cuh: the ridge eps/6 |tr|
@@ -52,14 +72,12 @@
 //
 // What bounds it: at sphere2500 size (N = 2500, ~2450 loop edges) a CG pass
 // reads the K = 12 level PCR factor (8.6 MB) and D, U (0.7 MB), all in the
-// 50 MB L2, and each launch covers 10 blocks of 256 register-heavy threads
-// on the card's 132 SMs: launch latency and the latency of the 6x6 stages
-// bound it, as they bound the fused SE(3) kernel. This version is the
-// simple, correct one.
+// 50 MB L2; neither bytes nor FLOPs bound it but the latency of its ~K + 4
+// dependent stages, as they bound the fused SE(3) kernel (K4).
 //
 // Plain C interface for ctypes: every function takes a Cg6Problem* whose
 // pointers are device pointers, launches on problem->stream and returns
-// cudaGetLastError() (0 = success).
+// the CUDA error (0 = success).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -110,6 +128,9 @@ struct Ws {
   float* part_a;    // (n_blocks(N),) partial sums of p.chain_Ap
   float* part_b;    // (n_blocks(N),) partial sums of r.z
   float* part_c;    // (n_blocks(N),) partial sums of p.tile_Ap
+  float* va;        // (N,) p.chain_Ap a row, the persistent pass's
+  float* vb;        // (N,) r.z a row
+  float* vc;        // (N,) p.tile_Ap a row
   long long total;
 };
 
@@ -134,6 +155,9 @@ Ws layout(int N, int c, int El, float* base) {
   w.part_a = take(n_blocks(N));
   w.part_b = take(n_blocks(N));
   w.part_c = take(n_blocks(N));
+  w.va = take(N);
+  w.vb = take(N);
+  w.vc = take(N);
   w.total = off;
   return w;
 }
@@ -239,12 +263,15 @@ __global__ void __launch_bounds__(kThreads) cg6_assemble(Cg6Problem p, Ws w) {
 // K7b: priors, damping and the PCR factor
 // ---------------------------------------------------------------------------
 
-// D = payload D + Jp^T Jp with r = Log(z^-1 x), J = pW Jr^-1(r), its 6
-// diagonal entries times (1 + lam); b = -(g + Jp^T pW r)
+// The one-thread row function below is __noinline__: the staged cg6_setup
+// and the persistent cg6_gn_setup_wide call one compiled body, so the two
+// launch shapes round alike (inlined into kernels of other register
+// budgets, nvcc contracted one source to FMAs differently; PERF.md).
+
+// Row n: D = payload D + Jp^T Jp with r = Log(z^-1 x), J = pW Jr^-1(r), its
+// 6 diagonal entries times (1 + lam); b = -(g + Jp^T pW r)
 // (cg_step6.py:262-306).
-__global__ void __launch_bounds__(kThreads) cg6_setup(Cg6Problem p, const float* lam) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= p.N) return;
+__device__ __noinline__ void setup_row6(const Cg6Problem& p, const float* lam, int n) {
   M6 D = ld36(p.payload, n);
   V6 g = ld6(p.payload + 72LL * p.N, n);
   {
@@ -262,6 +289,12 @@ __global__ void __launch_bounds__(kThreads) cg6_setup(Cg6Problem p, const float*
   st6(p.b, n, g);
 }
 
+__global__ void __launch_bounds__(kThreads) cg6_setup(Cg6Problem p, const float* lam) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  setup_row6(p, lam, n);
+}
+
 // One PCR level (pcr6_factor_row in se3_blocks.cuh), U at level 0 from the
 // payload; the last level writes the final inverse instead of D', L', U'.
 __global__ void __launch_bounds__(kThreads) cg6_pcr_factor(
@@ -277,14 +310,24 @@ __global__ void __launch_bounds__(kThreads) cg6_pcr_factor(
 // K7c: one CG pass
 // ---------------------------------------------------------------------------
 
-// pHp = s0 + s1; alpha = rz / pHp where pHp > tiny, else 0; x += alpha p;
-// r -= alpha (chain_Ap + tile_Ap) (cg_step6.py:365-373).
+// pHp = s0 + s1; alpha = rz / pHp where pHp > tiny, else 0
+// (cg_step6.py:365-369).
+__device__ __forceinline__ float step_alpha6(int N, const float* scal, const float* big) {
+  const float pHp = scal[1] + big[6LL * N];
+  return pHp > kTiny ? scal[0] / fmaxf(pHp, kTiny) : 0.f;
+}
+
+// beta = rz_new / rz where rz > tiny, else 0.
+__device__ __forceinline__ float step_beta6(float rz_new, const float* scal) {
+  const float rz = scal[0];
+  return rz > kTiny ? rz_new / fmaxf(rz, kTiny) : 0.f;
+}
+
+// x += alpha p; r -= alpha (chain_Ap + tile_Ap) (cg_step6.py:370-373).
 __global__ void __launch_bounds__(kThreads) cg6_update(Cg6Problem p, float* x, float* r,
                                                        const float* pv, const float* cap,
                                                        const float* scal, const float* big) {
-  const float pHp = scal[1] + big[6LL * p.N];
-  const float rz = scal[0];
-  const float alpha = pHp > kTiny ? rz / fmaxf(pHp, kTiny) : 0.f;
+  const float alpha = step_alpha6(p.N, scal, big);
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= p.N) return;
   V6 xn = ld6(x, n), rn = ld6(r, n);
@@ -312,13 +355,12 @@ __global__ void __launch_bounds__(kThreads) cg6_pcr_apply(Cg6Problem p, int k, c
   if (last) block_sum_to(val, part, blockIdx.x);
 }
 
-// rz_new = r.z from the partials; beta = rz_new / rz where rz > tiny, else
-// 0; p = z + beta p. rz_new goes to scal[2] (scal[0] is still being read).
+// rz_new = r.z from the partials; beta; p = z + beta p. rz_new goes to
+// scal[2] (scal[0] is still being read).
 __global__ void __launch_bounds__(kThreads) cg6_direction(Cg6Problem p, Ws w, float* pv,
                                                           float* scal) {
   const float rz_new = sum_partials(w.part_b, n_blocks(p.N));
-  const float rz = scal[0];
-  const float beta = rz > kTiny ? rz_new / fmaxf(rz, kTiny) : 0.f;
+  const float beta = step_beta6(rz_new, scal);
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (blockIdx.x == 0 && threadIdx.x == 0) scal[2] = rz_new;
   if (n >= p.N) return;
@@ -369,6 +411,130 @@ __global__ void cg6_finish(Cg6Problem p, Ws w, float* scal, float* big) {
 }
 
 // ---------------------------------------------------------------------------
+// K7b and K7c as ONE launch each: kWide-thread CTAs in wide_shape's shape,
+// K4's wide stages (se3_blocks.cuh), a barrier where the staged sequences
+// have a kernel boundary
+// ---------------------------------------------------------------------------
+
+// K7b: the setup rows (one thread a row over the launch), then the K PCR
+// factor levels on the groups from D and the payload's U -- cg6_setup and
+// the K cg6_pcr_factor launches, row for row.
+__global__ void __launch_bounds__(kWide, 1) cg6_gn_setup_wide(Cg6Problem p, Ws w,
+                                                              const float* lam) {
+  for_flat(p.N, [&](int n) { setup_row6(p, lam, n); });
+  stage_sync();
+  factor6_stages(p.N, p.K, p.eps, p.D, p.payload + 36LL * p.N, w.PD[0], w.PD[1], w.PU[0],
+                 w.PU[1], w.PL[0], w.PL[1], p.A, p.G, p.Dinv);
+}
+
+// Component a of cg6_hvp's row n (live) on the row's group S (12 floats),
+// its two sums kept apart: cap[n][a] = (D p + U p[n+1] + U[n-1]^T p[n-1])[a]
+// and big[n][a] = this rank's loop blocks times p, summed from 0.f through
+// the CSR, each block's product in m6vec's / m6Tvec's order; the group's
+// thread 0 writes p[n].cap[n] to va[n] and p[n].big[n] to vc[n] (v6dot's
+// order).
+__device__ __forceinline__ void hvp6_split_lane(const Cg6Problem& p, const float* pv, float* cap,
+                                                float* big, float* va, float* vc, int n, int a,
+                                                bool live, float* S) {
+  float o = 0.f, t = 0.f;
+  if (live) {
+    const float* U = p.payload + 36LL * p.N;
+    const float* vn = pv + 6LL * n;
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < 6; ++q) s += p.D[36LL * n + 6 * a + q] * vn[q];
+    o = s;
+    if (n + 1 < p.N) {
+      s = 0.f;
+#pragma unroll
+      for (int q = 0; q < 6; ++q) s += U[36LL * n + 6 * a + q] * pv[6LL * (n + 1) + q];
+      o += s;
+    }
+    if (n >= 1) {
+      s = 0.f;
+#pragma unroll
+      for (int q = 0; q < 6; ++q) s += U[36LL * (n - 1) + 6 * q + a] * pv[6LL * (n - 1) + q];
+      o += s;
+    }
+    cap[6LL * n + a] = o;
+    for (int e = p.csr_ptr[n]; e < p.csr_ptr[n + 1]; ++e) {
+      const int ent = p.csr_ent[e];
+      const int l = ent >> 1;
+      const float* A = p.Aij + 36LL * l;
+      s = 0.f;
+      if (ent & 1) {  // node is j: A^T p_i
+        const float* vi = pv + 6LL * p.li[l];
+#pragma unroll
+        for (int q = 0; q < 6; ++q) s += A[6 * q + a] * vi[q];
+      } else {        // node is i: A p_j
+        const float* vj = pv + 6LL * p.lj[l];
+#pragma unroll
+        for (int q = 0; q < 6; ++q) s += A[6 * a + q] * vj[q];
+      }
+      t += s;
+    }
+    big[6LL * n + a] = t;
+    S[a] = o;
+    S[6 + a] = t;
+  }
+  __syncwarp();
+  if (live && a == 0) {
+    const float* vn = pv + 6LL * n;
+    float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+    for (int q = 0; q < 6; ++q) d0 += vn[q] * S[q];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) d1 += vn[q] * S[6 + q];
+    va[n] = d0;
+    vc[n] = d1;
+  }
+  __syncwarp();
+}
+
+// K7c: one CG pass -- cg6_update, the K cg6_pcr_apply levels, cg6_direction,
+// cg6_hvp and cg6_finish, row for row, with a barrier in place of each
+// kernel boundary. Every CTA reads alpha's inputs (scal[0], scal[1],
+// big[6N]) before the first barrier and scal[0] before the third; CTA 0
+// writes scal[2] at the direction and scal[0], scal[1], big[6N] after the
+// last barrier, when every CTA has read them.
+__global__ void __launch_bounds__(kWide, 1) cg6_step_wide(Cg6Problem p, Ws w, float* x,
+                                                          float* r, float* pv, float* cap,
+                                                          float* scal, float* big) {
+  const int N = p.N;
+  const long long M = 6LL * N;
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+  {
+    const float alpha = step_alpha6(N, scal, big);
+    for_flat(M, [&](int i) {
+      x[i] += alpha * pv[i];
+      r[i] -= alpha * (cap[i] + big[i]);
+    });
+  }
+  stage_sync();
+  apply6_stages(N, p.K, p.A, p.G, p.Dinv, r, w.t[0], w.t[1], w.z, r, w.vb);
+  {
+    const float rz_new = wide_sum(w.vb, N);
+    const float beta = step_beta6(rz_new, scal);
+    if (lead) scal[2] = rz_new;
+    for_flat(M, [&](int i) { pv[i] = w.z[i] + beta * pv[i]; });
+  }
+  stage_sync();
+  for_groups(N, [&](int n, int a, bool live, float* S) {
+    hvp6_split_lane(p, pv, cap, big, w.va, w.vc, n, a, live, S);
+  });
+  stage_sync();
+  if (blockIdx.x == 0) {
+    const float s0 = wide_sum(w.va, N);
+    const float s1 = wide_sum(w.vc, N);
+    if (lead) {
+      scal[0] = scal[2];
+      scal[1] = s0;
+      big[M] = s1;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side: launch sequences
 // ---------------------------------------------------------------------------
 
@@ -408,9 +574,31 @@ int cg6_stage_a(const Cg6Problem* pp) {
   return 0;
 }
 
+// The persistent kernels' shape over N rows: CTAs of cg6_step's launch,
+// negative where they form a cooperative grid rather than one cluster (0: a
+// CUDA error).
+int cg6_wide_ctas(int N) {
+  Shape sh;
+  if (wide_shape(cg6_step_wide, N, sh) != cudaSuccess) return 0;
+  return sh.cooperative ? -sh.ctas : sh.ctas;
+}
+
 // K7b: D, b and the K-level PCR factor from the all-reduced payload at
-// p->poses, damped by (1 + lam[0]) (lam a device pointer).
+// p->poses, damped by (1 + lam[0]) (lam a device pointer). One launch of
+// cg6_gn_setup_wide in wide_shape's shape.
 int cg6_gn_setup(const Cg6Problem* pp, const float* lam) {
+  const Cg6Problem& p = *pp;
+  Shape sh;
+  const cudaError_t err = wide_shape(cg6_gn_setup_wide, p.N, sh);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_persistent(cg6_gn_setup_wide, sh, kWide, (cudaStream_t)p.stream, p,
+                                ws_of(p), lam);
+}
+
+// The same setup as 1 + K launches (cg6_setup, K cg6_pcr_factor): the
+// staged sequence that cg6_gn_setup replaced, bitwise equal to it; a
+// yardstick for checks and timings, never on the path.
+int cg6_gn_setup_staged(const Cg6Problem* pp, const float* lam) {
   const Cg6Problem& p = *pp;
   const Ws w = ws_of(p);
   const cudaStream_t s = (cudaStream_t)p.stream;
@@ -431,9 +619,23 @@ int cg6_gn_setup(const Cg6Problem* pp, const float* lam) {
 
 // K7c: one CG pass on the carry (x, r, p, chain_Ap (N, 6), scal (4,), big
 // (6N+1,) the all-reduced [tile_Ap; s1]), in place; big then holds this
-// rank's new [tile_Ap; s1] partial.
+// rank's new [tile_Ap; s1] partial. One launch of cg6_step_wide in
+// wide_shape's shape (sphere2500: a 42-CTA cooperative grid).
 int cg6_step(const Cg6Problem* pp, float* x, float* r, float* pv, float* cap, float* scal,
              float* big) {
+  const Cg6Problem& p = *pp;
+  Shape sh;
+  const cudaError_t err = wide_shape(cg6_step_wide, p.N, sh);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_persistent(cg6_step_wide, sh, kWide, (cudaStream_t)p.stream, p, ws_of(p),
+                                x, r, pv, cap, scal, big);
+}
+
+// The same pass as K + 4 launches (cg6_update, K cg6_pcr_apply,
+// cg6_direction, cg6_hvp, cg6_finish): the staged sequence that cg6_step
+// replaced, bitwise equal to it; a yardstick, never on the path.
+int cg6_step_staged(const Cg6Problem* pp, float* x, float* r, float* pv, float* cap,
+                    float* scal, float* big) {
   const Cg6Problem& p = *pp;
   const Ws w = ws_of(p);
   const cudaStream_t s = (cudaStream_t)p.stream;

@@ -309,8 +309,8 @@ def _lib(name: str = "cg_step", prefix: str = "cg") -> ctypes.CDLL:
     P = ctypes.POINTER(_Problem)
     vp = ctypes.c_void_p
     for fn, args in (("stage_a", [P]), ("gn_setup", [P, vp]), ("step", [P] + [vp] * 6),
-                     ("step_staged", [P] + [vp] * 6)):
-        if hasattr(lib, f"{prefix}_{fn}"):  # cg6 has no persistent step, so no staged one
+                     ("step_staged", [P] + [vp] * 6), ("gn_setup_staged", [P, vp])):
+        if hasattr(lib, f"{prefix}_{fn}"):  # cg has no staged gn_setup (K6b is staged)
             getattr(lib, f"{prefix}_{fn}").argtypes = args
             getattr(lib, f"{prefix}_{fn}").restype = ctypes.c_int
     for fn, args, res in (("ws_floats", [ctypes.c_int] * 4, ctypes.c_longlong),
@@ -390,6 +390,17 @@ class CgStepKernel:
         return self.payload, self.Aij
 
     def gn_setup(self, payload: torch.Tensor, poses: torch.Tensor, lam: torch.Tensor) -> Setup:
+        return self._setup("gn_setup", payload, poses, lam)
+
+    def gn_setup_staged(self, payload: torch.Tensor, poses: torch.Tensor,
+                        lam: torch.Tensor) -> Setup:
+        """K7b as its staged sequence (`cg6_gn_setup_staged`, 1 + K launches):
+        the yardstick of checks and timings, never on the path. The SE(2)
+        library has none."""
+        return self._setup("gn_setup_staged", payload, poses, lam)
+
+    def _setup(self, fn: str, payload: torch.Tensor, poses: torch.Tensor,
+               lam: torch.Tensor) -> Setup:
         N = self.sh.N
         gk._check_f32("payload", payload, (payload_size(N, self.T),), self.device)
         gk._check_f32("lam", lam, (1,), self.device)
@@ -398,7 +409,7 @@ class CgStepKernel:
         if payload.data_ptr() != self.payload.data_ptr():
             self.payload.copy_(payload)
         self.prob.poses = poses.data_ptr()
-        self._call("gn_setup", lam.data_ptr())
+        self._call(fn, lam.data_ptr())
         return self.setup
 
     def cg_state(self, b: torch.Tensor) -> CgState:
@@ -418,8 +429,8 @@ class CgStepKernel:
             raise ValueError(f"{fn} takes the carry of this kernel's latest cg_state")
 
     def cg_step(self, Aij: torch.Tensor, cs: CgState) -> None:
-        """One CG pass (K6c) on the carry, in place: one ctypes call of the
-        persistent kernel on the pointers cg_state recorded."""
+        """One CG pass (K6c, K7c) on the carry, in place: one ctypes call of
+        the persistent kernel on the pointers cg_state recorded."""
         self._own("cg_step", Aij, cs)
         self.prob.stream = torch.cuda.current_stream(self.device).cuda_stream
         rc = self._step(*self._step_args)
@@ -428,8 +439,9 @@ class CgStepKernel:
                                f"({self._fn('error_string')(rc).decode()})")
 
     def cg_step_staged(self, Aij: torch.Tensor, cs: CgState) -> None:
-        """The same pass as the staged sequence (`cg_step_staged`, K + 4
-        launches): the yardstick of checks and timings, never on the path."""
+        """The same pass as the staged sequence (`cg_step_staged`,
+        `cg6_step_staged`: K + 4 launches): the yardstick of checks and
+        timings, never on the path."""
         self._own("cg_step_staged", Aij, cs)
         self._call("step_staged", *self._step_args[1:])
 

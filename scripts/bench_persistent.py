@@ -6,7 +6,7 @@ inside one process.
 Usage, from the root of a checkout:
 
   python3 scripts/bench_persistent.py [--parent DIR] [--rounds R]
-                                      [--parts replay,dist,k4,k2,k5]
+                                      [--parts replay,dist,k4,k2,k5,k7]
 
 Trees:
   this         this checkout's graphslam_tpu_torch
@@ -16,9 +16,10 @@ Trees:
   other-shape  a copy of this checkout's package (under
                graphslam_tpu_torch/build/, rebuilt there) whose
                csrc/se3_blocks.cuh::wide_shape takes the other launch
-               shape: sphere2500 on one 16-CTA cluster walking 3 passes
-               over the rows instead of a 42-CTA cooperative grid, garage
-               on a 16-CTA cooperative grid instead of a 16-CTA cluster
+               shape (for K4 and K7b/K7c alike): sphere2500 on one 16-CTA
+               cluster walking 3 passes over the rows instead of a 42-CTA
+               cooperative grid, garage on a 16-CTA cooperative grid
+               instead of a 16-CTA cluster
   k2-group16, k2-group32, k2-threads256, k2-threads512
                copies likewise whose csrc/icp_kernel.cu gives each source
                point a group of 16 or 32 threads instead of 8 (kGroup), or
@@ -52,7 +53,15 @@ kernels (cached in the tree), warms up and prints one JSON line:
           loop's initial damping) over 50 calls, CUDA events, and garage
           LM it/s through lm_solve(mode="pcg_fused") (20 iterations, cg
           25, Huber 1.0), median of 3
-The other-shape tree runs k4 only, the k2-* trees k2 only. The card's
+  k7      us per call of K7b's and K7c's C entries at sphere2500 (one rank
+          owning every loop edge, exact PCR, K = 12), CUDA events over 100
+          and 500 calls, and of their staged sequences where the tree has
+          them (cg6_gn_setup_staged, cg6_step_staged); the CTAs of the
+          persistent launch; and a digest of two ranks' K7a, K7b and 26 K7c
+          passes at sphere2500 with Huber (both ranks' outputs), through
+          the tree's gn_setup / cg_step and, where it has them, through the
+          staged sequences (equal digests across trees: bitwise equal K7)
+The other-shape tree runs k4 and k7 only, the k2-* trees k2 only. The card's
 name and power limit come first; the last line is a JSON summary of every
 process's numbers.
 """
@@ -84,7 +93,7 @@ K2_SHAPES = {
 }
 # The kernel sources each part needs built.
 NEEDS = {"replay": ["gn_kernel", "icp_kernel"], "dist": ["gn_kernel", "cg_step", "cg_step6"],
-         "k4": ["gn6_kernel"], "k2": ["icp_kernel"], "k5": ["gn6_kernel"]}
+         "k4": ["gn6_kernel"], "k2": ["icp_kernel"], "k5": ["gn6_kernel"], "k7": ["cg_step6"]}
 
 
 def _seconds(torch, fn, reps: int, chain: int) -> float:
@@ -267,6 +276,64 @@ def child_k5(torch):
     return out
 
 
+def child_k7(torch):
+    import ctypes
+
+    from graphslam_tpu_torch.factors import from_dataset
+    from graphslam_tpu_torch.io import datasets
+    from graphslam_tpu_torch.ops import gn6_kernel as g6
+    from graphslam_tpu_torch.ops.pcg_kernel import pcr_levels_for
+    from graphslam_tpu_torch.parallel import cg_step6 as cs6
+
+    dev = torch.device("cuda")
+    d = datasets.sphere2500()
+    g, p0 = from_dataset(d, device=dev), torch.from_numpy(d["poses"]).to(dev)
+    N = p0.shape[0]
+    pk, K = g6.pack_graph6(g, N), pcr_levels_for(N, None)
+    lam = torch.tensor([1e-3], device=dev)
+
+    def digest(staged: bool) -> str:
+        half = pk.El // 2
+        kerns = [cs6.CgStep6Kernel(cs6.make_shard6(pk, 0, half, K, 1.0, 1.0)),
+                 cs6.CgStep6Kernel(cs6.make_shard6(pk, half, pk.El, K, 0.0, 1.0))]
+        outs = [t.clone() for k in kerns for t in k.stage_a(p0)]
+        reduced = outs[0] + outs[2]
+        sts = [(k.gn_setup_staged if staged else k.gn_setup)(reduced, p0, lam) for k in kerns]
+        outs += [t.clone() for st in sts for t in st]
+        carries = [k.cg_state(sts[0].b) for k in kerns]
+        for _ in range(26):
+            for k, c in zip(kerns, carries):
+                (k.cg_step_staged if staged else k.cg_step)(k.Aij, c)
+            big = carries[0].big + carries[1].big
+            for c in carries:
+                c.big.copy_(big)
+        outs += [t for c in carries for t in c]
+        h = hashlib.sha256()
+        for t in outs:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    kern = cs6.CgStep6Kernel(cs6.make_shard6(pk, 0, pk.El, K, 1.0, -1.0))
+    lib = kern.lib
+    staged = hasattr(lib, "cg6_step_staged")  # a tree with the persistent K7b/K7c
+    out = {"k7_digest": digest(False)}
+    if staged:
+        out["k7_staged_digest"] = digest(True)
+        out["k7_ctas"] = lib.cg6_wide_ctas(N)  # < 0: a grid
+    pay, _ = kern.stage_a(p0)
+    kern.cg_state(kern.gn_setup(pay, p0, lam).b)  # the carry cg6_step runs on
+    kern.prob.stream = torch.cuda.current_stream(dev).cuda_stream
+    prob, args = ctypes.byref(kern.prob), kern._step_args[1:]
+    entries = {"k7b": ("cg6_gn_setup", (lam.data_ptr(),), 100),
+               "k7c": ("cg6_step", args, 500)}
+    for key, (fn, a, reps) in entries.items():
+        out[f"{key}_entry_us"] = _event_us(torch, lambda: getattr(lib, fn)(prob, *a), reps)
+        if staged:
+            out[f"{key}_staged_us"] = _event_us(
+                torch, lambda: getattr(lib, f"{fn}_staged")(prob, *a), reps)
+    return out
+
+
 def child(tree: str, what: str) -> int:
     sys.path.insert(0, tree)
     import torch
@@ -281,7 +348,7 @@ def child(tree: str, what: str) -> int:
     out = {}
     for part in parts:
         out.update({"replay": child_replay, "dist": child_dist, "k4": child_k4, "k2": child_k2,
-                    "k5": child_k5}[part](torch))
+                    "k5": child_k5, "k7": child_k7}[part](torch))
     print(json.dumps(out), flush=True)
     return 0
 
@@ -306,7 +373,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="root of another checkout to compare with")
     ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("--parts", default="replay,dist,k4,k2,k5")
+    ap.add_argument("--parts", default="replay,dist,k4,k2,k5,k7")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--what", default="replay,dist,k4", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -322,8 +389,10 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}", flush=True)
     parts = args.parts.split(",")
     trees = {"this": (ROOT, args.parts)}
-    if "k4" in parts:
-        trees["other-shape"] = (edited_tree("other-shape", "se3_blocks.cuh", *SHAPE_RULE), "k4")
+    shape_parts = ",".join(p for p in ("k4", "k7") if p in parts)
+    if shape_parts:
+        trees["other-shape"] = (edited_tree("other-shape", "se3_blocks.cuh", *SHAPE_RULE),
+                                shape_parts)
     if "k2" in parts:
         for label, edit in K2_SHAPES.items():
             trees[label] = (edited_tree(label, "icp_kernel.cu", *edit), "k2")

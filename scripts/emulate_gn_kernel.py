@@ -5,7 +5,8 @@ Usage:  python scripts/emulate_gn_kernel.py [--poses N]
         python scripts/emulate_gn_kernel.py --se3 [--rings R --per-ring P]
         python scripts/emulate_gn_kernel.py --dist [--poses N]
         python scripts/emulate_gn_kernel.py --dist6 [--rings R --per-ring P]
-        python scripts/emulate_gn_kernel.py --persistent [--kernels k3,k6c,k1,k4,k5,k2]
+        python scripts/emulate_gn_kernel.py --persistent
+               [--kernels k3,k6c,k1,k4,k5,k7b,k7c,k2]
                [--poses N[,N...]] [--rings R[,R...] --per-ring P[,P...]]
                [--max-cluster C] [--unplaceable]
         python scripts/emulate_gn_kernel.py --vs-tree DIR [--poses N]
@@ -47,7 +48,10 @@ CPU tensors, each against its plain torch twin:
            without and with Huber after 1 and 26 passes, K1 and K4
            (gn_solve_staged, gn_lm_solve_staged and their gn6 twins) in GN
            mode with warm start and a cg ramp and in LM mode with Huber, K5
-           (gn6_factor + gn6_cg) at lam 0 and at 1e-3 masked, K2
+           (gn6_factor + gn6_cg) at lam 0 and at 1e-3 masked, K7b and K7c
+           (cg6_gn_setup_staged, cg6_step_staged) on two ranks, with and
+           without Huber, at lam 0 and 1e-3, masked and chain-only, the
+           Setup and the whole carry after 1 and 26 passes, K2
            (icp_match_staged, icp_iteration_staged) bit for bit on a
            simulated scan pair and random points (k2_persistent_checks).
            One build serves every size: lists of sizes give one JSON line
@@ -61,8 +65,8 @@ CPU tensors, each against its plain torch twin:
   --vs-tree DIR  gn_kernel.cu, cg_step.cu, gn6_kernel.cu and cg_step6.cu of
            this checkout against those of the checkout DIR (e.g. `git
            archive` of the parent commit): K1 and K4 in GN and LM modes,
-           K3, K5 (persistent and staged), K6a-c and K7a-c held to
-           torch.equal; the check of an
+           K3, K5 (persistent and staged), K6a-c and K7a-c (K7b and K7c
+           persistent and staged) held to torch.equal; the check of an
            edit to a shared header or of a new launch shape
 
 Prints one JSON line (--persistent: one a size): max errors (poses wrapped or over the 12 entries,
@@ -589,6 +593,54 @@ def k6c_persistent_checks(out, cs, pk, p0, K):
         out[f"k6c_{label}_finite"] = bool(torch.isfinite(runs[0][1][0]).all())
 
 
+def k7_persistent_checks(out, cs6, g6, g, p0):
+    """K7b (gn_setup) and K7c (cg_step), one launch each, against
+    gn_setup_staged and cg_step_staged on two ranks' shards of the sphere
+    g at exact PCR (half the loop edges each, the chain on rank 0, the
+    all-reduces summed here), bitwise: both ranks' Setups, and both ranks'
+    whole carries after 1 and 26 passes. Cases: no Huber at lam 0, Huber at
+    lam 1e-3, masked loop slots clipped onto node 0 (Huber, lam 1e-3), the
+    chain alone (lam 0)."""
+    from graphslam_tpu_torch.ops.pcg_kernel import pcr_levels_for
+
+    n, c, E = p0.shape[0], g.chain_prefix, g.num_edges
+    K = pcr_levels_for(n, None)
+    mask, edges = g.edge_mask.clone(), g.edges.clone()
+    mask[c::2] = False
+    edges[c::2] = 0
+    for name, graph, huber, lam in (
+            ("plain", g, -1.0, 0.0), ("huber_lam1e-3", g, 1.0, 1e-3),
+            ("masked", g.replace(edge_mask=mask, edges=edges), 1.0, 1e-3),
+            ("chain", g.replace(edge_mask=g.edge_mask & (torch.arange(E) < c)), -1.0, 0.0)):
+        pk = g6.pack_graph6(graph, n)
+        half = pk.El // 2
+        runs = []
+        for staged in (False, True):
+            kerns = [cs6.CgStep6Kernel(cs6.make_shard6(pk, 0, half, K, 1.0, huber)),
+                     cs6.CgStep6Kernel(cs6.make_shard6(pk, half, pk.El, K, 0.0, huber))]
+            pays = [k.stage_a(p0)[0].clone() for k in kerns]
+            sts = [(k.gn_setup_staged if staged else k.gn_setup)(pays[0] + pays[1], p0,
+                                                                  torch.tensor([lam]))
+                   for k in kerns]
+            snaps = [[t.clone() for st in sts for t in st]]
+            carries = [k.cg_state(sts[0].b) for k in kerns]
+            for it in range(26):
+                for k, cr in zip(kerns, carries):
+                    (k.cg_step_staged if staged else k.cg_step)(k.Aij, cr)
+                big = carries[0].big + carries[1].big
+                for cr in carries:
+                    cr.big.copy_(big)
+                if it in (0, 25):
+                    snaps.append([t.clone() for cr in carries for t in cr])
+            runs.append(snaps)
+        (sa, *ca), (sb, *cb) = runs
+        out[f"k7b_{name}_bitwise"] = all(torch.equal(a, b) for a, b in zip(sa, sb))
+        out[f"k7c_{name}_bitwise"] = all(
+            torch.equal(a, b) for x, y in zip(ca, cb) for a, b in zip(x, y))
+        out[f"k7c_{name}_finite"] = bool(torch.isfinite(ca[1][0]).all()) and \
+            float(ca[1][0].abs().max()) > 0
+
+
 def bits_equal(a, b) -> bool:
     """a and b bit for bit (NaNs included, which torch.equal calls unequal)."""
     if a.dtype == torch.float32:
@@ -844,20 +896,44 @@ def k5_refusal_checks(out, p6, g, p0):
             out[f"{name}_raised"] = str(e)
 
 
-KERNELS = ("k3", "k6c", "k1", "k4", "k5", "k2")
+def k7_refusal_checks(out, cs6, g6, g, p0):
+    """Where the card cannot place the cluster or the grid, K7b's gn_setup
+    and K7c's cg_step raise; their staged sequences still run."""
+    from graphslam_tpu_torch.ops.pcg_kernel import pcr_levels_for
+
+    n = p0.shape[0]
+    pk = g6.pack_graph6(g, n)
+    kern = cs6.CgStep6Kernel(cs6.make_shard6(pk, 0, pk.El, pcr_levels_for(n, None), 1.0, -1.0))
+    pay, Aij = kern.stage_a(p0)
+    lam = torch.zeros(1)
+    calls = (("k7b", lambda: kern.gn_setup(pay, p0, lam)),
+             ("k7b_staged", lambda: kern.gn_setup_staged(pay, p0, lam)),
+             ("k7c", lambda: kern.cg_step(Aij, carry)),
+             ("k7c_staged", lambda: kern.cg_step_staged(Aij, carry)))
+    carry = kern.cg_state(kern.gn_setup_staged(pay, p0, lam).b)
+    for name, fn in calls:
+        try:
+            fn()
+            out[f"{name}_raised"] = None
+        except RuntimeError as e:
+            out[f"{name}_raised"] = str(e)
+
+
+KERNELS = ("k3", "k6c", "k1", "k4", "k5", "k7b", "k7c", "k2")
 
 
 def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool = False,
                     kernels=KERNELS) -> None:
     """The persistent kernels against their staged sequences, bitwise: K3,
-    K6c and K1 (GN and LM) on manhattan(n), K4 (GN and LM) on sphere(rings,
-    per_ring); the sources they need built once, at once, for every size.
+    K6c and K1 (GN and LM) on manhattan(n), K4 (GN and LM), K5, K7b and K7c
+    on sphere(rings, per_ring); the sources they need built once, at once,
+    for every size.
     Size i is ns[i] and spheres[i] (a list of one stands for every i); one
     JSON line a size. With unplaceable, the occupancy query places no
     cluster, and every persistent entry must raise instead while the staged
     sequences run."""
     need = {"k3": "gn_kernel", "k1": "gn_kernel", "k6c": "cg_step", "k4": "gn6_kernel",
-            "k5": "gn6_kernel", "k2": "icp_kernel"}
+            "k5": "gn6_kernel", "k7b": "cg_step6", "k7c": "cg_step6", "k2": "icp_kernel"}
     names = {need[k] for k in kernels}
     jobs = {name: build(name, build_dir, max_cluster=max_cluster, start=True,
                         unplaceable=unplaceable) for name in sorted(names)}
@@ -867,7 +943,7 @@ def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool 
     mods = load_ops(libs, ("gn_kernel", "pcg_kernel", "gn6_kernel", "pcg6_kernel",
                            "icp_kernel"))
     gk, pk, g6, p6, ik = mods
-    cs = load_cg_step({"cg_step": libs["cg_step"]})[0] if "cg_step" in libs else None
+    cs, cs6 = load_cg_step({k: libs[k] for k in ("cg_step", "cg_step6") if k in libs})[:2]
     from graphslam_tpu_torch.factors import from_dataset
     from graphslam_tpu_torch.io import datasets
 
@@ -888,14 +964,20 @@ def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool 
         nb = -(-n // 256)
         out = {"poses": n, "loop_edges": g.num_edges - g.chain_prefix,
                "ctas": min(nb, max_cluster or 16), "blocks": nb}
-        if {"k4", "k5"} & set(kernels):
+        k7 = {"k7b", "k7c"} & set(kernels)
+        if {"k4", "k5"} & set(kernels) or k7:
             d6 = datasets.sphere(n_rings=rings, poses_per_ring=per_ring, seed=1)
             g_6 = from_dataset(d6, device="cpu")
             p_6 = torch.from_numpy(d6["poses"])
-            lib6 = ctypes.CDLL(str(libs["gn6_kernel"]))
             n6 = p_6.shape[0]
-            ctas = lib6.gn6_wide_ctas(n6)  # negative: a cooperative grid
-            out.update(poses6=n6, slots6=lib6.gn6_wide_slots(), ctas6=abs(ctas), grid6=ctas < 0)
+            out["poses6"] = n6
+            if "gn6_kernel" in libs:
+                lib6 = ctypes.CDLL(str(libs["gn6_kernel"]))
+                ctas = lib6.gn6_wide_ctas(n6)  # negative: a cooperative grid
+                out.update(slots6=lib6.gn6_wide_slots(), ctas6=abs(ctas), grid6=ctas < 0)
+            if k7:
+                ctas = ctypes.CDLL(str(libs["cg_step6"])).cg6_wide_ctas(n6)
+                out.update(ctas7=abs(ctas), grid7=ctas < 0)
         if unplaceable:
             if {"k3", "k6c"} <= set(kernels):
                 refusal_checks(out, pk, cs, g, p0)
@@ -905,6 +987,8 @@ def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool 
                 solve_refusal_checks(out, "k4", g6.Gn6Kernel, p_6, g_6)
             if "k5" in kernels:
                 k5_refusal_checks(out, p6, g_6, p_6)
+            if k7:
+                k7_refusal_checks(out, cs6, g6, g_6, p_6)
             if "k2" in kernels:
                 k2_refusal_checks(out, ik)
             print(json.dumps(out), flush=True)
@@ -923,13 +1007,16 @@ def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool 
                                     pose_max)
         if "k5" in kernels:
             k5_persistent_checks(out, p6, g_6, p_6)
+        if k7:
+            k7_persistent_checks(out, cs6, g6, g_6, p_6)
         print(json.dumps(out), flush=True)
 
 
 class _StagedAliases:
-    """A build from before the persistent K1/K4, whose whole-solve entries
+    """A build from before the persistent K1/K4 (K7b/K7c), whose entries
     are the staged sequences: `<p>_solve_staged` and `<p>_lm_solve_staged`
-    resolve to its `<p>_solve` and `<p>_lm_solve`."""
+    resolve to its `<p>_solve` and `<p>_lm_solve` (`cg6_gn_setup_staged`
+    and `cg6_step_staged` to `cg6_gn_setup` and `cg6_step`)."""
 
     def __init__(self, lib):
         self._lib = lib
@@ -940,18 +1027,20 @@ class _StagedAliases:
         return getattr(self._lib, name)
 
 
-def _two_rank_k67(cs, make_shard, Kernel, pack, K, p0):
-    """Two ranks' K6/K7 stage A, setup and 26 CG passes with Huber; every
-    output of rank 0 (the all-reduces summed here)."""
+def _two_rank_k67(cs, make_shard, Kernel, pack, K, p0, staged=False):
+    """Two ranks' K6/K7 stage A, setup and 26 CG passes with Huber (with
+    staged, K7b and K7c as their staged sequences); every output of rank 0
+    (the all-reduces summed here)."""
     half = pack.El // 2
     kerns = [Kernel(make_shard(pack, 0, half, K, 1.0, 1.0)),
              Kernel(make_shard(pack, half, pack.El, K, 0.0, 1.0))]
     outs = [[t.clone() for t in k.stage_a(p0)] for k in kerns]
-    sts = [k.gn_setup(outs[0][0] + outs[1][0], p0, torch.tensor([1e-3])) for k in kerns]
+    sts = [(k.gn_setup_staged if staged else k.gn_setup)(outs[0][0] + outs[1][0], p0,
+                                                        torch.tensor([1e-3])) for k in kerns]
     carries = [k.cg_state(sts[0].b) for k in kerns]
     for _ in range(26):
         for k, c in zip(kerns, carries):
-            k.cg_step(k.Aij, c)
+            (k.cg_step_staged if staged else k.cg_step)(k.Aij, c)
         big = carries[0].big + carries[1].big
         for c in carries:
             c.big.copy_(big)
@@ -964,8 +1053,9 @@ def main_vs_tree(tree: Path, n: int, rings: int, per_ring: int, build_dir) -> No
     one (`tree`, e.g. `git archive` of the parent commit), both under the
     emulation: on manhattan(n) K1's GN (warm, cg ramp) and LM solves, K3
     and K6a-c (two ranks, 26 K6c passes, Huber); on sphere(rings,
-    per_ring) K4's GN and LM solves, K5 and K7a-c likewise; every output
-    held to torch.equal. K1 and K4 run both as this checkout's persistent
+    per_ring) K4's GN and LM solves, K5 and K7a-c likewise (K7b and K7c
+    also as this checkout's staged sequences); every output held to
+    torch.equal. K1 and K4 run both as this checkout's persistent
     entries and as its staged ones (an older tree's whole-solve entries
     are staged: _StagedAliases). Checks that a change of a shared header
     or of a launch shape leaves the outputs as they were."""
@@ -976,7 +1066,7 @@ def main_vs_tree(tree: Path, n: int, rings: int, per_ring: int, build_dir) -> No
     if any(proc.wait() for _, proc in jobs.values()):
         raise SystemExit("g++ failed")
     libs = {key: ctypes.CDLL(str(lib)) for key, (lib, _) in jobs.items()}
-    for name in ("gn_kernel", "gn6_kernel"):
+    for name in ("gn_kernel", "gn6_kernel", "cg_step6"):
         libs["old", name] = _StagedAliases(libs["old", name])
     gk, pk, g6, p6 = load_ops({name: jobs["new", name][0] for name in names},
                               ("gn_kernel", "pcg_kernel", "gn6_kernel", "pcg6_kernel"))
@@ -1019,8 +1109,10 @@ def main_vs_tree(tree: Path, n: int, rings: int, per_ring: int, build_dir) -> No
         args = p6._chain_and_loops(sys6, torch.tensor(1e-3), True, g_6.chain_prefix, T=6)
         kern5 = p6.Pcg6Kernel(*args, 25)
         res["k5"] = [kern5.solve().clone(), kern5.staged().clone()]
-        res["k7"] = _two_rank_k67(cs6, cs6.make_shard6, cs6.CgStep6Kernel,
-                                  g6.pack_graph6(g_6, n6), pcr_levels_for(n6, None), p_6)
+        for key, staged in (("k7", False), ("k7_staged", True)):
+            res[key] = _two_rank_k67(cs6, cs6.make_shard6, cs6.CgStep6Kernel,
+                                     g6.pack_graph6(g_6, n6), pcr_levels_for(n6, None), p_6,
+                                     staged)
         return res
 
     new, old = run("new"), run("old")

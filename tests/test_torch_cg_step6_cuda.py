@@ -11,7 +11,11 @@ the kernels sum in another order and use FMAs): the payload, Aij, D and b
 rel 5e-5; the PCR factor rel 1e-4; the CG state after one pass rel 1e-4,
 after 26 passes rel 1e-3; the kernel path of dist_fused6_gn_solve against
 the plain path on the card max |d| 5e-3 over the 12 pose entries, LM 8e-3
-with accepted steps equal (tests/test_dist_fused6.py:38, :51).
+with accepted steps equal (tests/test_dist_fused6.py:38, :51). K7b
+(`gn_setup6`) and K7c (`cg_step6`) are each one launch of a persistent
+kernel (counted from the launch API, `cudaLaunchKernelExC`), bitwise equal
+to the staged sequences they replaced (`gn_setup_staged`,
+`cg_step_staged`): both ranks' Setups and carries after 1 and 26 passes.
 """
 
 import ctypes
@@ -160,3 +164,67 @@ def test_cpu_tensors_are_refused(dev):
     pk = g6.pack_graph6(g, 18)
     with pytest.raises(ValueError, match="CUDA"):
         cs6.CgStep6Kernel(cs6.make_shard6(pk, 0, pk.El, 3, 1.0, -1.0))
+
+
+def _k7_passes(g, p0, huber, staged, passes=26):
+    """Two emulated ranks through K7a, K7b and `passes` K7c passes, the
+    persistent kernels or the staged sequences; both ranks' Setups, then
+    both ranks' carries after pass 1 and after the last."""
+    kerns = [sh.kernel() for sh in _ranks(g, p0, huber)]
+    pays = [k.stage_a(p0)[0].clone() for k in kerns]
+    lam = torch.tensor([1e-3], device=p0.device)
+    sts = [(k.gn_setup_staged if staged else k.gn_setup)(pays[0] + pays[1], p0, lam)
+           for k in kerns]
+    snaps = [[t.clone() for st in sts for t in st]]
+    carries = [k.cg_state(sts[0].b) for k in kerns]
+    for it in range(passes):
+        for k, c in zip(kerns, carries):
+            (k.cg_step_staged if staged else k.cg_step)(k.Aij, c)
+        big = carries[0].big + carries[1].big
+        for c in carries:
+            c.big.copy_(big)
+        if it in (0, passes - 1):
+            snaps.append([t.clone() for c in carries for t in c])
+    torch.cuda.synchronize()
+    return snaps
+
+
+@pytest.mark.parametrize("huber", [-1.0, 1.0])
+def test_gn_setup6_and_cg_step6_persistent_equal_staged_bitwise(graph, huber):
+    g, p0 = graph
+    a = _k7_passes(g, p0, huber, staged=False)
+    b = _k7_passes(g, p0, huber, staged=True)
+    again = _k7_passes(g, p0, huber, staged=False)
+    assert torch.isfinite(a[-1][0]).all() and a[-1][0].abs().max() > 0
+    for sa, sb, sc in zip(a, b, again):
+        for x, y, z in zip(sa, sb, sc):
+            assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_gn_setup6_and_cg_step6_are_one_launch(graph):
+    from torch.profiler import ProfilerActivity, profile
+
+    g, p0 = graph
+    sh = _ranks(g, p0)[0]
+    kern = sh.kernel()
+    payload, Aij = kern.stage_a(p0)
+    lam = torch.zeros(1, device=p0.device)
+    st = cs6.gn_setup6(sh, payload, p0, lam)
+    carry = kern.cg_state(st.b)
+    cs6.cg_step6(sh, st, Aij, carry)
+    torch.cuda.synchronize()
+    for name, call in (("cg6_gn_setup_wide", lambda: cs6.gn_setup6(sh, payload, p0, lam)),
+                       ("cg6_step_wide", lambda: cs6.cg_step6(sh, st, Aij, carry))):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+        # one persistent launch a call (cudaLaunchKernelExC; the staged
+        # kernels launch through cudaLaunchKernel); the device's records,
+        # where the profiler kept them, name the persistent kernel alone
+        events = prof.key_averages()
+        calls = {e.key: e.count for e in events
+                 if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC")}
+        assert calls == {"cudaLaunchKernelExC": 3}, (name, calls)
+        launches = {e.key: e.count for e in events if "Cg6Problem" in e.key}
+        assert all(name in k for k in launches) and sum(launches.values()) <= 3, launches

@@ -2,13 +2,14 @@
 
 K3 (`gn_pcg`) and K6c (`cg_step`), the whole solves of K1 (`gn_solve`,
 `gn_lm_solve`, csrc/gn_kernel.cu) and K4 (`gn6_solve`, `gn6_lm_solve`,
-csrc/gn6_kernel.cu), K5 (`gn6_pcg`) and K2's IRLS loop and round
-(`icp_match`, `icp_iteration`, csrc/icp_kernel.cu), each run as one launch
-of a persistent kernel on a thread-block cluster, with a cluster barrier
-where the staged sequences (`gn_factor` + `gn_cg`, `cg_step_staged`,
-`gn_solve_staged`, `gn_lm_solve_staged` and their gn6 twins, `gn6_factor`
-+ `gn6_cg`, `icp_match_staged`, `icp_iteration_staged`) have a kernel
-boundary. Without a card, the sources are built with g++ under the
+csrc/gn6_kernel.cu), K5 (`gn6_pcg`), K7b and K7c (`cg6_gn_setup`,
+`cg6_step`, csrc/cg_step6.cu) and K2's IRLS loop and round (`icp_match`,
+`icp_iteration`, csrc/icp_kernel.cu), each run as one launch of a
+persistent kernel on a thread-block cluster (or a cooperative grid), with
+a barrier where the staged sequences (`gn_factor` + `gn_cg`,
+`cg_step_staged`, `gn_solve_staged`, `gn_lm_solve_staged` and their gn6
+twins, `gn6_factor` + `gn6_cg`, `cg6_gn_setup_staged`, `cg6_step_staged`,
+`icp_match_staged`, `icp_iteration_staged`) have a kernel boundary. Without a card, the sources are built with g++ under the
 emulation of scripts/emulate_gn_kernel.py: a cluster launch runs every
 thread of every CTA at once, `cluster.sync()` is a barrier over all of
 them, `__syncthreads` one per CTA, `__syncwarp` and the shuffles one per
@@ -19,12 +20,17 @@ threads, a group of 6 a row) and form one cluster where one pass over the
 rows takes at most the cap, else a cooperative grid with a grid barrier:
 sphere(10, 10) (100 poses) runs on a cluster of 2 CTAs, and sphere(9, 60)
 (540 poses: three 256-row blocks, so that the block partials' order
-shows) on a grid of 2 CTAs that walk five passes; K5 rides in the same
-run. Each case holds the persistent kernels to
+shows) on a grid of 2 CTAs that walk five passes; K5, K7b and K7c (K4's
+wide stages, the same shape) ride in the same run (one build of
+gn6_kernel.cu and one of cg_step6.cu). Each case holds the persistent
+kernels to
 their staged sequences with torch.equal (K3 at lam 0 and 1e-3, with
 masked loop slots and on the chain alone, K5 at lam 0 and at 1e-3 with
 masked loop slots; K6c on two ranks,
-without and with Huber, the whole carry after 1 and 26 passes; K1 and K4
+without and with Huber, the whole carry after 1 and 26 passes; K7b and K7c
+on two ranks (half the loop edges each, the chain on rank 0) without Huber
+at lam 0, with Huber at lam 1e-3, with masked loop slots and on the chain
+alone, both ranks' Setups and whole carries after 1 and 26 passes; K1 and K4
 in GN mode with warm start and a cg ramp, poses and x, and in LM mode with
 Huber, poses and stats). K2 runs once, on a simulated scan pair of 320
 points (2 CTAs of 160, 128 a pass: 2 passes), bit for bit: the loop's
@@ -103,8 +109,9 @@ def se2_runs(gxx, tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def se3_runs(gxx, tmp_path_factory):
-    # K5 rides in K4's run (one build of gn6_kernel.cu)
-    return _family(tmp_path_factory, "se3", "--kernels", "k4,k5",
+    # K5 rides in K4's run (one build of gn6_kernel.cu), K7b and K7c too
+    # (cg_step6.cu built beside it)
+    return _family(tmp_path_factory, "se3", "--kernels", "k4,k5,k7b,k7c",
                    "--rings", ",".join(str(r) for r, _ in SE3_SPHERES.values()),
                    "--per-ring", ",".join(str(p) for _, p in SE3_SPHERES.values()))
 
@@ -139,9 +146,25 @@ def test_persistent_solves_equal_their_staged_sequences(se3_runs, case):
     assert out["grid6"] == (want > MAX_CLUSTER) and out["ctas6"] == min(want, MAX_CLUSTER) == 2
     walks = -(-poses // (slots * out["ctas6"]))
     assert walks >= 2 if out["grid6"] else walks == 1, out
-    checks = {k: v for k, v in out.items() if k.endswith(("_bitwise", "_finite"))}
+    checks = {k: v for k, v in out.items()
+              if k.endswith(("_bitwise", "_finite")) and not k.startswith("k7")}
     assert len(checks) == 8 and all(checks.values()), checks
     _solves_near_their_twins(out, "k4")
+
+
+K7_CASES = ("plain", "huber_lam1e-3", "masked", "chain")
+
+
+@pytest.mark.parametrize("case", list(SE3_SPHERES))
+def test_k7_setup_and_cg_pass_equal_their_staged_sequences(se3_runs, case):
+    # K7b and K7c take K4's launch shape: a cluster of 2 CTAs at
+    # sphere(10, 10), a grid of 2 CTAs walking five passes at sphere(9, 60)
+    out = se3_runs[case]
+    assert (out["ctas7"], out["grid7"]) == (out["ctas6"], out["grid6"]), out
+    checks = {k: v for k, v in out.items() if k.startswith("k7")}
+    want = {f"k7{s}_{c}_{t}" for c in K7_CASES
+            for s, t in (("b", "bitwise"), ("c", "bitwise"), ("c", "finite"))}
+    assert set(checks) == want and all(checks.values()), checks
 
 
 @pytest.fixture(scope="module")
@@ -179,6 +202,7 @@ def test_unplaceable_cluster_raises_without_fallback(gxx, tmp_path):
     (out,) = _emulate(tmp_path, "--poses", "300", "--rings", "6", "--per-ring", "30",
                       "--max-cluster", str(MAX_CLUSTER), "--unplaceable")
     assert out["ctas6"] == 0, out
-    for name in ("k3", "k6c", "k1", "k1_lm", "k4", "k4_lm", "k5", "k2", "k2_round"):
+    for name in ("k3", "k6c", "k1", "k1_lm", "k4", "k4_lm", "k5", "k7b", "k7c", "k2",
+                 "k2_round"):
         assert out[f"{name}_raised"] and "failed: CUDA error" in out[f"{name}_raised"], out
         assert out[f"{name}_staged_raised"] is None, out
