@@ -138,7 +138,11 @@ a nonzero exit:
      factor (rel 1e-4), the K6c state after 1 pass (rel 1e-4) and after 26
      (rel 1e-3), each on its own line; two K6 sequences bitwise equal; K6c
      (one persistent launch a pass) bitwise equal to cg_step_staged, the
-     carry after 1 and 26 passes, without and with Huber
+     carry after 1 and 26 passes, without and with Huber; K6a and K6b (one
+     persistent launch a call each) bitwise equal to stage_a_staged and
+     gn_setup_staged and to themselves, both ranks' payloads, Aij and
+     Setups, without Huber at lam 0, with Huber at lam 1e-3 and with a
+     chain-only rank
  16. the distributed main paths on cuda, m3500, world size 1 over NCCL:
      dist_fused_gn_solve through K6, 200 iterations at scripts/bench_all.py
      :207-248's cell (cg 25, pcr_levels 4, edge_tile 512; no page windows),
@@ -156,10 +160,15 @@ a nonzero exit:
      largest coordinate, accepted steps equal
  18. distributed timing: dist_fused GN it/s through K6 in turns with K1
      (_gn_loop gn_fused, the same config) and with the plain path on the
-     card; K6a, K6b and K6c per call and their twins (CUDA events), K6c in
+     card; K6a, K6b and K6c per call and their twins (CUDA events); the C
+     entries and the wrappers of K6a and K6b in turns with their staged
+     sequences, host launch calls a call (profiler: 1), ptxas registers and
+     spills of cg_stage_a_persistent and cg_gn_setup_persistent; K6c in
      turns with cg_step_staged and its launches a pass (profiler: 1); the
-     all_reduce at world size 1; launches per GN iteration by source (at
-     most 2 + (K + 1) + 26 from cg_step.cu) and the idle share (profiler)
+     all_reduce at world size 1; launches per GN iteration by source and
+     the idle share (profiler), and the cg_step.cu launches an iteration
+     from the wrappers' counts times their launches a call (1 + 1 + 26 =
+     28)
  19. K7a-c (csrc/cg_step6.cu) against their twins as phase 15 holds K6, on
      sphere(10, 10) and the garage at exact PCR, without and with Huber,
      two ranks in one process, at phase 15's tolerances; two K7 sequences
@@ -216,7 +225,11 @@ cg_step_stage_a, cg_step_gn_setup and cg_step_cg_step (K6a-c) from phases
 15-18: "max_abs_err" the largest relative error against the twin (K6c also
 the two-rank check), "ms" per call of the wrapper (K6c's "ms_staged" that of
 cg_step_staged in turns), "launches" the count in
-the GN main path and "launches_lm" in the LM one; cg_step6_stage_a,
+the GN main path and "launches_lm" in the LM one; K6a and K6b,
+redesigned as one launch a call, add "ms_entry" (the C entry),
+"ms_staged" and "ms_wrapper_staged" (the staged sequence's, in turns), the
+host launch calls a call of each, and the ptxas registers and spills;
+cg_step6_stage_a,
 cg_step6_gn_setup and cg_step6_cg_step (K7a-c) likewise from phases 19-22,
 "launches" in the sphere2500 GN main path, "launches_garage" in the garage
 one, "launches_lm" in the garage LM one, "ms" at sphere2500; K7b and K7c,
@@ -2043,7 +2056,44 @@ def phase_k6_kernels(torch, datasets, from_dataset):
                 f"after 1 and 26 passes: {'bitwise equal' if same else 'DIFFERENT'}")
             if not same:
                 fail(f"{name}: the persistent K6c differs from its staged sequence")
+    # K6a and K6b, one persistent launch a call each, against the staged
+    # sequences they replaced: both ranks' payloads, Aij and Setups
+    for name, g, p0 in graphs:
+        pk = gk.pack_graph(g, p0.shape[0])
+        for label, cut, huber, lam_v in (("half the loop edges each, Huber -1.0, lam 0", pk.El // 2,
+                                          -1.0, 0.0),
+                                         ("half the loop edges each, Huber 1.0, lam 1e-3",
+                                          pk.El // 2, 1.0, 1e-3),
+                                         ("a chain-only rank 0, Huber 1.0, lam 1e-3", 0, 1.0,
+                                          1e-3)):
+            shs = [cs.make_shard(pk, 0, cut, 4, 1.0, huber),
+                   cs.make_shard(pk, cut, pk.El, 4, 0.0, huber)]
+            a, b, again = (_k6ab_outputs(torch, shs, p0, lam_v, staged)
+                           for staged in (False, True, False))
+            same = all(torch.equal(x, y) for x, y in zip(a, b))
+            twice = all(torch.equal(x, y) for x, y in zip(a, again))
+            log(f"  {name}, {label}: K6a/K6b (one launch) vs staged (stage_a_staged, "
+                f"gn_setup_staged), both ranks' payloads, Aij and Setups: "
+                f"{'bitwise equal' if same else 'DIFFERENT'}; two calls: "
+                f"{'bitwise equal' if twice else 'DIFFERENT'}")
+            if not (same and twice):
+                fail(f"{name}, {label}: the persistent K6a/K6b differ from their staged "
+                     f"sequences or from themselves")
     return errs
+
+
+def _k6ab_outputs(torch, shs, p0, lam, staged: bool):
+    """K6a on two ranks' shards, the payloads summed (the all-reduce), K6b
+    on both ranks at lam: the persistent entries or (staged) their staged
+    sequences; every output of both ranks, cloned."""
+    kerns = [sh.kernel() for sh in shs]
+    outs = [[t.clone() for t in (k.stage_a_staged if staged else k.stage_a)(p0)] for k in kerns]
+    reduced = outs[0][0] + outs[1][0]
+    lam_t = torch.tensor([lam], device=p0.device)
+    outs += [[t.clone() for t in (k.gn_setup_staged if staged else k.gn_setup)(reduced, p0, lam_t)]
+             for k in kerns]
+    torch.cuda.synchronize()
+    return [t for o in outs for t in o]
 
 
 def _gate_dist(name, ate0, ate, err, ref, steps=None):
@@ -2365,8 +2415,57 @@ def phase_dist_timing(torch, card, main):
     payload, Aij = kern.stage_a(p0)
     st = kern.gn_setup(payload, p0, lam)
     carry = kern.cg_state(st.b)
-    out["stage_a_us"] = _event_us(torch, lambda: cs.stage_a(sh, p0), 200)
-    out["gn_setup_us"] = _event_us(torch, lambda: cs.gn_setup(sh, payload, p0, lam), 200)
+    # K6a and K6b, each C entry and each wrapper in turns with the staged
+    # sequence it replaced: staged, one launch, one launch, staged (CUDA
+    # events)
+    import ctypes
+
+    kern.prob.stream = torch.cuda.current_stream(p0.device).cuda_stream
+    lib, prob = kern.lib, ctypes.byref(kern.prob)
+    lib.cg_row_ctas.argtypes = [ctypes.c_longlong]
+    rows = {"stage_a": max(sh.N, sh.c + sh.El), "gn_setup": sh.N}
+    entries = {
+        "stage_a": ("K6a", "cg_stage_a_persistent",
+                    lambda: lib.cg_stage_a(prob), lambda: lib.cg_stage_a_staged(prob),
+                    lambda: cs.stage_a(sh, p0), lambda: kern.stage_a_staged(p0)),
+        "gn_setup": ("K6b", "cg_gn_setup_persistent",
+                     lambda: lib.cg_gn_setup(prob, lam.data_ptr()),
+                     lambda: lib.cg_gn_setup_staged(prob, lam.data_ptr()),
+                     lambda: cs.gn_setup(sh, payload, p0, lam),
+                     lambda: kern.gn_setup_staged(payload, p0, lam)),
+    }
+    for key, (tag, kname, new, old, wrap, wrap_old) in entries.items():
+        for fn in (new, old):
+            rc = fn()
+            if rc:
+                fail(f"{tag}: a C entry returned CUDA error {rc}")
+        t_sa = _event_us(torch, old, 200)
+        t_na = _event_us(torch, new, 200)
+        t_nb = _event_us(torch, new, 200)
+        t_sb = _event_us(torch, old, 200)
+        w_sa = _event_us(torch, wrap_old, 200)
+        w_na = _event_us(torch, wrap, 200)
+        w_nb = _event_us(torch, wrap, 200)
+        w_sb = _event_us(torch, wrap_old, 200)
+        host, dev_n = _launches_per_call(torch, new, "CgProblem")
+        host_s, dev_s = _launches_per_call(torch, old, "CgProblem")
+        regs, spill = _ptxas("cg_step", kname)
+        out[f"{key}_us"] = min(w_na, w_nb)
+        ctas = lib.cg_row_ctas(rows[key])  # < 0: a cooperative grid
+        out[f"{key}_entry"] = dict(us=min(t_na, t_nb), us_staged=min(t_sa, t_sb),
+                                   us_wrapper_staged=min(w_sa, w_sb), launches=host,
+                                   staged_launches=host_s, ptxas={kname: (regs, spill)},
+                                   ctas=ctas)
+        log(f"  {tag} at m3500 ({abs(ctas)} CTAs, {'a cooperative grid' if ctas < 0 else 'a cluster'}"
+            f"), C entries in turns (CUDA events): cg_{key} (one launch) "
+            f"{t_na:.2f} and {t_nb:.2f} us, staged {t_sa:.2f} and {t_sb:.2f} us "
+            f"({min(t_sa, t_sb) / min(t_na, t_nb):.2f}x); wrappers in turns: {w_na:.2f} and "
+            f"{w_nb:.2f} us, staged {w_sa:.2f} and {w_sb:.2f} us; launches a call (profiler, 10 "
+            f"calls; host launch calls / device kernels): {host:g} / {dev_n:g}, staged "
+            f"{host_s:g} / {dev_s:g}; ptxas {kname} {regs} registers, {spill} bytes spill "
+            f"stores")
+        if host != 1:
+            fail(f"{tag} made {host} launch calls a call, not 1")
     # K6c in turns with the staged sequence it replaced: staged, persistent,
     # persistent, staged (through the wrapper, one pass a call)
     t_sa = _event_us(torch, lambda: kern.cg_step_staged(Aij, carry), 500)
@@ -2399,7 +2498,8 @@ def phase_dist_timing(torch, card, main):
     pay = torch.zeros(cs.payload_size(sh.N), device=p0.device)
     out["allreduce_big_us"] = _event_us(torch, lambda: mesh.all_reduce(big), 500)
     out["allreduce_payload_us"] = _event_us(torch, lambda: mesh.all_reduce(pay), 200)
-    out["k6_launch_counts_per_call"] = (2, 1 + sh.K, 1)
+    out["k6_launch_counts_per_call"] = (out["stage_a_entry"]["launches"],
+                                        out["gn_setup_entry"]["launches"], host)
     log(f"  per call (CUDA events, the wrapper included): K6a {out['stage_a_us']:.2f} us, K6b "
         f"{out['gn_setup_us']:.2f} us, K6c {out['cg_step_us']:.2f} us; twins on the card "
         f"{out['stage_a_plain_us']:.2f}, {out['gn_setup_plain_us']:.2f}, "
@@ -2409,16 +2509,25 @@ def phase_dist_timing(torch, card, main):
         f"the payload ({cs.payload_size(sh.N)} floats)")
 
     n_it = 10
+    k6 = (cs.stage_a, cs.gn_setup, cs.cg_step)
+    _launch_counts(k6, zero=True)
     groups, span = _profile_launches(torch, lambda: dist_fused_gn_solve(
         p0, g, mesh, cfg, iterations=n_it), top=10)
+    calls = _launch_counts(k6)
     out["launches_per_it"] = {k: c / n_it for k, (c, _) in groups.items()}
     out["idle_share"] = _log_profile(f"dist_fused GN through K6 ({n_it} iterations)", groups,
                                      span, n_it)
-    per_it = out["launches_per_it"]["cg_step.cu"]
-    log(f"  cg_step.cu launches a dist_fused GN iteration: {per_it:.1f} (K6a 2, K6b "
-        f"{1 + sh.K}, 26 K6c passes 1 each: {2 + 1 + sh.K + 26})")
-    if per_it > 2 + 1 + sh.K + 26:
-        fail(f"{per_it} cg_step.cu launches a dist_fused GN iteration")
+    per_call = out["k6_launch_counts_per_call"]
+    per_it = sum(calls[f.__name__] * n for f, n in zip(k6, per_call)) / n_it
+    out["cg_step_launches_per_it"] = per_it
+    dev_it = out["launches_per_it"]["cg_step.cu"]
+    log(f"  cg_step.cu launches a dist_fused GN iteration: {per_it:g} (wrapper calls {calls} "
+        f"over {n_it} iterations times host launch calls a call {per_call}; K6a 1, K6b 1, 26 "
+        f"K6c passes 1 each: 28; staged: 2 + {1 + sh.K} + 26 x {4 + sh.K} = "
+        f"{2 + 1 + sh.K + 26 * (4 + sh.K)}); device kernels the profiler kept: {dev_it:.1f}")
+    if per_it != 1 + 1 + 26 or dev_it > 1 + 1 + 26:
+        fail(f"{per_it} cg_step.cu launches a dist_fused GN iteration ({dev_it} device "
+             f"kernels), not 28")
     return out
 
 
@@ -2886,6 +2995,17 @@ def main() -> int:
                 "registers": {k: v[0] for k, v in red["ptxas"].items()},
                 "spill_store_bytes": {k: v[1] for k, v in red["ptxas"].items()}}
 
+    def k6_redesign(red):
+        """The kernels line's fields of K6a or K6b, one launch a call."""
+        return {"redesigned": True, "ms_entry": red["us"] / 1e3, "ms_staged": red["us_staged"] / 1e3,
+                "ms_wrapper_staged": red["us_wrapper_staged"] / 1e3,
+                "launches_per_call": red["launches"],
+                "staged_launches_per_call": red["staged_launches"],
+                "launches_per_it_cg_step": dt["cg_step_launches_per_it"],
+                "ctas": abs(red["ctas"]), "cooperative_grid": red["ctas"] < 0,
+                "registers": {k: v[0] for k, v in red["ptxas"].items()},
+                "spill_store_bytes": {k: v[1] for k, v in red["ptxas"].items()}}
+
     k6_common = dict(route="cuda", source="graphslam_tpu_torch/csrc/cg_step.cu", library_ms=None)
     k7_common = dict(route="cuda", source="graphslam_tpu_torch/csrc/cg_step6.cu", library_ms=None)
     print(json.dumps({"kernels": [
@@ -3041,6 +3161,7 @@ def main() -> int:
             "launches_lm": dm["lm_counts"]["stage_a"],
             "max_abs_err": k6_err["stage_a"],
             "ms": dt["stage_a_us"] / 1e3,
+            **k6_redesign(dt["stage_a_entry"]),
             "plain_ms": dt["stage_a_plain_us"] / 1e3,
             "bound_ms": k6a_bound,
             "bound_by": k6a_by,
@@ -3053,6 +3174,7 @@ def main() -> int:
             "launches_lm": dm["lm_counts"]["gn_setup"],
             "max_abs_err": k6_err["gn_setup"],
             "ms": dt["gn_setup_us"] / 1e3,
+            **k6_redesign(dt["gn_setup_entry"]),
             "plain_ms": dt["gn_setup_plain_us"] / 1e3,
             "bound_ms": k6b_bound,
             "bound_by": k6b_by,

@@ -4,24 +4,29 @@
 // `gn_setup` (K6b, _gn_setup_kernel :323) and `cg_step` (K6c,
 // _cg_step_kernel :90). One process runs them per rank; the all-reduces
 // between them are the caller's (torch.distributed), so each entry point is
-// a short fixed sequence of launches on the caller's stream with no host
-// synchronization:
+// one launch on the caller's stream with no host synchronization:
 //
-//   cg_stage_a    cg_linearize  one thread per chain edge and per loop edge
-//                               of this rank: Aii, Aij, Ajj, gi, gj (the
-//                               loop Aij kept as the CG matvec's stash)
-//                 cg_assemble   one thread per node: D = w (Aii[n] +
-//                               Ajj[n-1]) + this rank's loop blocks, summed
-//                               through a CSR of the node's live edges in
-//                               edge order (no atomics); U = w Aij; g alike.
-//                               w = w_chain is 1 on rank 0 and 0 elsewhere,
-//                               so the all-reduce counts the chain once.
-//   cg_gn_setup   cg_setup      one thread per node: + prior blocks,
-//                               D_ii (1 + lam), b = -g
-//                 cg_pcr_factor one launch per PCR level, K levels
+//   cg_stage_a    ONE launch of cg_stage_a_persistent (persistent.cuh's
+//                 persistent-stage routine), one thread a row on 64-thread
+//                 CTAs over max(N, c + El) rows: a cluster, or a cooperative
+//                 grid beyond 16 CTAs (m3500: 85 CTAs):
+//                   linearize  one row per chain edge and per loop edge of
+//                              this rank: Aii, Aij, Ajj, gi, gj (the loop
+//                              Aij kept as the CG matvec's stash)
+//                   assemble   one row per node: D = w (Aii[n] + Ajj[n-1])
+//                              + this rank's loop blocks, summed through a
+//                              CSR of the node's live edges in edge order
+//                              (no atomics); U = w Aij; g alike. w =
+//                              w_chain is 1 on rank 0 and 0 elsewhere, so
+//                              the all-reduce counts the chain once.
+//   cg_gn_setup   ONE launch of cg_gn_setup_persistent, likewise over N
+//                 rows (m3500: a 55-CTA grid):
+//                   setup      one row per node: + prior blocks, D_ii (1 +
+//                              lam), b = -g
+//                   factor     the K PCR factor levels (pcr_factor_row,
+//                              se2_blocks.cuh)
 //   cg_step       ONE launch of cg_step_persistent on a thread-block
-//                 cluster (persistent.cuh's persistent-stage routine), its
-//                 stages separated by cluster barriers:
+//                 cluster, its stages separated by cluster barriers:
 //                   update     alpha = rz / (s0 + s1), guarded; x += alpha
 //                              p; r -= alpha (chain_Ap + tile_Ap)
 //                   PCR apply  K levels; the last applies Dinv and writes
@@ -30,21 +35,24 @@
 //                   H@p        chain_Ap = (D + U + L) p and this rank's
 //                              loop H p, each with block partials of p.()
 //                   finish     CTA 0's thread 0: rz, s0 and the s1 partial
-//   cg_step_staged the same stages as K + 4 launches (cg_update, K
-//                 cg_pcr_apply, cg_direction, cg_hvp, cg_finish), bitwise
-//                 equal: the yardstick, never on the path
+//   cg_stage_a_staged, cg_gn_setup_staged, cg_step_staged  the same stages
+//                 as 2, 1 + K and K + 4 launches (cg_linearize, cg_assemble;
+//                 cg_setup, K cg_pcr_factor; cg_update, K cg_pcr_apply,
+//                 cg_direction, cg_hvp, cg_finish), bitwise equal: the
+//                 yardsticks, never on the path
 //
-// so a CG pass is one launch and a GN iteration 2 + (K + 1) + (cg + 1). The
-// scalars rz, s0 (scal) and s1 (the last entry of the all-reduced [tile_Ap;
-// s1]) stay in device memory; every reduction is a fixed shared-memory tree
+// so a GN iteration is 1 + 1 + (cg + 1) launches. The scalars rz, s0
+// (scal) and s1 (the last entry of the all-reduced [tile_Ap; s1]) stay in
+// device memory; every reduction is a fixed shared-memory tree
 // per 256-row block and a sum of the block partials in index order, so two
 // runs on one card are bitwise equal.
 //
 // What bounds it: at m3500 size (N = 3500, ~1900 loop edges) a CG pass
 // touches ~2 MB, all of it in the 50 MB L2, a GN iteration is ~35 MFLOP,
 // and each stage covers 14 blocks of 256 threads: stage latency and the
-// host bound it, not bytes or FLOPs. The persistent launch removes the
-// K + 3 launch gaps of a pass and K + 3 of its host launch calls.
+// host bound it, not bytes or FLOPs. The persistent launches remove the
+// launch gaps between stages and all but one host launch call of each
+// entry (K + 3 a CG pass, K a setup, 1 a stage A).
 //
 // Numerics follow the TPU kernels and csrc/gn_kernel.cu, whose SE(2) and
 // PCR device code both files take from se2_blocks.cuh: floor-based angle
@@ -147,10 +155,13 @@ __device__ __forceinline__ float sum_in_order(const float* part, int n) {
 // K6a: stage A
 // ---------------------------------------------------------------------------
 
-// Thread e < c: chain edge (e, e+1); else this rank's loop edge e - c.
-__global__ void cg_linearize(CgProblem p, Ws w) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= p.c + p.El) return;
+// The one-thread row functions of K6a and K6b below are __noinline__: the
+// staged kernels and the persistent ones call one compiled body, so the two
+// launch shapes round alike (inlined into kernels of other register
+// budgets, nvcc may contract one source to FMAs differently; PERF.md).
+
+// Row e < c: chain edge (e, e+1); else this rank's loop edge e - c.
+__device__ __noinline__ void linearize_row(const CgProblem& p, const Ws& w, int e) {
   V3 xi, xj, z;
   M3 R;
   float huber = -1.f;
@@ -182,11 +193,15 @@ __global__ void cg_linearize(CgProblem p, Ws w) {
   st3(out + 21, 0, mTvec(Jjw, rw));
 }
 
+__global__ void cg_linearize(CgProblem p, Ws w) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= p.c + p.El) return;
+  linearize_row(p, w, e);
+}
+
 // Node n's payload rows: D = w (Aii[n] + Ajj[n-1]) + loop sum, U = w Aij[n],
 // g = w (gi[n] + gj[n-1]) + loop sum (cg_step.py:224-233, 281).
-__global__ void cg_assemble(CgProblem p, Ws w) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= p.N) return;
+__device__ __noinline__ void assemble_row(const CgProblem& p, const Ws& w, int n) {
   M3 D = m3zero(), U = m3zero();
   V3 g = v3zero();
   if (n < p.c) {  // chain edge n = (n, n+1): node n is its i end
@@ -228,15 +243,42 @@ __global__ void cg_assemble(CgProblem p, Ws w) {
   st3(p.payload + 18LL * p.N, n, g);
 }
 
+__global__ void cg_assemble(CgProblem p, Ws w) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  assemble_row(p, w, n);
+}
+
+// K6a and K6b in one launch each (persistent.cuh): their rows share no
+// reduction, so each stage takes one thread a row over the whole launch
+// (for_flat), on CTAs of kRowThreads threads in pass_shape's shape (one pass
+// over the widest stage's rows: one cluster of at most 16 CTAs, else a
+// cooperative grid), with a barrier (stage_sync) where the staged sequence
+// has a kernel boundary; any shape gives the staged launches' values. A row
+// is one thread's long serial chain (the SE(2) log, 3x3 products and
+// inverses), so the fewer rows an SM runs at once the sooner a stage ends:
+// at m3500 64-thread CTAs (K6a an 85-CTA grid, K6b 55) beat 128, 256, 512
+// and 1024, and a 16-CTA cluster walking passes (scripts/bench_persistent.py;
+// PERF.md).
+constexpr int kRowThreads = 64;
+
+// K6a: the linearize rows over the E = c + El edges, a barrier, the
+// assemble rows over the N nodes -- cg_linearize and cg_assemble, row for
+// row; E = 0 still runs the assemble stage. w.blk and w.cAij, written in
+// the first stage, are read in the second with plain loads.
+__global__ void __launch_bounds__(kRowThreads, 1) cg_stage_a_persistent(CgProblem p, Ws w) {
+  for_flat(p.c + p.El, [&](int e) { linearize_row(p, w, e); });
+  stage_sync();
+  for_flat(p.N, [&](int n) { assemble_row(p, w, n); });
+}
+
 // ---------------------------------------------------------------------------
 // K6b: priors, damping and the PCR factor
 // ---------------------------------------------------------------------------
 
-// D = payload D + Jp^T Jp, its diagonal times (1 + lam); b = -(g + Jp^T rp)
-// (cg_step.py:340-372).
-__global__ void cg_setup(CgProblem p, const float* lam) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= p.N) return;
+// Row n: D = payload D + Jp^T Jp, its diagonal times (1 + lam); b = -(g +
+// Jp^T rp) (cg_step.py:340-372).
+__device__ __noinline__ void setup_row(const CgProblem& p, const float* lam, int n) {
   M3 D = ld9(p.payload, n);
   V3 g = ld3(p.payload + 18LL * p.N, n);
   const V3 rp = se2_log(se2_between(ld3(p.pz, n), ld3(p.poses, n)));
@@ -253,6 +295,12 @@ __global__ void cg_setup(CgProblem p, const float* lam) {
   st3(p.b, n, V3{{-g.v[0], -g.v[1], -g.v[2]}});
 }
 
+__global__ void cg_setup(CgProblem p, const float* lam) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  setup_row(p, lam, n);
+}
+
 // One PCR level (pcr_factor_row in se2_blocks.cuh), U at level 0 from the
 // payload; the last level writes the final inverse instead of D', L', U'.
 __global__ void cg_pcr_factor(CgProblem p, int k, const float* Ds, const float* Us,
@@ -261,6 +309,30 @@ __global__ void cg_pcr_factor(CgProblem p, int k, const float* Ds, const float* 
   if (n >= p.N) return;
   pcr_factor_row(n, p.N, k, p.eps, Ds, Us, Ls, p.payload + 9LL * p.N, p.A, p.G, p.Dinv, Dd, Ud,
                  Ld, last);
+}
+
+// K6b: the setup rows, a barrier, then the K PCR factor levels
+// (pcr_factor_row, se2_blocks.cuh), U at level 0 from the payload, a
+// barrier after each but the last -- cg_setup and the K cg_pcr_factor
+// launches, row for row. p.D, written by the setup rows, is read by level
+// 0 with plain loads; lam stays on the device.
+__global__ void __launch_bounds__(kRowThreads, 1) cg_gn_setup_persistent(CgProblem p, Ws w,
+                                                                         const float* lam) {
+  const int N = p.N;
+  const float* U0 = p.payload + 9LL * N;
+  for_flat(N, [&](int n) { setup_row(p, lam, n); });
+  for (int k = 0; k < p.K; ++k) {
+    stage_sync();
+    const int src = (k - 1) & 1, dst = k & 1;
+    const float* Ds = k == 0 ? p.D : w.PD[src];
+    const float* Us = k == 0 ? U0 : w.PU[src];
+    const float* Ls = k == 0 ? nullptr : w.PL[src];
+    const int last = k == p.K - 1;
+    for_flat(N, [&](int n) {
+      pcr_factor_row(n, N, k, p.eps, Ds, Us, Ls, U0, p.A, p.G, p.Dinv, w.PD[dst], w.PU[dst],
+                     w.PL[dst], last);
+    });
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -427,6 +499,12 @@ __global__ void __launch_bounds__(kThreads, 1) cg_step_persistent(CgProblem p, W
 
 Ws ws_of(const CgProblem& p) { return layout(p.N, p.c, p.El, p.ws); }
 
+// K6a's and K6b's launch shape over n rows: CTAs of kRowThreads, one pass.
+template <typename... KArgs>
+cudaError_t row_shape(void (*kernel)(KArgs...), long long n, Shape& sh) {
+  return pass_shape(kernel, kRowThreads, kRowThreads, n, sh);
+}
+
 }  // namespace
 
 extern "C" {
@@ -440,8 +518,22 @@ const char* cg_error_string(int err) { return cudaGetErrorString((cudaError_t)er
 
 int cg_problem_size() { return (int)sizeof(CgProblem); }
 
-// K6a: the payload and the Aij stash of this rank at p->poses.
+// K6a: the payload and the Aij stash of this rank at p->poses. One launch of
+// cg_stage_a_persistent in row_shape's shape over max(N, c + El) rows.
 int cg_stage_a(const CgProblem* pp) {
+  const CgProblem& p = *pp;
+  const long long E = (long long)p.c + p.El;
+  Shape sh;
+  const cudaError_t err = row_shape(cg_stage_a_persistent, E > p.N ? E : p.N, sh);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_persistent(cg_stage_a_persistent, sh, kRowThreads, (cudaStream_t)p.stream,
+                                p, ws_of(p));
+}
+
+// The same stage as 2 launches (cg_linearize, cg_assemble): the staged
+// sequence that cg_stage_a replaced, bitwise equal to it; a yardstick for
+// checks and timings, never on the path.
+int cg_stage_a_staged(const CgProblem* pp) {
   const CgProblem& p = *pp;
   const Ws w = ws_of(p);
   const cudaStream_t s = (cudaStream_t)p.stream;
@@ -456,8 +548,30 @@ int cg_stage_a(const CgProblem* pp) {
 }
 
 // K6b: D, b and the K-level PCR factor from the all-reduced payload at
-// p->poses, damped by (1 + lam[0]) (lam a device pointer).
+// p->poses, damped by (1 + lam[0]) (lam a device pointer). One launch of
+// cg_gn_setup_persistent in row_shape's shape over N rows.
 int cg_gn_setup(const CgProblem* pp, const float* lam) {
+  const CgProblem& p = *pp;
+  Shape sh;
+  const cudaError_t err = row_shape(cg_gn_setup_persistent, p.N, sh);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_persistent(cg_gn_setup_persistent, sh, kRowThreads, (cudaStream_t)p.stream,
+                                p, ws_of(p), lam);
+}
+
+// The CTAs of K6a's launch over n rows (n = max(N, c + El)) and of K6b's
+// (n = N), negative where they form a cooperative grid rather than one
+// cluster (0: a CUDA error).
+int cg_row_ctas(long long n) {
+  Shape sh;
+  if (row_shape(cg_stage_a_persistent, n, sh) != cudaSuccess) return 0;
+  return sh.cooperative ? -sh.ctas : sh.ctas;
+}
+
+// The same setup as 1 + K launches (cg_setup, K cg_pcr_factor): the staged
+// sequence that cg_gn_setup replaced, bitwise equal to it; a yardstick for
+// checks and timings, never on the path.
+int cg_gn_setup_staged(const CgProblem* pp, const float* lam) {
   const CgProblem& p = *pp;
   const Ws w = ws_of(p);
   const cudaStream_t s = (cudaStream_t)p.stream;

@@ -1,9 +1,9 @@
 // The persistent-stage routine shared by the SE(2) kernels (se2_blocks.cuh:
-// K1, K3, K6c) and the SE(3) kernels (se3_blocks.cuh: K4): the row block of
-// kThreads rows, the deterministic block reductions, and ONE launch on a
+// K1, K3, K6a-c) and the SE(3) kernels (se3_blocks.cuh: K4): the row block
+// of kThreads rows, the deterministic block reductions, and ONE launch on a
 // thread-block cluster (or a cooperative grid) that runs a whole sequence
 // of row stages with a barrier where a staged sequence has a kernel
-// boundary.
+// boundary; pass_shape's rule for the launch.
 // Included inside no namespace; everything here has internal linkage, one
 // copy per library.
 
@@ -109,6 +109,16 @@ __device__ __forceinline__ void for_rows(int N, F f) {
     const int n = blk * kThreads + threadIdx.x;
     if (n < N) f(n);
   }
+}
+
+// f(i) for every i < M, one thread each over the whole launch: a stage
+// whose rows share no reduction, so that any CTA width and count gives the
+// same values.
+template <typename F>
+__device__ __forceinline__ void for_flat(long long M, F f) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < M; i += stride)
+    f((int)i);
 }
 
 // f(n) for every row n < N of this CTA's blocks; its values (0 past N)
@@ -240,6 +250,30 @@ cudaError_t launch_persistent(void (*kernel)(KArgs...), Shape sh, int threads, c
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The shape of a persistent launch of `kernel` (CTAs of `threads`) whose
+// stages take `per_cta` rows a CTA at once, for one pass over N rows
+// (ceil(N / per_cta) CTAs): one cluster where that is at most
+// kMaxClusterCtas CTAs, else a cooperative grid of as many CTAs, at most
+// the CTAs of `kernel` the card holds at once (they then walk several
+// passes). One pass measured faster than a 16-CTA cluster walking several
+// (K4, K6a, K6b, K7b, K7c: PERF.md).
+template <typename... KArgs>
+cudaError_t pass_shape(void (*kernel)(KArgs...), int threads, int per_cta, long long N,
+                       Shape& sh) {
+  const long long pass = (N + per_cta - 1) / per_cta;
+  const int want = pass < 1 ? 1 : pass > (1 << 30) ? (1 << 30) : (int)pass;
+  if (want <= kMaxClusterCtas) {
+    sh = Shape{want, false};
+    return cudaSuccess;
+  }
+  int cap = 0;
+  const cudaError_t err = coresident_ctas(kernel, threads, cap);
+  if (err != cudaSuccess) return err;
+  if (cap < 1) return cudaErrorLaunchOutOfResources;
+  sh = Shape{want < cap ? want : cap, true};
+  return cudaSuccess;
 }
 
 // launch_persistent over N rows: one cluster of cluster_ctas(N) CTAs of

@@ -543,7 +543,7 @@ __device__ __forceinline__ V6 pcr6_apply_row(int n, int N, int k, const float* A
 // pcr6_apply_row / pcr6_factor_row / K4's H@p computes it, sum for sum in
 // m6vec's and m6mul's order; binv6 stays whole in one thread of the group.
 // Lighter stages (linearize, assembly, retract, cost) take one thread a row
-// over the whole cluster (for_flat).
+// over the whole launch (persistent.cuh's for_flat).
 //
 // A reduction of one value a row (v.Hv, r.z, the cost) goes through a row
 // buffer: the group's thread 0 writes the row's value, and after the next
@@ -559,33 +559,12 @@ constexpr int kGroupRows = 5;            // row slots a warp (30 of its 32 lanes
 constexpr int kSlots = kWide / 32 * kGroupRows;
 constexpr int kSlotFloats = 72;          // shared scratch a slot: two 6x6 blocks
 
-// The launch shape of the wide kernels over N rows, for one pass over the
-// rows (ceil(N / kSlots) CTAs): one cluster where that is at most
-// kMaxClusterCtas CTAs, else a cooperative grid of as many CTAs, at most
-// the CTAs of `kernel` the card holds at once (they then walk several
-// passes).
+// The launch shape of the wide kernels over N rows (persistent.cuh's
+// pass_shape at kSlots rows a CTA): one cluster where one pass over the
+// rows takes at most kMaxClusterCtas CTAs, else a cooperative grid.
 template <typename... KArgs>
 cudaError_t wide_shape(void (*kernel)(KArgs...), long long N, Shape& sh) {
-  const long long pass = (N + kSlots - 1) / kSlots;
-  const int want = pass < 1 ? 1 : pass > (1 << 30) ? (1 << 30) : (int)pass;
-  if (want <= kMaxClusterCtas) {
-    sh = Shape{want, false};
-    return cudaSuccess;
-  }
-  int cap = 0;
-  const cudaError_t err = coresident_ctas(kernel, kWide, cap);
-  if (err != cudaSuccess) return err;
-  if (cap < 1) return cudaErrorLaunchOutOfResources;
-  sh = Shape{want < cap ? want : cap, true};
-  return cudaSuccess;
-}
-
-// f(i) for every i < M, one thread each over the whole launch.
-template <typename F>
-__device__ __forceinline__ void for_flat(long long M, F f) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < M; i += stride)
-    f((int)i);
+  return pass_shape(kernel, kWide, kSlots, N, sh);
 }
 
 // f(n, a, live, S) for every row n < N, on the 6 threads a = 0..5 of its

@@ -22,11 +22,13 @@ iteration of parallel/dist_fused.py's kernel path:
 
 The CUDA source is csrc/cg_step.cu (plain C interface, built with nvcc by
 ops/_build.py, called through ctypes); its SE(2) and PCR device code is the
-fused GN kernel's, shared through csrc/se2_blocks.cuh. K6c is one launch of
-a persistent kernel on a thread-block cluster (a cluster barrier where the
-staged sequence `cg_step_staged`, K + 4 launches, has a kernel boundary,
-bitwise equal to it), called on the carry that `CgStepKernel.cg_state`
-allocated and checked once a solve. The TPU layout
+fused GN kernel's, shared through csrc/se2_blocks.cuh. K6a, K6b and K6c
+are each one launch of a persistent kernel on a thread-block cluster (a
+cluster barrier where the staged sequences `stage_a_staged`,
+`gn_setup_staged` and `cg_step_staged`, 2, 1 + K and K + 4 launches, have a
+kernel boundary, bitwise equal to them; kept for checks and timings only);
+K6c is called on the carry that `CgStepKernel.cg_state` allocated and
+checked once a solve. The TPU layout
 (sublane-packed (8, L) planes, the tall (3Q, 128) layout, one-hot MXU
 gathers, hi/lo bf16 splits, 1024-node padding, edge tiles) is not carried
 over: tensors are node-major (N, 3) and (N, 3, 3), loop edges gathered by
@@ -309,8 +311,9 @@ def _lib(name: str = "cg_step", prefix: str = "cg") -> ctypes.CDLL:
     P = ctypes.POINTER(_Problem)
     vp = ctypes.c_void_p
     for fn, args in (("stage_a", [P]), ("gn_setup", [P, vp]), ("step", [P] + [vp] * 6),
-                     ("step_staged", [P] + [vp] * 6), ("gn_setup_staged", [P, vp])):
-        if hasattr(lib, f"{prefix}_{fn}"):  # cg has no staged gn_setup (K6b is staged)
+                     ("stage_a_staged", [P]), ("gn_setup_staged", [P, vp]),
+                     ("step_staged", [P] + [vp] * 6)):
+        if hasattr(lib, f"{prefix}_{fn}"):  # cg6 has no staged stage_a (K7a is staged)
             getattr(lib, f"{prefix}_{fn}").argtypes = args
             getattr(lib, f"{prefix}_{fn}").restype = ctypes.c_int
     for fn, args, res in (("ws_floats", [ctypes.c_int] * 4, ctypes.c_longlong),
@@ -383,10 +386,19 @@ class CgStepKernel:
                                f"({self._fn('error_string')(rc).decode()})")
 
     def stage_a(self, poses: torch.Tensor):
+        return self._stage_a("stage_a", poses)
+
+    def stage_a_staged(self, poses: torch.Tensor):
+        """K6a as its staged sequence (`cg_stage_a_staged`, 2 launches): the
+        yardstick of checks and timings, never on the path. The SE(3)
+        library has none."""
+        return self._stage_a("stage_a_staged", poses)
+
+    def _stage_a(self, fn: str, poses: torch.Tensor):
         gk._check_f32("poses", poses, (self.sh.N, self.P), self.device)
         poses = poses.contiguous()
         self.prob.poses = poses.data_ptr()
-        self._call("stage_a")
+        self._call(fn)
         return self.payload, self.Aij
 
     def gn_setup(self, payload: torch.Tensor, poses: torch.Tensor, lam: torch.Tensor) -> Setup:
@@ -394,9 +406,9 @@ class CgStepKernel:
 
     def gn_setup_staged(self, payload: torch.Tensor, poses: torch.Tensor,
                         lam: torch.Tensor) -> Setup:
-        """K7b as its staged sequence (`cg6_gn_setup_staged`, 1 + K launches):
-        the yardstick of checks and timings, never on the path. The SE(2)
-        library has none."""
+        """K6b or K7b as its staged sequence (`cg_gn_setup_staged`,
+        `cg6_gn_setup_staged`: 1 + K launches): the yardstick of checks and
+        timings, never on the path."""
         return self._setup("gn_setup_staged", payload, poses, lam)
 
     def _setup(self, fn: str, payload: torch.Tensor, poses: torch.Tensor,

@@ -6,7 +6,7 @@ inside one process.
 Usage, from the root of a checkout:
 
   python3 scripts/bench_persistent.py [--parent DIR] [--rounds R]
-                                      [--parts replay,dist,k4,k2,k5,k7]
+                                      [--parts replay,dist,k4,k2,k5,k6,k7]
 
 Trees:
   this         this checkout's graphslam_tpu_torch
@@ -15,11 +15,21 @@ Trees:
                directory that .gitignore lists)
   other-shape  a copy of this checkout's package (under
                graphslam_tpu_torch/build/, rebuilt there) whose
-               csrc/se3_blocks.cuh::wide_shape takes the other launch
-               shape (for K4 and K7b/K7c alike): sphere2500 on one 16-CTA
-               cluster walking 3 passes over the rows instead of a 42-CTA
-               cooperative grid, garage on a 16-CTA cooperative grid
-               instead of a 16-CTA cluster
+               csrc/persistent.cuh::pass_shape takes the other launch
+               shape (for K4, K6a/K6b and K7b/K7c alike): sphere2500 on one
+               16-CTA cluster walking 3 passes over the rows instead of a
+               42-CTA cooperative grid, garage on a 16-CTA cooperative grid
+               instead of a 16-CTA cluster, K6a and K6b at m3500 on a
+               16-CTA cluster walking passes instead of an 85- and a
+               55-CTA grid
+  k6-threads32, k6-threads128, k6-threads256, k6-threads512,
+  k6-threads1024, k6-inline, k6-gridconst
+               copies likewise whose csrc/cg_step.cu runs K6a and K6b on
+               CTAs of 32 to 1024 threads instead of 64 (kRowThreads),
+               inlines their row functions (__forceinline__ in place of
+               __noinline__), or passes their kernels' parameters as
+               __grid_constant__ (the row functions then read them in
+               place, not from a per-thread copy)
   k2-group16, k2-group32, k2-threads256, k2-threads512
                copies likewise whose csrc/icp_kernel.cu gives each source
                point a group of 16 or 32 threads instead of 8 (kGroup), or
@@ -53,6 +63,13 @@ kernels (cached in the tree), warms up and prints one JSON line:
           loop's initial damping) over 50 calls, CUDA events, and garage
           LM it/s through lm_solve(mode="pcg_fused") (20 iterations, cg
           25, Huber 1.0), median of 3
+  k6      us per call of K6a's and K6b's C entries at m3500 (one rank
+          owning every loop edge, K = 4), CUDA events over 200 calls, and
+          of their staged sequences where the tree has them
+          (cg_stage_a_staged, cg_gn_setup_staged); the CTAs of their
+          launches (negative: a cooperative grid); and a digest of two
+          ranks' K6a, K6b and 26 K6c passes at m3500 with Huber, as k7's
+          (equal digests across trees: bitwise equal K6)
   k7      us per call of K7b's and K7c's C entries at sphere2500 (one rank
           owning every loop edge, exact PCR, K = 12), CUDA events over 100
           and 500 calls, and of their staged sequences where the tree has
@@ -61,7 +78,8 @@ kernels (cached in the tree), warms up and prints one JSON line:
           passes at sphere2500 with Huber (both ranks' outputs), through
           the tree's gn_setup / cg_step and, where it has them, through the
           staged sequences (equal digests across trees: bitwise equal K7)
-The other-shape tree runs k4 and k7 only, the k2-* trees k2 only. The card's
+The other-shape tree runs k4, k6 and k7 only, the k2-* trees k2 only,
+the k6-* trees k6 only. The card's
 name and power limit come first; the last line is a JSON summary of every
 process's numbers.
 """
@@ -81,19 +99,37 @@ ROOT = Path(__file__).resolve().parent.parent
 # The one line of wide_shape that picks the shape, and its other branch:
 # the cluster where one pass over the rows takes more than 16 CTAs (capped
 # at 16), the cooperative grid where it takes at most 16.
-SHAPE_RULE = ("  if (want <= kMaxClusterCtas) {\n    sh = Shape{want, false};",
-              "  if (want > kMaxClusterCtas) {\n    sh = Shape{kMaxClusterCtas, false};")
+SHAPE_RULE = [("  if (want <= kMaxClusterCtas) {\n    sh = Shape{want, false};",
+               "  if (want > kMaxClusterCtas) {\n    sh = Shape{kMaxClusterCtas, false};", 1)]
 # K2's launch shape (csrc/icp_kernel.cu) and the copies that take another:
 # {tree: (kept line, its replacement)}.
 K2_SHAPES = {
-    "k2-group16": ("constexpr int kGroup = 8;", "constexpr int kGroup = 16;"),
-    "k2-group32": ("constexpr int kGroup = 8;", "constexpr int kGroup = 32;"),
-    "k2-threads256": ("constexpr int kLoopThreads = 1024;", "constexpr int kLoopThreads = 256;"),
-    "k2-threads512": ("constexpr int kLoopThreads = 1024;", "constexpr int kLoopThreads = 512;"),
+    "k2-group16": [("constexpr int kGroup = 8;", "constexpr int kGroup = 16;", 1)],
+    "k2-group32": [("constexpr int kGroup = 8;", "constexpr int kGroup = 32;", 1)],
+    "k2-threads256": [("constexpr int kLoopThreads = 1024;", "constexpr int kLoopThreads = 256;",
+                       1)],
+    "k2-threads512": [("constexpr int kLoopThreads = 1024;", "constexpr int kLoopThreads = 512;",
+                       1)],
+}
+# K6a's and K6b's CTA width, row functions and kernel parameters
+# (csrc/cg_step.cu) and the copies that take others: {tree: [(kept text,
+# its replacement, occurrences), ...]}.
+K6_SHAPES = {
+    **{f"k6-threads{t}": [("constexpr int kRowThreads = 64;",
+                           f"constexpr int kRowThreads = {t};", 1)]
+       for t in (32, 128, 256, 512, 1024)},
+    "k6-inline": [("__device__ __noinline__ void", "__device__ __forceinline__ void", 3)],
+    "k6-gridconst": [
+        ("(CgProblem p, Ws w)", "(const __grid_constant__ CgProblem p, "
+         "const __grid_constant__ Ws w)", 3),
+        ("cg_setup(CgProblem p,", "cg_setup(const __grid_constant__ CgProblem p,", 1),
+        ("cg_gn_setup_persistent(CgProblem p, Ws w,", "cg_gn_setup_persistent("
+         "const __grid_constant__ CgProblem p, const __grid_constant__ Ws w,", 1)],
 }
 # The kernel sources each part needs built.
 NEEDS = {"replay": ["gn_kernel", "icp_kernel"], "dist": ["gn_kernel", "cg_step", "cg_step6"],
-         "k4": ["gn6_kernel"], "k2": ["icp_kernel"], "k5": ["gn6_kernel"], "k7": ["cg_step6"]}
+         "k4": ["gn6_kernel"], "k2": ["icp_kernel"], "k5": ["gn6_kernel"], "k6": ["cg_step"],
+         "k7": ["cg_step6"]}
 
 
 def _seconds(torch, fn, reps: int, chain: int) -> float:
@@ -276,6 +312,72 @@ def child_k5(torch):
     return out
 
 
+def _k67_digest(torch, Kernel, make_shard, pk, K, p0, lam, staged) -> str:
+    """A digest of two ranks' stage A, setup and 26 CG passes with Huber
+    (half the loop edges each, the chain on rank 0, the all-reduces summed
+    here), both ranks' outputs: through the entries named in staged, of
+    "stage_a", "gn_setup" and "cg_step", as their staged sequences."""
+    half = pk.El // 2
+    kerns = [Kernel(make_shard(pk, 0, half, K, 1.0, 1.0)),
+             Kernel(make_shard(pk, half, pk.El, K, 0.0, 1.0))]
+
+    def entry(k, name):
+        return getattr(k, f"{name}_staged" if name in staged else name)
+
+    outs = [t.clone() for k in kerns for t in entry(k, "stage_a")(p0)]
+    reduced = outs[0] + outs[2]
+    sts = [entry(k, "gn_setup")(reduced, p0, lam) for k in kerns]
+    outs += [t.clone() for st in sts for t in st]
+    carries = [k.cg_state(sts[0].b) for k in kerns]
+    for _ in range(26):
+        for k, c in zip(kerns, carries):
+            entry(k, "cg_step")(k.Aij, c)
+        big = carries[0].big + carries[1].big
+        for c in carries:
+            c.big.copy_(big)
+    outs += [t for c in carries for t in c]
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def child_k6(torch):
+    import ctypes
+
+    from graphslam_tpu_torch.factors import from_dataset
+    from graphslam_tpu_torch.io import datasets
+    from graphslam_tpu_torch.ops import gn_kernel as gk
+    from graphslam_tpu_torch.parallel import cg_step as cs
+
+    dev = torch.device("cuda")
+    d = datasets.m3500()
+    g, p0 = from_dataset(d, device=dev), torch.from_numpy(d["poses"]).to(dev)
+    pk, K = gk.pack_graph(g, p0.shape[0]), 4
+    lam = torch.tensor([1e-3], device=dev)
+    kern = cs.CgStepKernel(cs.make_shard(pk, 0, pk.El, K, 1.0, -1.0))
+    lib = kern.lib
+    staged = hasattr(lib, "cg_stage_a_staged")  # a tree with the persistent K6a/K6b
+    out = {"k6_digest": _k67_digest(torch, cs.CgStepKernel, cs.make_shard, pk, K, p0, lam, ())}
+    if staged:
+        out["k6_staged_digest"] = _k67_digest(torch, cs.CgStepKernel, cs.make_shard, pk, K, p0,
+                                              lam, ("stage_a", "gn_setup", "cg_step"))
+    if hasattr(lib, "cg_row_ctas"):  # < 0: a grid
+        lib.cg_row_ctas.argtypes = [ctypes.c_longlong]
+        out["k6a_ctas"] = lib.cg_row_ctas(max(pk.N, pk.c + pk.El))
+        out["k6b_ctas"] = lib.cg_row_ctas(pk.N)
+    pay, _ = kern.stage_a(p0)
+    kern.gn_setup(pay, p0, lam)
+    kern.prob.stream = torch.cuda.current_stream(dev).cuda_stream
+    prob = ctypes.byref(kern.prob)
+    for key, fn, a in (("k6a", "cg_stage_a", ()), ("k6b", "cg_gn_setup", (lam.data_ptr(),))):
+        out[f"{key}_entry_us"] = _event_us(torch, lambda: getattr(lib, fn)(prob, *a), 200)
+        if staged:
+            out[f"{key}_staged_us"] = _event_us(
+                torch, lambda: getattr(lib, f"{fn}_staged")(prob, *a), 200)
+    return out
+
+
 def child_k7(torch):
     import ctypes
 
@@ -292,33 +394,13 @@ def child_k7(torch):
     pk, K = g6.pack_graph6(g, N), pcr_levels_for(N, None)
     lam = torch.tensor([1e-3], device=dev)
 
-    def digest(staged: bool) -> str:
-        half = pk.El // 2
-        kerns = [cs6.CgStep6Kernel(cs6.make_shard6(pk, 0, half, K, 1.0, 1.0)),
-                 cs6.CgStep6Kernel(cs6.make_shard6(pk, half, pk.El, K, 0.0, 1.0))]
-        outs = [t.clone() for k in kerns for t in k.stage_a(p0)]
-        reduced = outs[0] + outs[2]
-        sts = [(k.gn_setup_staged if staged else k.gn_setup)(reduced, p0, lam) for k in kerns]
-        outs += [t.clone() for st in sts for t in st]
-        carries = [k.cg_state(sts[0].b) for k in kerns]
-        for _ in range(26):
-            for k, c in zip(kerns, carries):
-                (k.cg_step_staged if staged else k.cg_step)(k.Aij, c)
-            big = carries[0].big + carries[1].big
-            for c in carries:
-                c.big.copy_(big)
-        outs += [t for c in carries for t in c]
-        h = hashlib.sha256()
-        for t in outs:
-            h.update(t.cpu().numpy().tobytes())
-        return h.hexdigest()[:16]
-
     kern = cs6.CgStep6Kernel(cs6.make_shard6(pk, 0, pk.El, K, 1.0, -1.0))
     lib = kern.lib
     staged = hasattr(lib, "cg6_step_staged")  # a tree with the persistent K7b/K7c
-    out = {"k7_digest": digest(False)}
+    out = {"k7_digest": _k67_digest(torch, cs6.CgStep6Kernel, cs6.make_shard6, pk, K, p0, lam, ())}
     if staged:
-        out["k7_staged_digest"] = digest(True)
+        out["k7_staged_digest"] = _k67_digest(torch, cs6.CgStep6Kernel, cs6.make_shard6, pk, K,
+                                              p0, lam, ("gn_setup", "cg_step"))
         out["k7_ctas"] = lib.cg6_wide_ctas(N)  # < 0: a grid
     pay, _ = kern.stage_a(p0)
     kern.cg_state(kern.gn_setup(pay, p0, lam).b)  # the carry cg6_step runs on
@@ -348,14 +430,15 @@ def child(tree: str, what: str) -> int:
     out = {}
     for part in parts:
         out.update({"replay": child_replay, "dist": child_dist, "k4": child_k4, "k2": child_k2,
-                    "k5": child_k5, "k7": child_k7}[part](torch))
+                    "k5": child_k5, "k6": child_k6, "k7": child_k7}[part](torch))
     print(json.dumps(out), flush=True)
     return 0
 
 
-def edited_tree(label: str, source: str, old: str, new: str) -> Path:
+def edited_tree(label: str, source: str, edits) -> Path:
     """This checkout's package copied under its build directory as tree
-    `label`, with `old` replaced by `new` in csrc/<source>."""
+    `label`, with each edit (old, new, count) of `edits` made in
+    csrc/<source>: the `count` occurrences of `old` replaced by `new`."""
     dst = ROOT / "graphslam_tpu_torch" / "build" / label
     pkg = dst / "graphslam_tpu_torch"
     shutil.rmtree(dst, ignore_errors=True)
@@ -363,9 +446,11 @@ def edited_tree(label: str, source: str, old: str, new: str) -> Path:
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     path = pkg / "csrc" / source
     text = path.read_text()
-    if text.count(old) != 1:
-        raise RuntimeError(f"{old!r} not found once in {path}")
-    path.write_text(text.replace(old, new))
+    for old, new, count in edits:
+        if text.count(old) != count:
+            raise RuntimeError(f"{old!r} not found {count} times in {path}")
+        text = text.replace(old, new)
+    path.write_text(text)
     return dst
 
 
@@ -373,7 +458,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="root of another checkout to compare with")
     ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("--parts", default="replay,dist,k4,k2,k5,k7")
+    ap.add_argument("--parts", default="replay,dist,k4,k2,k5,k6,k7")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--what", default="replay,dist,k4", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -389,13 +474,16 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}", flush=True)
     parts = args.parts.split(",")
     trees = {"this": (ROOT, args.parts)}
-    shape_parts = ",".join(p for p in ("k4", "k7") if p in parts)
+    shape_parts = ",".join(p for p in ("k4", "k6", "k7") if p in parts)
     if shape_parts:
-        trees["other-shape"] = (edited_tree("other-shape", "se3_blocks.cuh", *SHAPE_RULE),
+        trees["other-shape"] = (edited_tree("other-shape", "persistent.cuh", SHAPE_RULE),
                                 shape_parts)
+    if "k6" in parts:
+        for label, edit in K6_SHAPES.items():
+            trees[label] = (edited_tree(label, "cg_step.cu", edit), "k6")
     if "k2" in parts:
         for label, edit in K2_SHAPES.items():
-            trees[label] = (edited_tree(label, "icp_kernel.cu", *edit), "k2")
+            trees[label] = (edited_tree(label, "icp_kernel.cu", edit), "k2")
     order = list(trees)
     if args.parent:
         trees["parent"] = (Path(args.parent).resolve(), args.parts)

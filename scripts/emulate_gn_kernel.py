@@ -6,7 +6,7 @@ Usage:  python scripts/emulate_gn_kernel.py [--poses N]
         python scripts/emulate_gn_kernel.py --dist [--poses N]
         python scripts/emulate_gn_kernel.py --dist6 [--rings R --per-ring P]
         python scripts/emulate_gn_kernel.py --persistent
-               [--kernels k3,k6c,k1,k4,k5,k7b,k7c,k2]
+               [--kernels k3,k6c,k6ab,k1,k4,k5,k7b,k7c,k2]
                [--poses N[,N...]] [--rings R[,R...] --per-ring P[,P...]]
                [--max-cluster C] [--unplaceable]
         python scripts/emulate_gn_kernel.py --vs-tree DIR [--poses N]
@@ -45,7 +45,10 @@ CPU tensors, each against its plain torch twin:
   --persistent  the persistent kernels of --kernels against their staged
            sequences with torch.equal: K3 (gn_factor + gn_cg) at lam 0 and
            1e-3, masked and chain-only, K6c (cg_step_staged) on two ranks
-           without and with Huber after 1 and 26 passes, K1 and K4
+           without and with Huber after 1 and 26 passes, K6a and K6b
+           (stage_a_staged, gn_setup_staged; k6ab) on two ranks without
+           Huber at lam 0, with Huber at lam 1e-3 and with a chain-only
+           rank, both ranks' payloads, Aij and Setups, K1 and K4
            (gn_solve_staged, gn_lm_solve_staged and their gn6 twins) in GN
            mode with warm start and a cg ramp and in LM mode with Huber, K5
            (gn6_factor + gn6_cg) at lam 0 and at 1e-3 masked, K7b and K7c
@@ -65,9 +68,10 @@ CPU tensors, each against its plain torch twin:
   --vs-tree DIR  gn_kernel.cu, cg_step.cu, gn6_kernel.cu and cg_step6.cu of
            this checkout against those of the checkout DIR (e.g. `git
            archive` of the parent commit): K1 and K4 in GN and LM modes,
-           K3, K5 (persistent and staged), K6a-c and K7a-c (K7b and K7c
-           persistent and staged) held to torch.equal; the check of an
-           edit to a shared header or of a new launch shape
+           K3, K5 (persistent and staged), K6a-c (persistent and staged)
+           and K7a-c (K7b and K7c persistent and staged) held to
+           torch.equal; the check of an edit to a shared header or of a new
+           launch shape
 
 Prints one JSON line (--persistent: one a size): max errors (poses wrapped or over the 12 entries,
 stages and K3/K5 relative to the largest entry) and the LM stats of kernel
@@ -78,9 +82,11 @@ import argparse
 import ctypes
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import types
 from pathlib import Path
 
@@ -103,6 +109,7 @@ HEADER = r"""#pragma once
 #define __host__
 #define __forceinline__ inline
 #define __noinline__
+#define __grid_constant__
 #define __launch_bounds__(...)
 #define __shared__ static
 struct dim3 {
@@ -337,22 +344,55 @@ def emulated(code: str) -> str:
     return _SHARED.sub(r"static EmuShared<\1\3> \2_emu_; auto& \2 = \2_emu_.get();", code)
 
 
-def build(name: str = "gn_kernel", out: Path = None, src_root: Path = ROOT,
-          max_cluster: int = 0, start: bool = False, unplaceable: bool = False):
-    """g++-build csrc/<name>.cu of the checkout src_root under the emulation
-    into out (default graphslam_tpu_torch/build/emu/); its csrc/ headers are
-    rewritten beside it. max_cluster > 0 caps the persistent kernels' CTAs
-    (PERSISTENT_MAX_CLUSTER, and the emulated card's SMs for a cooperative
-    grid of one CTA an SM) so that a CTA walks several blocks at small N;
-    unplaceable makes the occupancy query place no cluster. Returns the
-    library's path, or (path, the running g++) with start."""
-    out = Path(out or ROOT / "graphslam_tpu_torch" / "build" / "emu")
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "cuda_runtime.h").write_text(HEADER)
-    (out / "cooperative_groups.h").write_text(COOPERATIVE_GROUPS)
+def header_texts(src_root: Path = ROOT) -> dict:
+    """{file name: text} of the shared files of a build directory: the
+    emulation's cuda_runtime.h and cooperative_groups.h, and the csrc/
+    headers of the checkout src_root, rewritten."""
     csrc = Path(src_root) / "graphslam_tpu_torch" / "csrc"
-    for hdr in csrc.glob("*.cuh"):
-        (out / hdr.name).write_text(emulated(hdr.read_text()))
+    texts = {"cuda_runtime.h": HEADER, "cooperative_groups.h": COOPERATIVE_GROUPS}
+    for hdr in sorted(csrc.glob("*.cuh")):
+        texts[hdr.name] = emulated(hdr.read_text())
+    return texts
+
+
+def write_if_changed(path: Path, text: str) -> None:
+    """text into path, through a temporary file beside it and os.replace,
+    and only where path does not hold that text already. An unchanged file
+    keeps its inode and mtime: GCC's #pragma once tells files apart partly
+    by mtime, so a header rewritten under a running g++ is taken for a new
+    file and its definitions come twice."""
+    try:
+        if path.read_text() == text:
+            return
+    except FileNotFoundError:
+        pass
+    fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=f".{path.name}.")
+    try:
+        with os.fdopen(fd, "w") as f:
+            f.write(text)
+        os.replace(tmp, path)
+    except BaseException:
+        Path(tmp).unlink(missing_ok=True)
+        raise
+
+
+def write_headers(out: Path, src_root: Path = ROOT) -> None:
+    """The shared files of the build directory out (header_texts), each
+    written only where its text changed."""
+    out.mkdir(parents=True, exist_ok=True)
+    for name, text in header_texts(src_root).items():
+        write_if_changed(out / name, text)
+
+
+def _default_out(out) -> Path:
+    return Path(out or ROOT / "graphslam_tpu_torch" / "build" / "emu")
+
+
+def _gxx(name: str, out: Path, src_root: Path, max_cluster: int, unplaceable: bool):
+    """(library path, g++ command) of csrc/<name>.cu of the checkout
+    src_root, its rewritten source written into out beside the shared
+    headers."""
+    csrc = Path(src_root) / "graphslam_tpu_torch" / "csrc"
     (out / f"{name}_emu.cpp").write_text(emulated((csrc / f"{name}.cu").read_text()))
     lib = out / f"lib{name}_emu.so"
     cmd = ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC", f"-I{out}",
@@ -362,10 +402,43 @@ def build(name: str = "gn_kernel", out: Path = None, src_root: Path = ROOT,
         cmd[1:1] = [f"-DPERSISTENT_MAX_CLUSTER={max_cluster}", f"-DEMU_SMS={max_cluster}"]
     if unplaceable:
         cmd.insert(1, "-DEMU_ACTIVE_CLUSTERS=0")
-    if start:
-        return lib, subprocess.Popen(cmd)
+    return lib, cmd
+
+
+def build(name: str = "gn_kernel", out: Path = None, src_root: Path = ROOT,
+          max_cluster: int = 0, unplaceable: bool = False) -> Path:
+    """g++-build csrc/<name>.cu of the checkout src_root under the emulation
+    into out (default graphslam_tpu_torch/build/emu/); its csrc/ headers are
+    rewritten beside it. max_cluster > 0 caps the persistent kernels' CTAs
+    (PERSISTENT_MAX_CLUSTER, and the emulated card's SMs for a cooperative
+    grid of one CTA an SM) so that a CTA walks several blocks at small N;
+    unplaceable makes the occupancy query place no cluster. Returns the
+    library's path."""
+    out = _default_out(out)
+    write_headers(out, src_root)
+    lib, cmd = _gxx(name, out, src_root, max_cluster, unplaceable)
     subprocess.run(cmd, check=True)
     return lib
+
+
+def build_all(specs: dict, max_cluster: int = 0, unplaceable: bool = False) -> dict:
+    """build() of every {key: (name, out, src_root)} at once: the shared
+    headers of every build directory written first, then one g++ a source,
+    all started together, so that no g++ reads a header while it is being
+    written. Returns {key: library path}; exits where a g++ failed."""
+    roots = {}
+    for name, out, src_root in specs.values():
+        out = _default_out(out)
+        if roots.setdefault(out, Path(src_root)) != Path(src_root):
+            raise ValueError(f"two checkouts' headers in one build directory {out}")
+    for out, src_root in roots.items():
+        write_headers(out, src_root)
+    cmds = {key: _gxx(name, _default_out(out), src_root, max_cluster, unplaceable)
+            for key, (name, out, src_root) in specs.items()}
+    procs = [subprocess.Popen(cmd) for _, cmd in cmds.values()]
+    if any([proc.wait() for proc in procs]):
+        raise SystemExit("g++ failed")
+    return {key: lib for key, (lib, _) in cmds.items()}
 
 
 def load_ops(libs, names=("gn_kernel", "pcg_kernel")):
@@ -591,6 +664,34 @@ def k6c_persistent_checks(out, cs, pk, p0, K):
         out[f"k6c_{label}_bitwise"] = all(
             torch.equal(a, b) for sa, sb in zip(*runs) for a, b in zip(sa, sb))
         out[f"k6c_{label}_finite"] = bool(torch.isfinite(runs[0][1][0]).all())
+
+
+def k6ab_persistent_checks(out, cs, pk, p0, K):
+    """K6a (stage_a) and K6b (gn_setup), one cluster launch each, against
+    stage_a_staged and gn_setup_staged on two ranks' shards of the packed
+    graph pk (the chain on rank 0, the all-reduce summed here), bitwise:
+    both ranks' payloads and Aij stashes, and both ranks' Setups. Cases:
+    half the loop edges each without Huber at lam 0 and with Huber at lam
+    1e-3; a chain-only rank 0 (El = 0) beside a rank 1 with every loop
+    edge."""
+    half = pk.El // 2
+    for name, cut, huber, lam in (("plain", half, -1.0, 0.0), ("huber_lam1e-3", half, 1.0, 1e-3),
+                                  ("chain_rank", 0, 1.0, 1e-3)):
+        runs = []
+        for staged in (False, True):
+            kerns = [cs.CgStepKernel(cs.make_shard(pk, 0, cut, K, 1.0, huber)),
+                     cs.CgStepKernel(cs.make_shard(pk, cut, pk.El, K, 0.0, huber))]
+            outs = [[t.clone() for t in (k.stage_a_staged if staged else k.stage_a)(p0)]
+                    for k in kerns]
+            reduced = outs[0][0] + outs[1][0]
+            sts = [(k.gn_setup_staged if staged else k.gn_setup)(reduced, p0, torch.tensor([lam]))
+                   for k in kerns]
+            runs.append(([t for o in outs for t in o], [t.clone() for st in sts for t in st]))
+        (a, sa), (b, sb) = runs
+        out[f"k6a_{name}_bitwise"] = all(torch.equal(x, y) for x, y in zip(a, b))
+        out[f"k6b_{name}_bitwise"] = all(torch.equal(x, y) for x, y in zip(sa, sb))
+        dinv = sa[4]  # rank 0's Dinv
+        out[f"k6b_{name}_finite"] = bool(torch.isfinite(dinv).all()) and float(dinv.abs().max()) > 0
 
 
 def k7_persistent_checks(out, cs6, g6, g, p0):
@@ -829,8 +930,8 @@ def solve_refusal_checks(out, name, Kernel, p0, g):
 
 
 def refusal_checks(out, pk, cs, g, p0):
-    """Where the card cannot place the cluster, K3 and K6c raise; the staged
-    sequences still run (nothing falls back to them)."""
+    """Where the card cannot place the cluster, K3 and K6a-c raise; the
+    staged sequences still run (nothing falls back to them)."""
     from graphslam_tpu_torch.factors.linearize import linearize
     from graphslam_tpu_torch.ops import gn_kernel as gk
     from graphslam_tpu_torch.solver import normal_eq as ne
@@ -846,11 +947,17 @@ def refusal_checks(out, pk, cs, g, p0):
             out[f"{name}_raised"] = str(e)
     pack = gk.pack_graph(g, n)
     k6 = cs.CgStepKernel(cs.make_shard(pack, 0, pack.El, 4, 1.0, -1.0))
-    pay, Aij = k6.stage_a(p0)
-    carry = k6.cg_state(k6.gn_setup(pay, p0, torch.zeros(1)).b)
-    for name, fn in (("k6c", k6.cg_step), ("k6c_staged", k6.cg_step_staged)):
+    pay, Aij = k6.stage_a_staged(p0)
+    lam = torch.zeros(1)
+    carry = k6.cg_state(k6.gn_setup_staged(pay, p0, lam).b)
+    for name, fn in (("k6a", lambda: k6.stage_a(p0)),
+                     ("k6a_staged", lambda: k6.stage_a_staged(p0)),
+                     ("k6b", lambda: k6.gn_setup(pay, p0, lam)),
+                     ("k6b_staged", lambda: k6.gn_setup_staged(pay, p0, lam)),
+                     ("k6c", lambda: k6.cg_step(Aij, carry)),
+                     ("k6c_staged", lambda: k6.cg_step_staged(Aij, carry))):
         try:
-            fn(Aij, carry)
+            fn()
             out[f"{name}_raised"] = None
         except RuntimeError as e:
             out[f"{name}_raised"] = str(e)
@@ -919,27 +1026,24 @@ def k7_refusal_checks(out, cs6, g6, g, p0):
             out[f"{name}_raised"] = str(e)
 
 
-KERNELS = ("k3", "k6c", "k1", "k4", "k5", "k7b", "k7c", "k2")
+KERNELS = ("k3", "k6c", "k6ab", "k1", "k4", "k5", "k7b", "k7c", "k2")
 
 
 def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool = False,
                     kernels=KERNELS) -> None:
     """The persistent kernels against their staged sequences, bitwise: K3,
-    K6c and K1 (GN and LM) on manhattan(n), K4 (GN and LM), K5, K7b and K7c
+    K6a-c and K1 (GN and LM) on manhattan(n), K4 (GN and LM), K5, K7b and K7c
     on sphere(rings, per_ring); the sources they need built once, at once,
     for every size.
     Size i is ns[i] and spheres[i] (a list of one stands for every i); one
     JSON line a size. With unplaceable, the occupancy query places no
     cluster, and every persistent entry must raise instead while the staged
     sequences run."""
-    need = {"k3": "gn_kernel", "k1": "gn_kernel", "k6c": "cg_step", "k4": "gn6_kernel",
+    need = {"k3": "gn_kernel", "k1": "gn_kernel", "k6c": "cg_step", "k6ab": "cg_step",
+            "k4": "gn6_kernel",
             "k5": "gn6_kernel", "k7b": "cg_step6", "k7c": "cg_step6", "k2": "icp_kernel"}
-    names = {need[k] for k in kernels}
-    jobs = {name: build(name, build_dir, max_cluster=max_cluster, start=True,
-                        unplaceable=unplaceable) for name in sorted(names)}
-    if any(proc.wait() for _, proc in jobs.values()):
-        raise SystemExit("g++ failed")
-    libs = {name: lib for name, (lib, _) in jobs.items()}
+    libs = build_all({name: (name, build_dir, ROOT) for name in sorted({need[k] for k in kernels})},
+                     max_cluster, unplaceable)
     mods = load_ops(libs, ("gn_kernel", "pcg_kernel", "gn6_kernel", "pcg6_kernel",
                            "icp_kernel"))
     gk, pk, g6, p6, ik = mods
@@ -964,6 +1068,11 @@ def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool 
         nb = -(-n // 256)
         out = {"poses": n, "loop_edges": g.num_edges - g.chain_prefix,
                "ctas": min(nb, max_cluster or 16), "blocks": nb}
+        if "k6ab" in kernels:  # K6a's and K6b's launch CTAs (< 0: a grid)
+            lib_cg = ctypes.CDLL(str(libs["cg_step"]))
+            lib_cg.cg_row_ctas.argtypes = [ctypes.c_longlong]
+            out.update(k6a_ctas=lib_cg.cg_row_ctas(max(n, g.num_edges)),
+                       k6b_ctas=lib_cg.cg_row_ctas(n))
         k7 = {"k7b", "k7c"} & set(kernels)
         if {"k4", "k5"} & set(kernels) or k7:
             d6 = datasets.sphere(n_rings=rings, poses_per_ring=per_ring, seed=1)
@@ -979,7 +1088,7 @@ def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool 
                 ctas = ctypes.CDLL(str(libs["cg_step6"])).cg6_wide_ctas(n6)
                 out.update(ctas7=abs(ctas), grid7=ctas < 0)
         if unplaceable:
-            if {"k3", "k6c"} <= set(kernels):
+            if {"k3", "k6c", "k6ab"} <= set(kernels):
                 refusal_checks(out, pk, cs, g, p0)
             if "k1" in kernels:
                 solve_refusal_checks(out, "k1", gk.GnKernel, p0, g)
@@ -997,6 +1106,8 @@ def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool 
             k3_persistent_checks(out, pk, g, p0)
         if "k6c" in kernels:
             k6c_persistent_checks(out, cs, gk.pack_graph(g, n), p0, 4)
+        if "k6ab" in kernels:
+            k6ab_persistent_checks(out, cs, gk.pack_graph(g, n), p0, 4)
         if "k1" in kernels:
             solve_persistent_checks(out, "k1", gk.GnKernel, p0, g, 4,
                                     gk.fused_gn_solve_reference, gk.fused_lm_solve_reference,
@@ -1013,10 +1124,12 @@ def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool 
 
 
 class _StagedAliases:
-    """A build from before the persistent K1/K4 (K7b/K7c), whose entries
-    are the staged sequences: `<p>_solve_staged` and `<p>_lm_solve_staged`
-    resolve to its `<p>_solve` and `<p>_lm_solve` (`cg6_gn_setup_staged`
-    and `cg6_step_staged` to `cg6_gn_setup` and `cg6_step`)."""
+    """A build from before the persistent K1/K4 (K6a/K6b, K7b/K7c), whose
+    entries are the staged sequences: `<p>_solve_staged` and
+    `<p>_lm_solve_staged` resolve to its `<p>_solve` and `<p>_lm_solve`
+    (`cg_stage_a_staged` and `cg_gn_setup_staged` to `cg_stage_a` and
+    `cg_gn_setup`; `cg6_gn_setup_staged` and `cg6_step_staged` to
+    `cg6_gn_setup` and `cg6_step`)."""
 
     def __init__(self, lib):
         self._lib = lib
@@ -1027,20 +1140,25 @@ class _StagedAliases:
         return getattr(self._lib, name)
 
 
-def _two_rank_k67(cs, make_shard, Kernel, pack, K, p0, staged=False):
-    """Two ranks' K6/K7 stage A, setup and 26 CG passes with Huber (with
-    staged, K7b and K7c as their staged sequences); every output of rank 0
-    (the all-reduces summed here)."""
+def _two_rank_k67(cs, make_shard, Kernel, pack, K, p0, staged=()):
+    """Two ranks' K6/K7 stage A, setup and 26 CG passes with Huber (the
+    entries named in staged, of "stage_a", "gn_setup" and "cg_step", as
+    their staged sequences); every output of rank 0 (the all-reduces
+    summed here)."""
     half = pack.El // 2
     kerns = [Kernel(make_shard(pack, 0, half, K, 1.0, 1.0)),
              Kernel(make_shard(pack, half, pack.El, K, 0.0, 1.0))]
-    outs = [[t.clone() for t in k.stage_a(p0)] for k in kerns]
-    sts = [(k.gn_setup_staged if staged else k.gn_setup)(outs[0][0] + outs[1][0], p0,
-                                                        torch.tensor([1e-3])) for k in kerns]
+
+    def entry(k, name):
+        return getattr(k, f"{name}_staged" if name in staged else name)
+
+    outs = [[t.clone() for t in entry(k, "stage_a")(p0)] for k in kerns]
+    sts = [entry(k, "gn_setup")(outs[0][0] + outs[1][0], p0, torch.tensor([1e-3]))
+           for k in kerns]
     carries = [k.cg_state(sts[0].b) for k in kerns]
     for _ in range(26):
         for k, c in zip(kerns, carries):
-            (k.cg_step_staged if staged else k.cg_step)(k.Aij, c)
+            entry(k, "cg_step")(k.Aij, c)
         big = carries[0].big + carries[1].big
         for c in carries:
             c.big.copy_(big)
@@ -1052,25 +1170,23 @@ def main_vs_tree(tree: Path, n: int, rings: int, per_ring: int, build_dir) -> No
     (gn6_kernel.cu, cg_step6.cu) of this checkout against those of another
     one (`tree`, e.g. `git archive` of the parent commit), both under the
     emulation: on manhattan(n) K1's GN (warm, cg ramp) and LM solves, K3
-    and K6a-c (two ranks, 26 K6c passes, Huber); on sphere(rings,
-    per_ring) K4's GN and LM solves, K5 and K7a-c likewise (K7b and K7c
-    also as this checkout's staged sequences); every output held to
-    torch.equal. K1 and K4 run both as this checkout's persistent
-    entries and as its staged ones (an older tree's whole-solve entries
-    are staged: _StagedAliases). Checks that a change of a shared header
+    and K6a-c (two ranks, 26 K6c passes, Huber; also as this checkout's
+    staged sequences); on sphere(rings, per_ring) K4's GN and LM solves,
+    K5 and K7a-c likewise (K7b and K7c also as this checkout's staged
+    sequences); every output held to torch.equal. K1 and K4 run both as
+    this checkout's persistent entries and as its staged ones (an older
+    tree's entries that this one redesigned are staged: _StagedAliases). Checks that a change of a shared header
     or of a launch shape leaves the outputs as they were."""
     base = Path(build_dir or ROOT / "graphslam_tpu_torch" / "build" / "emu")
     names = ("gn_kernel", "cg_step", "gn6_kernel", "cg_step6")
-    jobs = {(side, name): build(name, base / side, src_root=root, start=True)
-            for side, root in (("new", ROOT), ("old", Path(tree))) for name in names}
-    if any(proc.wait() for _, proc in jobs.values()):
-        raise SystemExit("g++ failed")
-    libs = {key: ctypes.CDLL(str(lib)) for key, (lib, _) in jobs.items()}
-    for name in ("gn_kernel", "gn6_kernel", "cg_step6"):
+    paths = build_all({(side, name): (name, base / side, root)
+                       for side, root in (("new", ROOT), ("old", Path(tree))) for name in names})
+    libs = {key: ctypes.CDLL(str(lib)) for key, lib in paths.items()}
+    for name in names:
         libs["old", name] = _StagedAliases(libs["old", name])
-    gk, pk, g6, p6 = load_ops({name: jobs["new", name][0] for name in names},
+    gk, pk, g6, p6 = load_ops({name: paths["new", name] for name in names},
                               ("gn_kernel", "pcg_kernel", "gn6_kernel", "pcg6_kernel"))
-    cs, cs6, _, _ = load_cg_step({name: jobs["new", name][0] for name in names})
+    cs, cs6, _, _ = load_cg_step({name: paths["new", name] for name in names})
     from graphslam_tpu_torch.factors import from_dataset
     from graphslam_tpu_torch.factors.linearize import linearize
     from graphslam_tpu_torch.io import datasets
@@ -1104,12 +1220,14 @@ def main_vs_tree(tree: Path, n: int, rings: int, per_ring: int, build_dir) -> No
         solves(res, "k1", gk.GnKernel, p0, g, 4)
         args = pk._chain_and_loops(sysm, torch.tensor(1e-3), True, g.chain_prefix)
         res["k3"] = [pk.PcgKernel(*args, 25).solve().clone()]
-        res["k6"] = _two_rank_k67(cs, cs.make_shard, cs.CgStepKernel, gk.pack_graph(g, n), 4, p0)
+        for key, staged in (("k6", ()), ("k6_staged", ("stage_a", "gn_setup", "cg_step"))):
+            res[key] = _two_rank_k67(cs, cs.make_shard, cs.CgStepKernel, gk.pack_graph(g, n), 4,
+                                     p0, staged)
         solves(res, "k4", g6.Gn6Kernel, p_6, g_6, None)
         args = p6._chain_and_loops(sys6, torch.tensor(1e-3), True, g_6.chain_prefix, T=6)
         kern5 = p6.Pcg6Kernel(*args, 25)
         res["k5"] = [kern5.solve().clone(), kern5.staged().clone()]
-        for key, staged in (("k7", False), ("k7_staged", True)):
+        for key, staged in (("k7", ()), ("k7_staged", ("gn_setup", "cg_step"))):
             res[key] = _two_rank_k67(cs6, cs6.make_shard6, cs6.CgStep6Kernel,
                                      g6.pack_graph6(g_6, n6), pcr_levels_for(n6, None), p_6,
                                      staged)

@@ -14,10 +14,11 @@ the CG state after one pass rel 1e-4 (a PCR apply), after 26 passes rel
 1e-3; the kernel path of dist_fused_gn_solve against the plain path on the
 card wrapped atol 2e-4 on manhattan(260) (tests/test_dist_fused.py:170) and
 2e-3 on m3500 from its drifted start (the repo's GN kernel tolerance;
-2.8e-4 measured after 3 iterations). K6c is one launch of a persistent
-kernel on a thread-block cluster; it is held bitwise (torch.equal) to the
-staged sequence it replaced (`cg_step_staged`), up to city10000 (10000
-poses: each of the 16 CTAs walks several row blocks).
+2.8e-4 measured after 3 iterations). K6a, K6b and K6c are each one launch
+of a persistent kernel on a thread-block cluster; each is held bitwise
+(torch.equal) to the staged sequence it replaced (`stage_a_staged`,
+`gn_setup_staged`, `cg_step_staged`), and to a second call, up to
+city10000 (10000 poses: each of the 16 CTAs walks several row blocks).
 """
 
 import ctypes
@@ -262,3 +263,55 @@ def test_foreign_carry_is_refused(graph):
     kerns[0].cg_state(st.b)  # a new solve's carry replaces it
     with pytest.raises(ValueError, match="carry"):
         cs.cg_step(shs[0], st, kerns[0].Aij, stale)
+
+
+def _k6ab(g, p0, name, huber, lam, staged):
+    """Two emulated ranks through K6a and K6b (the payloads summed): the
+    persistent entries or their staged sequences; every output of both
+    ranks. name "chain_rank": rank 0 holds the chain and no loop edge."""
+    pk = gk.pack_graph(g, p0.shape[0])
+    cut = 0 if name == "chain_rank" else pk.El // 2
+    kerns = [cs.make_shard(pk, 0, cut, 4, 1.0, huber).kernel(),
+             cs.make_shard(pk, cut, pk.El, 4, 0.0, huber).kernel()]
+    outs = [[t.clone() for t in (k.stage_a_staged if staged else k.stage_a)(p0)] for k in kerns]
+    reduced = outs[0][0] + outs[1][0]
+    lam_t = torch.tensor([lam], device=p0.device)
+    outs += [[t.clone() for t in (k.gn_setup_staged if staged else k.gn_setup)(reduced, p0, lam_t)]
+             for k in kerns]
+    torch.cuda.synchronize()
+    return [t for o in outs for t in o]
+
+
+@pytest.mark.parametrize("name,huber,lam", [("plain", -1.0, 0.0), ("plain", 1.0, 1e-3),
+                                            ("chain_rank", 1.0, 1e-3), ("city10000", 1.0, 1e-3)])
+def test_stage_a_and_gn_setup_persistent_equal_staged_bitwise(graph, name, huber, lam):
+    g, p0 = _k6c_graph(graph, name)
+    a = _k6ab(g, p0, name, huber, lam, staged=False)
+    b = _k6ab(g, p0, name, huber, lam, staged=True)
+    again = _k6ab(g, p0, name, huber, lam, staged=False)
+    dinv = a[8]  # rank 0's Dinv: both ranks' (payload, Aij), then rank 0's D, U, A, G, Dinv
+    assert torch.isfinite(dinv).all() and dinv.abs().max() > 0
+    for x, y, z in zip(a, b, again):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_stage_a_and_gn_setup_are_one_launch_each(graph):
+    from torch.profiler import ProfilerActivity, profile
+
+    g, p0 = graph
+    sh = _ranks(g, p0)[0]
+    lam = torch.zeros(1, device=p0.device)
+    payload, _ = cs.stage_a(sh, p0)
+    cs.gn_setup(sh, payload, p0, lam)
+    torch.cuda.synchronize()
+    for fn in (lambda: cs.stage_a(sh, p0), lambda: cs.gn_setup(sh, payload, p0, lam)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        # one cluster launch a call (cudaLaunchKernelExC; the staged
+        # kernels launch through cudaLaunchKernel)
+        events = prof.key_averages()
+        calls = {e.key: e.count for e in events
+                 if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC")}
+        assert calls == {"cudaLaunchKernelExC": 3}, calls

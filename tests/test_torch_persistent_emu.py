@@ -1,13 +1,14 @@
 """The persistent kernels against their staged sequences, on the CPU.
 
-K3 (`gn_pcg`) and K6c (`cg_step`), the whole solves of K1 (`gn_solve`,
+K3 (`gn_pcg`) and K6a-c (`cg_stage_a`, `cg_gn_setup`, `cg_step`), the
+whole solves of K1 (`gn_solve`,
 `gn_lm_solve`, csrc/gn_kernel.cu) and K4 (`gn6_solve`, `gn6_lm_solve`,
 csrc/gn6_kernel.cu), K5 (`gn6_pcg`), K7b and K7c (`cg6_gn_setup`,
 `cg6_step`, csrc/cg_step6.cu) and K2's IRLS loop and round (`icp_match`,
 `icp_iteration`, csrc/icp_kernel.cu), each run as one launch of a
 persistent kernel on a thread-block cluster (or a cooperative grid), with
 a barrier where the staged sequences (`gn_factor` + `gn_cg`,
-`cg_step_staged`, `gn_solve_staged`, `gn_lm_solve_staged` and their gn6
+`cg_stage_a_staged`, `cg_gn_setup_staged`, `cg_step_staged`, `gn_solve_staged`, `gn_lm_solve_staged` and their gn6
 twins, `gn6_factor` + `gn6_cg`, `cg6_gn_setup_staged`, `cg6_step_staged`,
 `icp_match_staged`, `icp_iteration_staged`) have a kernel boundary. Without a card, the sources are built with g++ under the
 emulation of scripts/emulate_gn_kernel.py: a cluster launch runs every
@@ -27,7 +28,11 @@ kernels to
 their staged sequences with torch.equal (K3 at lam 0 and 1e-3, with
 masked loop slots and on the chain alone, K5 at lam 0 and at 1e-3 with
 masked loop slots; K6c on two ranks,
-without and with Huber, the whole carry after 1 and 26 passes; K7b and K7c
+without and with Huber, the whole carry after 1 and 26 passes; K6a and K6b
+on two ranks without Huber at lam 0, with Huber at lam 1e-3 and with a
+chain-only rank 0 (no loop edge), both ranks' payloads, Aij stashes and
+Setups (one thread a row on narrow CTAs: at 600 poses a cooperative grid
+of 2 CTAs walking passes); K7b and K7c
 on two ranks (half the loop edges each, the chain on rank 0) without Huber
 at lam 0, with Huber at lam 1e-3, with masked loop slots and on the chain
 alone, both ranks' Setups and whole carries after 1 and 26 passes; K1 and K4
@@ -102,8 +107,9 @@ def _family(tmp_path_factory, name, *args) -> dict:
 
 @pytest.fixture(scope="module")
 def se2_runs(gxx, tmp_path_factory):
-    # K1's solves ride in the same run as K3 and K6c (one build of gn_kernel.cu)
-    return _family(tmp_path_factory, "se2", "--kernels", "k3,k6c,k1",
+    # K1's solves ride in the same run as K3 and K6a-c (one build of
+    # gn_kernel.cu and one of cg_step.cu)
+    return _family(tmp_path_factory, "se2", "--kernels", "k3,k6c,k6ab,k1",
                    "--poses", ",".join(str(n) for n in SE2_POSES.values()))
 
 
@@ -132,7 +138,12 @@ def test_persistent_kernels_equal_their_staged_sequences(se2_runs, case):
     assert (out["poses"], out["blocks"]) == (poses, nb)
     assert out["ctas"] == min(nb, MAX_CLUSTER) == 2
     checks = {k: v for k, v in out.items() if k.endswith(("_bitwise", "_finite"))}
-    assert len(checks) == 16 and all(checks.values()), checks
+    assert len(checks) == 25 and all(checks.values()), checks
+    # K6a and K6b take one pass over the rows where the cap allows it, else
+    # a cooperative grid of the CTAs the emulated card holds, walking passes
+    assert abs(out["k6a_ctas"]) == abs(out["k6b_ctas"]) == MAX_CLUSTER, out
+    if case == "ctas_walk_blocks":
+        assert out["k6a_ctas"] < 0 and out["k6b_ctas"] < 0, out
     _solves_near_their_twins(out, "k1")
 
 
@@ -202,7 +213,7 @@ def test_unplaceable_cluster_raises_without_fallback(gxx, tmp_path):
     (out,) = _emulate(tmp_path, "--poses", "300", "--rings", "6", "--per-ring", "30",
                       "--max-cluster", str(MAX_CLUSTER), "--unplaceable")
     assert out["ctas6"] == 0, out
-    for name in ("k3", "k6c", "k1", "k1_lm", "k4", "k4_lm", "k5", "k7b", "k7c", "k2",
-                 "k2_round"):
+    for name in ("k3", "k6a", "k6b", "k6c", "k1", "k1_lm", "k4", "k4_lm", "k5", "k7b", "k7c",
+                 "k2", "k2_round"):
         assert out[f"{name}_raised"] and "failed: CUDA error" in out[f"{name}_raised"], out
         assert out[f"{name}_staged_raised"] is None, out
