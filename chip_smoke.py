@@ -34,7 +34,9 @@ a nonzero exit:
      through fused_gn_solve (profiler)
   6. frontend kernels against their twins on simulated scans: one GICP IRLS
      iteration (K2; H, g rtol 1e-4 atol 1e-3, stats rtol 1e-4 atol 1e-2)
-     and the nearest valid target (K8; indices equal, distances rtol 1e-6)
+     and the nearest valid target (K8; indices equal, distances rtol 1e-6;
+     nn_search, a group of threads a point, bitwise equal to the
+     one-thread-a-point nn_search_serial, distances by their bits)
      at full width (1152 points) and unaligned, and gicp_match through the
      kernel against the plain path on scan pairs of the tour (delta atol
      5e-3)
@@ -64,7 +66,10 @@ a nonzero exit:
      their staged sequences, one round at full width (icp_iteration) and
      one match (icp_match), with host launch calls a match (profiler: 1)
      and ptxas registers and spills; gicp_match in turns through both
-     entries; K8 per launch against its twin and torch.cdist; and one
+     entries; K8's C entry in turns with nn_search_serial (a call by CUDA
+     events, and a launch from CUDA graph replays), against its twin and
+     torch.cdist, host launch calls a call (profiler: 1), ptxas registers
+     and spills; and one
      profiled replay (device busy share, kernels and host synchronizations
      per scan)
   9. LM kernels against their twins on manhattan(260): K1's LM mode, 5
@@ -175,7 +180,10 @@ a nonzero exit:
      bitwise equal; K7b (gn_setup6) and K7c (cg_step6), one persistent
      launch a call each, bitwise equal to their staged sequences
      (gn_setup_staged, cg_step_staged): the Setup and the carry after 1 and
-     26 passes, two ranks, without and with Huber
+     26 passes, two ranks, without and with Huber; K7a (stage_a6), one
+     launch a call, bitwise equal to stage_a_staged, both ranks' payloads
+     and Aij, without and with Huber, and two calls alike (phase 22 also at
+     sphere2500)
  20. the distributed SE(3) main paths on cuda, world size 1 over NCCL:
      sphere2500 and garage through dist_fused6_gn_solve (K7, 20 iterations
      at scripts/bench_all.py:251-283's cell: cg 25, edge_tile 256, exact
@@ -193,13 +201,13 @@ a nonzero exit:
  22. distributed SE(3) timing at sphere2500: dist_fused6 GN it/s through K7
      in turns with K4 (_gn_loop gn_fused, the same config) and with the
      plain path on the card; K7a, K7b and K7c per call and their twins
-     (CUDA events); the C entries of K7b and K7c in turns with their staged
-     sequences (CUDA events), host launch calls a call (profiler: 1), ptxas
-     registers and spills of cg6_gn_setup_wide and cg6_step_wide; the
-     all_reduce at world size 1; launches per GN iteration by source and
-     the idle share (profiler), and the cg_step6.cu launches an iteration
-     from the wrappers' counts times their launches a call (2 + 1 + 26 =
-     29)
+     (CUDA events); the C entries of K7a, K7b and K7c in turns with their
+     staged sequences (CUDA events), their CTAs, host launch calls a call
+     (profiler: 1), ptxas registers and spills of cg6_stage_a_persistent,
+     cg6_gn_setup_wide and cg6_step_wide; the all_reduce at world size 1;
+     launches per GN iteration by source and the idle share (profiler),
+     and the cg_step6.cu launches an iteration from the wrappers' counts
+     times their launches a call (1 + 1 + 26 = 28)
 
 Before the last line it prints one JSON object describing the kernels
 (max_abs_err: gn_kernel the larger of its m3500 and replay-solve pose
@@ -207,7 +215,12 @@ errors, icp_kernel gicp_match's delta through the kernel against the plain
 path, and its "ms" is one round's C entry, "ms_staged" the staged one's in
 turns, "ms_match_entry" / "ms_gicp_match" a match's, the launches a match
 and the replay's frames/s with K2 staged beside; nn_kernel the distances at
-full width, gn_kernel_lm its largest pose
+full width, redesigned: "ms" the C entry's a call by CUDA events around
+back-to-back calls (the host's ctypes work included, as every row's "ms"),
+"ms_staged" nn_search_serial's in turns, "ms_launch" and
+"ms_launch_staged" a launch from CUDA graph replays (the device's time),
+launches a call, the group and CTA widths, registers and spills;
+gn_kernel_lm its largest pose
 error against the twin, pcg_kernel its largest dx error against the twin,
 and its "ms" is the C entry's, "ms_staged" the staged gn_factor + gn_cg's
 in turns, "ms_wrapper" the whole fused_pcg_solve's;
@@ -232,10 +245,10 @@ host launch calls a call of each, and the ptxas registers and spills;
 cg_step6_stage_a,
 cg_step6_gn_setup and cg_step6_cg_step (K7a-c) likewise from phases 19-22,
 "launches" in the sphere2500 GN main path, "launches_garage" in the garage
-one, "launches_lm" in the garage LM one, "ms" at sphere2500; K7b and K7c,
+one, "launches_lm" in the garage LM one, "ms" at sphere2500; K7a-c,
 redesigned as one launch a call, add "ms_entry" (the C entry) and
 "ms_staged" (its staged sequence's, in turns), the host launch calls a
-call of each, and the ptxas registers and spills);
+call of each, the launch's CTAs and the ptxas registers and spills);
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, it exits nonzero and prints no result.
@@ -658,6 +671,34 @@ def _event_us(torch, fn, reps: int, warmup: int = 3) -> float:
     return 1e3 * a.elapsed_time(b) / reps
 
 
+def _graph_us(torch, launch, launches: int = 50, replays: int = 20) -> float:
+    """Microseconds a launch, by CUDA events around `replays` replays of a
+    CUDA graph of `launches` calls of launch(stream): the device's time,
+    without the host's work between launches. launch(stream) enqueues on
+    the stream it is given."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            launch(side.cuda_stream)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(launches):
+            launch(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return 1e3 * a.elapsed_time(b) / (replays * launches)
+
+
 def _bound(nbytes: float, flops: float):
     """(least ms, what bounds it): bytes read and written once over the
     card's memory rate, or float32 operations over its peak rate."""
@@ -768,14 +809,19 @@ def phase_frontend_kernels(torch, tour):
     for name, src, tgt, valid in k8_cases:
         idx, d2 = cc.nearest_neighbors(src, tgt, valid)
         ridx, rd2 = cc.nearest_neighbors_reference(src, tgt, valid)
+        sidx, sd2 = cc.nearest_neighbors_serial(src, tgt, valid)
         torch.cuda.synchronize()
+        if not (torch.equal(idx, sidx) and torch.equal(d2.view(torch.int32), sd2.view(torch.int32))):
+            fail(f"K8 {name}: nn_search (a group of threads a point) differs from "
+                 f"nn_search_serial")
         same = torch.isinf(rd2) & torch.isinf(d2)
         rel = float(torch.where(same, 0.0, (d2 - rd2).abs() / rd2.abs().clamp_min(1e-30)).max())
         if not torch.equal(idx, ridx) or not rel <= TOL_K8_D2_REL:
             fail(f"K8 {name}: indices equal {torch.equal(idx, ridx)}, distance rel err {rel}")
         if name == "full width":
             k8_err = float((d2 - rd2).abs().max())
-        log(f"  K8 {name}: indices equal, distance rel err {rel:.3e} (tol {TOL_K8_D2_REL})")
+        log(f"  K8 {name}: indices equal, distance rel err {rel:.3e} (tol {TOL_K8_D2_REL}); "
+            f"nn_search (one launch) vs nn_search_serial: bitwise equal")
 
     match_err, pairs = 0.0, range(0, tour["n"] - 1, 50)
     for t in pairs:
@@ -1099,22 +1145,62 @@ def phase_timing_frontend(torch, tour, k2_full):
         f"{t_nb:.2f} us through icp_match, {t_sa:.2f} and {t_sb:.2f} us through "
         f"icp_match_staged, {out['match_plain_us']:.2f} us plain")
 
-    # K8 at full width against the twin and torch.cdist over the valid targets.
+    # K8 at full width, the C entries in turns with the serial shape it
+    # replaced (serial, one launch, one launch, serial): per launch from
+    # replays of a CUDA graph of launches (the device's time), and per call
+    # by CUDA events around back-to-back calls (the host's ctypes work
+    # included); against the twin and torch.cdist over the valid targets.
     src, tgt, valid = args[0], args[3], args[4]
     P, Q = src.shape[0], tgt.shape[0]
     idx = torch.empty(P, dtype=torch.int32, device=src.device)
     d2 = torch.empty(P, dtype=torch.float32, device=src.device)
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    out["k8_us"] = _event_us(torch, lambda: lib.nn_search(
-        src.data_ptr(), tgt.data_ptr(), valid.data_ptr(), idx.data_ptr(), d2.data_ptr(), P, Q,
-        stream), 500)
+    ptrs = (src.data_ptr(), tgt.data_ptr(), valid.data_ptr(), idx.data_ptr(), d2.data_ptr(), P, Q)
+
+    def nn(fn):
+        return lambda stream: getattr(lib, fn)(*ptrs, ctypes.c_void_p(stream))
+
+    def on_current(launch):
+        return lambda: launch(torch.cuda.current_stream().cuda_stream)
+    for fn in ("nn_search", "nn_search_serial"):
+        rc = on_current(nn(fn))()
+        if rc:
+            fail(f"K8: {fn} returned CUDA error {rc}")
+    t_sa = _graph_us(torch, nn("nn_search_serial"))
+    t_na = _graph_us(torch, nn("nn_search"))
+    t_nb = _graph_us(torch, nn("nn_search"))
+    t_sb = _graph_us(torch, nn("nn_search_serial"))
+    c_sa = _event_us(torch, on_current(nn("nn_search_serial")), 500)
+    c_na = _event_us(torch, on_current(nn("nn_search")), 500)
+    c_nb = _event_us(torch, on_current(nn("nn_search")), 500)
+    c_sb = _event_us(torch, on_current(nn("nn_search_serial")), 500)
+    out["k8_launch_us"], out["k8_serial_launch_us"] = min(t_na, t_nb), min(t_sa, t_sb)
+    out["k8_us"], out["k8_serial_us"] = min(c_na, c_nb), min(c_sa, c_sb)
+    host, dev_n = _launches_per_call(torch, on_current(nn("nn_search")), "k_nn")
+    host_s, _ = _launches_per_call(torch, on_current(nn("nn_search_serial")), "k_nn_serial")
+    out["k8_launches_per_call"], out["k8_serial_launches_per_call"] = host, host_s
+    src_text = (ROOT / "graphslam_tpu_torch" / "csrc" / "icp_kernel.cu").read_text()
+    group, threads = (int(re.search(rf"constexpr int {c} = (\d+);", src_text).group(1))
+                      for c in ("kNnGroup", "kNnThreads"))
+    out["k8_shape"] = (group, threads)
+    out["k8_ptxas"] = {f"k_nn<{group}>": _ptxas("icp_kernel", f"k_nnILi{group}E")}
     out["k8_plain_us"] = _event_us(torch, lambda: cc.nearest_neighbors_reference(src, tgt, valid),
                                    100)
     tv = tgt[valid].contiguous()
     out["k8_cdist_us"] = _event_us(torch, lambda: torch.cdist(
         src, tv, compute_mode="donot_use_mm_for_euclid_dist").min(1), 200)
-    log(f"  K8 at P = Q = {P} ({tv.shape[0]} valid targets): {out['k8_us']:.2f} us per launch vs "
-        f"{out['k8_plain_us']:.2f} us plain twin, {out['k8_cdist_us']:.2f} us torch.cdist(...).min(1)")
+    regs, spill = out["k8_ptxas"][f"k_nn<{group}>"]
+    log(f"  K8 at P = Q = {P} ({tv.shape[0]} valid targets), C entries in turns: nn_search (a "
+        f"group of {group} threads a point, {threads}-thread CTAs) {t_na:.2f} and {t_nb:.2f} us "
+        f"a launch (CUDA graph replays), nn_search_serial {t_sa:.2f} and {t_sb:.2f} us "
+        f"({out['k8_serial_launch_us'] / out['k8_launch_us']:.2f}x); a call by CUDA events "
+        f"(host work included) {c_na:.2f} and {c_nb:.2f} us, serial {c_sa:.2f} and {c_sb:.2f} "
+        f"us ({out['k8_serial_us'] / out['k8_us']:.2f}x); plain "
+        f"twin {out['k8_plain_us']:.2f} us, torch.cdist(...).min(1) {out['k8_cdist_us']:.2f} us; "
+        f"launches a call (profiler, 10 calls; host launch calls / device kernels): {host:g} / "
+        f"{dev_n:g}, serial {host_s:g}; ptxas k_nn<{group}> {regs} registers, {spill} bytes "
+        f"spill stores")
+    if host != 1:
+        fail(f"K8 made {host} launch calls a call, not 1")
 
     # Host synchronizations per scan (CUDA sync debug mode) over the first scans.
     with warnings.catch_warnings(record=True) as caught:
@@ -2577,7 +2663,29 @@ def phase_k7_kernels(torch, graphs):
                 f"{'bitwise equal' if same_c else 'DIFFERENT'}")
             if not (same_b and same_c):
                 fail(f"{name}: the persistent K7b or K7c differs from its staged sequence")
+    for name, g, p0 in graphs:
+        _k7a_bitwise(torch, cs6, g6, name, g, p0)
     return errs
+
+
+def _k7a_bitwise(torch, cs6, g6, name, g, p0):
+    """K7a, one launch a call, against the staged sequence it replaced
+    (cg6_stage_a_staged), without and with Huber: both ranks' payloads and
+    Aij stashes bitwise (fresh shards each), and two calls alike."""
+    for huber in (-1.0, 1.0):
+        runs = []
+        for staged in (False, True, False):
+            kerns = [sh.kernel() for sh in _k7_two_ranks(cs6, g6, g, p0, huber)]
+            runs.append([t.clone() for k in kerns
+                         for t in (k.stage_a_staged if staged else k.stage_a)(p0)])
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+        twice = all(torch.equal(a, b) for a, b in zip(runs[0], runs[2]))
+        log(f"  {name}, Huber {huber}: K7a stage_a6 (one launch) vs stage_a_staged, both ranks' "
+            f"payloads and Aij: {'bitwise equal' if same else 'DIFFERENT'}; two calls: "
+            f"{'bitwise equal' if twice else 'DIFFERENT'}")
+        if not (same and twice):
+            fail(f"{name}: the persistent K7a differs from its staged sequence or from itself")
 
 
 def phase_dist6_main(torch, graphs, chi2, metrics, mesh):
@@ -2770,41 +2878,55 @@ def phase_dist6_timing(torch, card, graphs, mesh):
     payload, Aij = kern.stage_a(p0)
     st = kern.gn_setup(payload, p0, lam)
     carry = kern.cg_state(st.b)
+    from graphslam_tpu_torch.ops import gn6_kernel as g6
+
+    _k7a_bitwise(torch, cs6, g6, "sphere2500", g, p0)
     out["stage_a_us"] = _event_us(torch, lambda: cs6.stage_a6(sh, p0), 200)
     out["gn_setup_us"] = _event_us(torch, lambda: cs6.gn_setup6(sh, payload, p0, lam), 100)
     out["cg_step_us"] = _event_us(torch, lambda: cs6.cg_step6(sh, st, Aij, carry), 500)
-    # K7b and K7c's C entries in turns with the staged sequences they
-    # replaced: staged, one launch, one launch, staged (CUDA events)
+    # K7a's, K7b's and K7c's C entries in turns with the staged sequences
+    # they replaced: staged, one launch, one launch, staged (CUDA events)
     import ctypes
 
     kern.prob.stream = torch.cuda.current_stream(p0.device).cuda_stream
     lib, prob, step_args = kern.lib, ctypes.byref(kern.prob), kern._step_args[1:]
     entries = {
+        "stage_a": (lambda: lib.cg6_stage_a(prob), lambda: lib.cg6_stage_a_staged(prob), 200),
         "gn_setup": (lambda: lib.cg6_gn_setup(prob, lam.data_ptr()),
                      lambda: lib.cg6_gn_setup_staged(prob, lam.data_ptr()), 100),
         "cg_step": (lambda: lib.cg6_step(prob, *step_args),
                     lambda: lib.cg6_step_staged(prob, *step_args), 500),
     }
+    lib.cg6_row_ctas.argtypes = [ctypes.c_longlong]
     for key, (new, old, reps) in entries.items():
+        for fn in (new, old):
+            rc = fn()
+            if rc:
+                fail(f"cg6_{key}: a C entry returned CUDA error {rc}")
         t_sa = _event_us(torch, old, reps)
         t_na = _event_us(torch, new, reps)
         t_nb = _event_us(torch, new, reps)
         t_sb = _event_us(torch, old, reps)
         host, dev_n = _launches_per_call(torch, new, "Cg6Problem")
         host_s, dev_s = _launches_per_call(torch, old, "Cg6Problem")
-        kname = {"gn_setup": "cg6_gn_setup_wide", "cg_step": "cg6_step_wide"}[key]
+        kname = {"stage_a": "cg6_stage_a_persistent", "gn_setup": "cg6_gn_setup_wide",
+                 "cg_step": "cg6_step_wide"}[key]
         regs, spill = _ptxas("cg_step6", kname)
+        ctas = (lib.cg6_row_ctas(max(sh.N, sh.c + sh.El)) if key == "stage_a"
+                else lib.cg6_wide_ctas(sh.N))  # < 0: a cooperative grid
         out[f"{key}_entry"] = dict(us=min(t_na, t_nb), us_staged=min(t_sa, t_sb), launches=host,
-                                   staged_launches=host_s, ptxas={kname: (regs, spill)})
-        tag = {"gn_setup": "K7b", "cg_step": "K7c"}[key]
-        log(f"  {tag} at sphere2500, C entries in turns (CUDA events): cg6_{key.replace('cg_', '')} "
+                                   staged_launches=host_s, ptxas={kname: (regs, spill)},
+                                   ctas=ctas)
+        tag = {"stage_a": "K7a", "gn_setup": "K7b", "cg_step": "K7c"}[key]
+        log(f"  {tag} at sphere2500 ({abs(ctas)} CTAs, "
+            f"{'a cooperative grid' if ctas < 0 else 'a cluster'}), C entries in turns (CUDA "
+            f"events): cg6_{key.replace('cg_', '')} "
             f"(one launch) {t_na:.2f} and {t_nb:.2f} us, staged {t_sa:.2f} and {t_sb:.2f} us "
             f"({min(t_sa, t_sb) / min(t_na, t_nb):.2f}x); launches a call (profiler, 10 calls; "
             f"host launch calls / device kernels): {host:g} / {dev_n:g}, staged {host_s:g} / "
             f"{dev_s:g}; ptxas {kname} {regs} registers, {spill} bytes spill stores")
         if host != 1:
             fail(f"{tag} made {host} launch calls a call, not 1")
-    host_a, _ = _launches_per_call(torch, lambda: cs6.stage_a6(sh, p0), "Cg6Problem")
     out["stage_a_plain_us"] = _event_us(torch, lambda: cs6.stage_a6_reference(sh, p0), 10)
     ref_pay, ref_A = cs6.stage_a6_reference(sh, p0)
     out["gn_setup_plain_us"] = _event_us(
@@ -2817,7 +2939,8 @@ def phase_dist6_timing(torch, card, graphs, mesh):
     pay = torch.zeros(cs6.payload_size6(sh.N), device=p0.device)
     out["allreduce_big_us"] = _event_us(torch, lambda: mesh.all_reduce(big), 500)
     out["allreduce_payload_us"] = _event_us(torch, lambda: mesh.all_reduce(pay), 200)
-    out["k7_launch_counts_per_call"] = (2, 1, 1)
+    out["k7_launch_counts_per_call"] = tuple(out[f"{k}_entry"]["launches"]
+                                             for k in ("stage_a", "gn_setup", "cg_step"))
     log(f"  per call at sphere2500 (K = {sh.K}; CUDA events, the wrapper included): K7a "
         f"{out['stage_a_us']:.2f} us, K7b {out['gn_setup_us']:.2f} us, K7c "
         f"{out['cg_step_us']:.2f} us; twins on the card {out['stage_a_plain_us']:.2f}, "
@@ -2835,15 +2958,16 @@ def phase_dist6_timing(torch, card, graphs, mesh):
     out["launches_per_it"] = {k: c / n_it for k, (c, _) in groups.items()}
     out["idle_share"] = _log_profile(f"sphere2500 dist_fused6 GN through K7 ({n_it} iterations)",
                                      groups, span, n_it)
-    per_call = (host_a, out["gn_setup_entry"]["launches"], out["cg_step_entry"]["launches"])
+    per_call = out["k7_launch_counts_per_call"]
     per_it = sum(calls[f.__name__] * n for f, n in zip(k7, per_call)) / n_it
     out["cg_step6_launches_per_it"] = per_it
+    dev_it = out["launches_per_it"]["cg_step6.cu"]
     log(f"  cg_step6.cu launches a dist_fused6 GN iteration: {per_it:g} (wrapper calls {calls} "
-        f"over {n_it} iterations times host launch calls a call {per_call}; K7a 2, K7b 1, 26 K7c "
-        f"passes 1 each: 29; staged: 2 + {1 + sh.K} + 26 x {4 + sh.K} = "
-        f"{2 + 1 + sh.K + 26 * (4 + sh.K)})")
-    if per_it != 2 + 1 + 26:
-        fail(f"{per_it} cg_step6.cu launches a dist_fused6 GN iteration, not 29")
+        f"over {n_it} iterations times host launch calls a call {per_call}; K7a 1, K7b 1, 26 K7c "
+        f"passes 1 each: 28; staged: 2 + {1 + sh.K} + 26 x {4 + sh.K} = "
+        f"{2 + 1 + sh.K + 26 * (4 + sh.K)}); device kernels the profiler kept: {dev_it:.1f}")
+    if per_it != 1 + 1 + 26:
+        fail(f"{per_it} cg_step6.cu launches a dist_fused6 GN iteration, not 28")
     return out, sh
 
 
@@ -2987,11 +3111,12 @@ def main() -> int:
                 "spill_store_bytes": {k: v[1] for k, v in red["ptxas"].items()}}
 
     def k7_redesign(red):
-        """The kernels line's fields of K7b or K7c, one launch a call."""
+        """The kernels line's fields of K7a, K7b or K7c, one launch a call."""
         return {"redesigned": True, "ms_entry": red["us"] / 1e3, "ms_staged": red["us_staged"] / 1e3,
                 "launches_per_call": red["launches"],
                 "staged_launches_per_call": red["staged_launches"],
                 "launches_per_it_cg_step6": t6["cg_step6_launches_per_it"],
+                "ctas": abs(red["ctas"]), "cooperative_grid": red["ctas"] < 0,
                 "registers": {k: v[0] for k, v in red["ptxas"].items()},
                 "spill_store_bytes": {k: v[1] for k, v in red["ptxas"].items()}}
 
@@ -3059,9 +3184,19 @@ def main() -> int:
             "route": "cuda",
             "source": "graphslam_tpu_torch/csrc/icp_kernel.cu",
             "replaces": "graphslam_tpu/ops/correspondence.py:39",
+            "redesigned": True,
             "launches": launches["nn_kernel"],
             "max_abs_err": fe["k8_err"],
             "ms": t["k8_us"] / 1e3,
+            "ms_staged": t["k8_serial_us"] / 1e3,
+            "ms_launch": t["k8_launch_us"] / 1e3,
+            "ms_launch_staged": t["k8_serial_launch_us"] / 1e3,
+            "launches_per_call": t["k8_launches_per_call"],
+            "staged_launches_per_call": t["k8_serial_launches_per_call"],
+            "group_threads": t["k8_shape"][0],
+            "cta_threads": t["k8_shape"][1],
+            "registers": {k: v[0] for k, v in t["k8_ptxas"].items()},
+            "spill_store_bytes": {k: v[1] for k, v in t["k8_ptxas"].items()},
             "plain_ms": t["k8_plain_us"] / 1e3,
             "bound_ms": k8_bound,
             "bound_by": k8_by,
@@ -3207,6 +3342,7 @@ def main() -> int:
             "launches_lm": d6["lm_counts"]["stage_a6"],
             "max_abs_err": k7_err["stage_a"],
             "ms": t6["stage_a_us"] / 1e3,
+            **k7_redesign(t6["stage_a_entry"]),
             "plain_ms": t6["stage_a_plain_us"] / 1e3,
             "bound_ms": k7a_bound,
             "bound_by": k7a_by,

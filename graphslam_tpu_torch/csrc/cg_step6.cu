@@ -7,18 +7,19 @@
 // them are the caller's (torch.distributed), so each entry point runs on
 // the caller's stream with no host synchronization:
 //
-//   cg6_stage_a   cg6_linearize  one thread per chain edge and per loop edge
-//                                of this rank: between, SO(3) log, Jr^-1,
-//                                Ad(h^-1), whitening (Huber on loop edges
-//                                when huber_delta > 0), then Aii, Aij, Ajj,
-//                                gi, gj (the loop Aij kept as the CG
-//                                matvec's stash)
-//                 cg6_assemble   one thread per node: D = w (Aii[n] +
-//                                Ajj[n-1]) + this rank's loop blocks, summed
-//                                through a CSR of the node's live edges in
-//                                edge order (no atomics); U = w Aij; g alike.
-//                                w = w_chain is 1 on rank 0 and 0 elsewhere,
-//                                so the all-reduce counts the chain once.
+//   cg6_stage_a   ONE launch of cg6_stage_a_persistent (below)
+//                   linearize  one thread per chain edge and per loop edge
+//                              of this rank: between, SO(3) log, Jr^-1,
+//                              Ad(h^-1), whitening (Huber on loop edges
+//                              when huber_delta > 0), then Aii, Aij, Ajj,
+//                              gi, gj (the loop Aij kept as the CG
+//                              matvec's stash)
+//                   assemble   one thread per node: D = w (Aii[n] +
+//                              Ajj[n-1]) + this rank's loop blocks, summed
+//                              through a CSR of the node's live edges in
+//                              edge order (no atomics); U = w Aij; g alike.
+//                              w = w_chain is 1 on rank 0 and 0 elsewhere,
+//                              so the all-reduce counts the chain once.
 //   cg6_gn_setup  ONE launch of cg6_gn_setup_wide (below)
 //                   setup      one thread per node: + prior blocks (one
 //                              prior per node), D_ii (1 + lam) on the 6
@@ -34,20 +35,27 @@
 //                              loop H p, a group of 6 threads a row, with
 //                              p.chain_Ap and p.tile_Ap a row
 //                   finish     CTA 0: rz, s0 and the s1 partial
-//   cg6_gn_setup_staged, cg6_step_staged  the same as 1 + K and K + 4 small
-//                 launches (cg6_setup and K cg6_pcr_factor; cg6_update, K
-//                 cg6_pcr_apply, cg6_direction, cg6_hvp, cg6_finish: one
+//   cg6_stage_a_staged, cg6_gn_setup_staged, cg6_step_staged  the same as
+//                 2, 1 + K and K + 4 small launches (cg6_linearize and
+//                 cg6_assemble; cg6_setup and K cg6_pcr_factor; cg6_update,
+//                 K cg6_pcr_apply, cg6_direction, cg6_hvp, cg6_finish: one
 //                 thread a row, n_blocks(N) blocks of 256), bitwise equal:
 //                 the yardsticks, never on the path
 //
-// so a CG pass is one launch and a GN iteration 2 + 1 + (cg + 1): 29 at
+// so a CG pass is one launch and a GN iteration 1 + 1 + (cg + 1): 28 at
 // sphere2500's cg 25 (staged: 2 + (K + 1) + (cg + 1) (K + 4) = 431 at K =
 // 12). The scalars rz, s0 (scal) and s1 (the last entry of the all-reduced
 // [tile_Ap; s1]) stay in device memory; every reduction is a fixed tree per
 // 256-row block and a sum of the block partials in index order, so two runs
 // on one card are bitwise equal.
 //
-// The two persistent kernels run on K4's wide stages (se3_blocks.cuh):
+// K7a is K6a's persistent kernel (csrc/cg_step.cu) with SE(3) rows: its
+// stages keep no reduction, so each takes one thread a row over the whole
+// launch on narrow CTAs (kRowThreads6), in persistent.cuh's pass_shape
+// (one pass over the rows: one cluster up to 16 CTAs, else a cooperative
+// grid; sphere2500: 155 CTAs).
+//
+// The two other persistent kernels run on K4's wide stages (se3_blocks.cuh):
 // CTAs of kWide = 384 threads, each 6x6 row on a group of 6 threads with
 // its slot of shared scratch, in wide_shape's shape: one pass over the rows
 // (60 rows a CTA) on one cluster where that takes at most 16 CTAs, else a
@@ -178,11 +186,19 @@ __device__ __forceinline__ void v6scale(V6& a, float s) {
 // K7a: stage A
 // ---------------------------------------------------------------------------
 
-// Thread e < c: chain edge (e, e+1); else this rank's loop edge e - c
+// The one-thread row functions of K7a's assembly and K7b below are
+// __noinline__: the staged kernels and the persistent ones call one
+// compiled body, so the launch shapes round alike (inlined into kernels of
+// other register budgets, nvcc contracted one source to FMAs differently;
+// PERF.md). K7a's linearize row is inlined instead: as a __noinline__ body
+// nvcc contracted it otherwise than inside the staged cg6_linearize it
+// came from, so the payload and Aij lost their bits; inlined, it keeps
+// them in the staged and the persistent kernels alike (the digests of
+// scripts/bench_persistent.py part k7a, on the card; PERF.md).
+
+// Row e < c: chain edge (e, e+1); else this rank's loop edge e - c
 // (cg_step6.py:125-139, :162-179).
-__global__ void __launch_bounds__(kThreads) cg6_linearize(Cg6Problem p, Ws w) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= p.c + p.El) return;
+__device__ __forceinline__ void linearize_row6(const Cg6Problem& p, const Ws& w, int e) {
   Pose xi, xj, z;
   M6 W;
   float huber = -1.f;
@@ -213,11 +229,15 @@ __global__ void __launch_bounds__(kThreads) cg6_linearize(Cg6Problem p, Ws w) {
   st6(out + 78, 0, m6Tvec(Jjw, rw));
 }
 
+__global__ void __launch_bounds__(kThreads) cg6_linearize(Cg6Problem p, Ws w) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= p.c + p.El) return;
+  linearize_row6(p, w, e);
+}
+
 // Node n's payload rows: D = w (Aii[n] + Ajj[n-1]) + loop sum, U = w Aij[n],
 // g = w (gi[n] + gj[n-1]) + loop sum (cg_step6.py:135-143, :189-200).
-__global__ void __launch_bounds__(kThreads) cg6_assemble(Cg6Problem p, Ws w) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= p.N) return;
+__device__ __noinline__ void assemble_row6(const Cg6Problem& p, const Ws& w, int n) {
   const float wc = p.w_chain;
   {
     M6 U = n < p.c ? ld36(w.cAij, n) : m6zero();
@@ -259,14 +279,38 @@ __global__ void __launch_bounds__(kThreads) cg6_assemble(Cg6Problem p, Ws w) {
   st6(p.payload + 72LL * p.N, n, g);
 }
 
+__global__ void __launch_bounds__(kThreads) cg6_assemble(Cg6Problem p, Ws w) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  assemble_row6(p, w, n);
+}
+
+// K7a in one launch (persistent.cuh), K6a's design with SE(3) rows: the
+// rows share no reduction, so each stage takes one thread a row over the
+// whole launch (for_flat) on CTAs of kRowThreads6 threads in pass_shape's
+// shape (one pass over the wider stage's rows: one cluster of at most 16
+// CTAs, else a cooperative grid), with a barrier (stage_sync) where the
+// staged sequence has a kernel boundary; any shape gives the staged
+// launches' values. A linearize row is one thread's long serial chain
+// (~3500 operations: the SO(3) log, Jr^-1, Ad, 6x6 products) on scattered
+// poses, so the fewer rows an SM runs at once the sooner the stage ends:
+// 32-thread CTAs (sphere2500 155, garage 39) beat 64 and 128, and a group
+// of 6 threads an edge (scripts/bench_persistent.py part k7a; PERF.md).
+constexpr int kRowThreads6 = 32;
+
+// The linearize rows over the E = c + El edges, a barrier, the assemble
+// rows over the N nodes -- cg6_linearize and cg6_assemble, row for row; E
+// = 0 still runs the assemble stage. w.blk and w.cAij, written in the first
+// stage, are read in the second with plain loads.
+__global__ void __launch_bounds__(kRowThreads6, 1) cg6_stage_a_persistent(Cg6Problem p, Ws w) {
+  for_flat(p.c + p.El, [&](int e) { linearize_row6(p, w, e); });
+  stage_sync();
+  for_flat(p.N, [&](int n) { assemble_row6(p, w, n); });
+}
+
 // ---------------------------------------------------------------------------
 // K7b: priors, damping and the PCR factor
 // ---------------------------------------------------------------------------
-
-// The one-thread row function below is __noinline__: the staged cg6_setup
-// and the persistent cg6_gn_setup_wide call one compiled body, so the two
-// launch shapes round alike (inlined into kernels of other register
-// budgets, nvcc contracted one source to FMAs differently; PERF.md).
 
 // Row n: D = payload D + Jp^T Jp with r = Log(z^-1 x), J = pW Jr^-1(r), its
 // 6 diagonal entries times (1 + lam); b = -(g + Jp^T pW r)
@@ -546,6 +590,12 @@ __global__ void __launch_bounds__(kWide, 1) cg6_step_wide(Cg6Problem p, Ws w, fl
 
 Ws ws_of(const Cg6Problem& p) { return layout(p.N, p.c, p.El, p.ws); }
 
+// K7a's launch shape over n rows: CTAs of kRowThreads6, one pass.
+template <typename... KArgs>
+cudaError_t row_shape6(void (*kernel)(KArgs...), long long n, Shape& sh) {
+  return pass_shape(kernel, kRowThreads6, kRowThreads6, n, sh);
+}
+
 }  // namespace
 
 extern "C" {
@@ -559,8 +609,22 @@ const char* cg6_error_string(int err) { return cudaGetErrorString((cudaError_t)e
 
 int cg6_problem_size() { return (int)sizeof(Cg6Problem); }
 
-// K7a: the payload and the Aij stash of this rank at p->poses.
+// K7a: the payload and the Aij stash of this rank at p->poses. One launch of
+// cg6_stage_a_persistent in row_shape6's shape over max(N, c + El) rows.
 int cg6_stage_a(const Cg6Problem* pp) {
+  const Cg6Problem& p = *pp;
+  const long long E = (long long)p.c + p.El;
+  Shape sh;
+  const cudaError_t err = row_shape6(cg6_stage_a_persistent, E > p.N ? E : p.N, sh);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_persistent(cg6_stage_a_persistent, sh, kRowThreads6, (cudaStream_t)p.stream,
+                                p, ws_of(p));
+}
+
+// The same stage as 2 launches (cg6_linearize, cg6_assemble): the staged
+// sequence that cg6_stage_a replaced, bitwise equal to it; a yardstick for
+// checks and timings, never on the path.
+int cg6_stage_a_staged(const Cg6Problem* pp) {
   const Cg6Problem& p = *pp;
   const Ws w = ws_of(p);
   const cudaStream_t s = (cudaStream_t)p.stream;
@@ -572,6 +636,14 @@ int cg6_stage_a(const Cg6Problem* pp) {
   cg6_assemble<<<n_blocks(p.N), kThreads, 0, s>>>(p, w);
   CG6_CHECK();
   return 0;
+}
+
+// The CTAs of K7a's launch over n = max(N, c + El) rows, negative where
+// they form a cooperative grid rather than one cluster (0: a CUDA error).
+int cg6_row_ctas(long long n) {
+  Shape sh;
+  if (row_shape6(cg6_stage_a_persistent, n, sh) != cudaSuccess) return 0;
+  return sh.cooperative ? -sh.ctas : sh.ctas;
 }
 
 // The persistent kernels' shape over N rows: CTAs of cg6_step's launch,

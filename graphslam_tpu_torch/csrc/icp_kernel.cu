@@ -58,7 +58,11 @@
 // and the tie rule runs only in the shuffles, and groups without a point
 // skip the scan.
 //
-// K8 (k_nn) keeps the staged shape: one thread a point (block_nearest).
+// K8 (nn_search: k_nn) takes group_nearest on a plain grid, a group of
+// kNnGroup threads a source point on CTAs of kNnThreads, each CTA staging
+// the targets tile by tile; its yardstick nn_search_serial (k_nn_serial)
+// keeps the old shape, one thread a point scanning every target through
+// block_nearest. Both give bitwise the same index and distance.
 //
 // Plain C interface for ctypes: device pointers in a struct, launches on
 // problem->stream, each function returns cudaGetLastError() (0 = success).
@@ -368,22 +372,33 @@ __global__ void k_icp_finish(IcpProblem p, int nb, int early_exit) {
 // The persistent shape: k_icp_rounds
 // ---------------------------------------------------------------------------
 
-// Targets [base, base + n) into the CTA's shared tile: (x, y, valid, 0)
-// and the covariance [c11, c12, c22].
-__device__ __forceinline__ void stage_targets(const IcpProblem& p, int base, int n, float4* st,
-                                              float* sc) {
+// Targets [base, base + n) into the CTA's shared tile as (x, y, valid, 0);
+// extra(j, base + j) stages what else a caller keeps of target base + j.
+template <typename F>
+__device__ __forceinline__ void stage_tile(const float* tgt, const unsigned char* valid, int base,
+                                           int n, float4* st, F extra) {
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
     float4 t;
-    t.x = p.tgt[2 * (base + j)];
-    t.y = p.tgt[2 * (base + j) + 1];
-    t.z = p.tgt_valid[base + j] ? 1.f : 0.f;
+    t.x = tgt[2 * (base + j)];
+    t.y = tgt[2 * (base + j) + 1];
+    t.z = valid[base + j] ? 1.f : 0.f;
     t.w = 0.f;
     st[j] = t;
-    sc[3 * j] = p.ct[3 * (base + j)];
-    sc[3 * j + 1] = p.ct[3 * (base + j) + 1];
-    sc[3 * j + 2] = p.ct[3 * (base + j) + 2];
+    extra(j, base + j);
   }
 }
+
+// What K2 stages of a target beside the tile: its covariance [c11, c12,
+// c22] into sc.
+struct CovStager {
+  const IcpProblem& p;
+  float* sc;
+  __device__ __forceinline__ void operator()(int j, int q) const {
+    sc[3 * j] = p.ct[3 * q];
+    sc[3 * j + 1] = p.ct[3 * q + 1];
+    sc[3 * j + 2] = p.ct[3 * q + 2];
+  }
+};
 
 // No target yet: any distance below +inf comes first.
 constexpr int kNone = 0x7fffffff;
@@ -394,49 +409,55 @@ __device__ __forceinline__ bool before(float d, int i, const Nearest& best) {
   return d < best.d2 || (d == best.d2 && i < best.idx);
 }
 
-// Thread g of a group: targets base + g, base + g + kGroup, ... of the
-// tile, in index order; it keeps the first of its smallest distances
-// below +inf.
+// Thread g of a group of G: targets base + g, base + g + G, ... of the
+// tile, in index order, invalid ones reading `big`; it keeps the first of
+// its smallest distances below +inf.
+template <int G>
 __device__ __forceinline__ void scan_tile(float mx, float my, int g, int base, int n,
-                                          const float4* st, Nearest& best) {
+                                          const float4* st, float big, Nearest& best) {
 #pragma unroll 4
-  for (int j = g; j < n; j += kGroup) {
+  for (int j = g; j < n; j += G) {
     const float4 t = st[j];
-    const float d2 = t.z != 0.f ? dist2(mx, my, t.x, t.y) : kBigIcp;
+    const float d2 = t.z != 0.f ? dist2(mx, my, t.x, t.y) : big;
     if (d2 < best.d2) best = Nearest{d2, base + j};
   }
 }
 
-// The nearest target of the group's point (mx, my) on thread g = 0 of the
-// group (live: the group has a point; the others scan nothing). The
-// group's threads scan interleaved slices and combine (d2, index) by
-// shuffles into the first index of the smallest distance below +inf;
-// where there is none, or where the distance to target 0 is NaN, index 0
-// with that distance. That is block_nearest's serial scan in every case:
-// it takes target 0 first and then only strictly smaller distances, which
-// a NaN never is and +inf is not after a distance of +inf. Every thread of
-// the CTA calls it (shuffles over full warps; __syncthreads between tiles
-// where the targets do not fit at once).
-__device__ Nearest group_nearest(const IcpProblem& p, bool live, float mx, float my, int g,
-                                 bool whole, float4* st, float* sc) {
+// The nearest of the Q targets (invalid ones reading `big`) to the group's
+// point (mx, my), on thread g = 0 of its group of G threads (live: the
+// group has a point; the others scan nothing). The group's threads scan
+// interleaved slices and combine (d2, index) by shuffles into the first
+// index of the smallest distance below +inf; where there is none, or where
+// the distance to target 0 is NaN, index 0 with that distance. That is
+// block_nearest's serial scan in every case: it takes target 0 first and
+// then only strictly smaller distances, which a NaN never is and +inf is
+// not after a distance of +inf. With whole, the Q targets are in the
+// shared tile st already; else every thread of the CTA stages them tile
+// by tile (kLoopTile, extra as stage_tile's), __syncthreads between
+// tiles. Every thread of the CTA calls it (shuffles over full warps).
+template <int G, typename F>
+__device__ Nearest group_nearest(const float* tgt, const unsigned char* valid, int Q, float big,
+                                 bool live, float mx, float my, int g, bool whole, float4* st,
+                                 F extra) {
+  static_assert(32 % G == 0, "a group lies in one warp");
   Nearest best{INFINITY, kNone};
   if (whole) {
-    if (live) scan_tile(mx, my, g, 0, p.Q, st, best);
+    if (live) scan_tile<G>(mx, my, g, 0, Q, st, big, best);
   } else {
-    for (int base = 0; base < p.Q; base += kLoopTile) {
-      const int n = p.Q - base < kLoopTile ? p.Q - base : kLoopTile;
+    for (int base = 0; base < Q; base += kLoopTile) {
+      const int n = Q - base < kLoopTile ? Q - base : kLoopTile;
       __syncthreads();  // the previous tile is consumed
-      stage_targets(p, base, n, st, sc);
+      stage_tile(tgt, valid, base, n, st, extra);
       __syncthreads();
-      if (live) scan_tile(mx, my, g, base, n, st, best);
+      if (live) scan_tile<G>(mx, my, g, base, n, st, big, best);
     }
   }
-  for (int off = kGroup / 2; off > 0; off >>= 1) {
+  for (int off = G / 2; off > 0; off >>= 1) {
     const float d = __shfl_down_sync(0xffffffffu, best.d2, off);
     const int i = __shfl_down_sync(0xffffffffu, best.idx, off);
     if (before(d, i, best)) best = Nearest{d, i};
   }
-  const float d0 = p.tgt_valid[0] ? dist2(mx, my, p.tgt[0], p.tgt[1]) : kBigIcp;
+  const float d0 = valid[0] ? dist2(mx, my, tgt[0], tgt[1]) : big;
   if (d0 != d0 || best.idx == kNone) best = Nearest{d0, 0};
   return best;
 }
@@ -504,7 +525,7 @@ __global__ void __launch_bounds__(kLoopThreads) k_icp_rounds(IcpProblem p, int i
     p.ctrl[0] = 0;
     p.ctrl[1] = 0;
   }
-  if (whole) stage_targets(p, 0, p.Q, st, sc);
+  if (whole) stage_tile(p.tgt, p.tgt_valid, 0, p.Q, st, CovStager{p, sc});
   __syncthreads();
   const int per_cta = (p.P + gridDim.x - 1) / gridDim.x;
   const int passes = (per_cta + kGroupsPerCta - 1) / kGroupsPerCta;
@@ -518,7 +539,8 @@ __global__ void __launch_bounds__(kLoopThreads) k_icp_rounds(IcpProblem p, int i
       const int i = live ? (int)n : 0;
       RoundIn in{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       if (live) in = round_in<kLoop>(p, i, d0, d1, d2);
-      const Nearest nn = group_nearest(p, live, in.mx, in.my, g, whole, st, sc);
+      const Nearest nn = group_nearest<kGroup>(p.tgt, p.tgt_valid, p.Q, kBigIcp, live, in.mx,
+                                               in.my, g, whole, st, CovStager{p, sc});
       if (live && g == 0) {
         const int q = nn.idx;
         const Sums v = whole
@@ -551,9 +573,37 @@ __global__ void __launch_bounds__(kLoopThreads) k_icp_rounds(IcpProblem p, int i
   }
 }
 
-// K8: index and squared distance of the nearest valid target.
-__global__ void k_nn(const float* src, const float* tgt, const unsigned char* valid, int* idx,
-                     float* d2, int P, int Q) {
+// K8: index and squared distance of the nearest valid target (invalid ones
+// reading +inf), a group of G threads a source point on CTAs of blockDim.x
+// threads (a multiple of 32): group_nearest over the targets staged tile by
+// tile. No reduction across points, so no cluster: a plain grid of
+// ceil(P / (blockDim.x / G)) CTAs.
+template <int G>
+__global__ void __launch_bounds__(1024) k_nn(const float* src, const float* tgt,
+                                             const unsigned char* valid, int* idx, float* d2,
+                                             int P, int Q) {
+  __shared__ float4 st[kLoopTile];
+  const int g = threadIdx.x % G;
+  const long long i = (long long)blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
+  const bool live = i < P;
+  const float mx = live ? src[2 * i] : 0.f, my = live ? src[2 * i + 1] : 0.f;
+  const Nearest nn = group_nearest<G>(tgt, valid, Q, INFINITY, live, mx, my, g, false, st,
+                                      [](int, int) {});
+  if (live && g == 0) {
+    idx[i] = nn.idx;
+    d2[i] = nn.d2;
+  }
+}
+
+// K8's launch shape: a group of kNnGroup threads a source point on CTAs of
+// kNnThreads (scripts/bench_persistent.py part k8; PERF.md).
+constexpr int kNnGroup = 16;
+constexpr int kNnThreads = 256;
+
+// The serial yardstick: one thread a point scanning every target
+// (block_nearest), 64-point blocks.
+__global__ void k_nn_serial(const float* src, const float* tgt, const unsigned char* valid,
+                            int* idx, float* d2, int P, int Q) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < P;
   const Nearest nn = block_nearest(live ? src[2 * i] : 0.f, live ? src[2 * i + 1] : 0.f, tgt,
@@ -636,11 +686,27 @@ int icp_match_staged(const IcpProblem* pp, int iterations, int early_exit) {
   return 0;
 }
 
-// K8 on (P, 2) sources and (Q, 2) targets.
+// K8 on (P, 2) sources and (Q, 2) targets: one launch of k_nn<kNnGroup> on
+// CTAs of kNnThreads.
 int nn_search(const float* src, const float* tgt, const unsigned char* valid, int* idx,
               float* d2, int P, int Q, void* stream) {
+  if (P < 1 || Q < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  k_nn<<<point_blocks(P), kBlock, 0, s>>>(src, tgt, valid, idx, d2, P, Q);
+  constexpr int per_cta = kNnThreads / kNnGroup;
+  k_nn<kNnGroup><<<(P + per_cta - 1) / per_cta, kNnThreads, 0, s>>>(src, tgt, valid, idx, d2,
+                                                                     P, Q);
+  ICP_CHECK();
+  return 0;
+}
+
+// K8 as one thread a point (k_nn_serial): the shape nn_search replaced,
+// bitwise equal to it; a yardstick for checks and timings, never on the
+// path.
+int nn_search_serial(const float* src, const float* tgt, const unsigned char* valid, int* idx,
+                     float* d2, int P, int Q, void* stream) {
+  if (P < 1 || Q < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  k_nn_serial<<<point_blocks(P), kBlock, 0, s>>>(src, tgt, valid, idx, d2, P, Q);
   ICP_CHECK();
   return 0;
 }

@@ -152,8 +152,9 @@ def _lib():
     for fn in ("icp_match", "icp_match_staged"):
         getattr(lib, fn).argtypes = [P, ctypes.c_int, ctypes.c_int]
         getattr(lib, fn).restype = ctypes.c_int
-    lib.nn_search.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    lib.nn_search.restype = ctypes.c_int
+    for fn in ("nn_search", "nn_search_serial"):
+        getattr(lib, fn).argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 

@@ -313,7 +313,7 @@ def _lib(name: str = "cg_step", prefix: str = "cg") -> ctypes.CDLL:
     for fn, args in (("stage_a", [P]), ("gn_setup", [P, vp]), ("step", [P] + [vp] * 6),
                      ("stage_a_staged", [P]), ("gn_setup_staged", [P, vp]),
                      ("step_staged", [P] + [vp] * 6)):
-        if hasattr(lib, f"{prefix}_{fn}"):  # cg6 has no staged stage_a (K7a is staged)
+        if hasattr(lib, f"{prefix}_{fn}"):
             getattr(lib, f"{prefix}_{fn}").argtypes = args
             getattr(lib, f"{prefix}_{fn}").restype = ctypes.c_int
     for fn, args, res in (("ws_floats", [ctypes.c_int] * 4, ctypes.c_longlong),
@@ -389,9 +389,9 @@ class CgStepKernel:
         return self._stage_a("stage_a", poses)
 
     def stage_a_staged(self, poses: torch.Tensor):
-        """K6a as its staged sequence (`cg_stage_a_staged`, 2 launches): the
-        yardstick of checks and timings, never on the path. The SE(3)
-        library has none."""
+        """K6a or K7a as its staged sequence (`cg_stage_a_staged`,
+        `cg6_stage_a_staged`: 2 launches): the yardstick of checks and
+        timings, never on the path."""
         return self._stage_a("stage_a_staged", poses)
 
     def _stage_a(self, fn: str, poses: torch.Tensor):

@@ -25,11 +25,13 @@ iteration of parallel/dist_fused6.py's kernel path:
 
 The CUDA source is csrc/cg_step6.cu (plain C interface, built with nvcc by
 ops/_build.py, called through ctypes); its 6x6, SE(3) and PCR device code is
-the fused SE(3) kernel's, shared through csrc/se3_blocks.cuh. K7b and K7c
-are each ONE launch of a persistent kernel on K4's wide stages (a group of
-6 threads a 6x6 row; one cluster or a cooperative grid); their staged
-sequences stay as `CgStep6Kernel.gn_setup_staged` and `cg_step_staged`,
-bitwise equal, for checks and timings only. The TPU layout
+the fused SE(3) kernel's, shared through csrc/se3_blocks.cuh. K7a, K7b
+and K7c are each ONE launch of a persistent kernel: K7a one thread a row
+on narrow CTAs (K6a's design), K7b and K7c on K4's wide stages (a group of
+6 threads a 6x6 row), each on one cluster or a cooperative grid; their
+staged sequences stay as `CgStep6Kernel.stage_a_staged`,
+`gn_setup_staged` and `cg_step_staged`, bitwise equal, for checks and
+timings only. The TPU layout
 ((8, L) planes, 6x6 blocks as 36 plane groups, the tall (42Q, 128) scatter,
 one-hot MXU gathers, hi/lo bf16 splits, 1024-node padding with a circular
 roll) is not carried over: tensors are node-major, loop edges gathered by
@@ -135,8 +137,8 @@ def cg_step6_reference(sh: Shard6, st: Setup, Aij: torch.Tensor, carry: CgState)
 class CgStep6Kernel(cs.CgStepKernel):
     """One rank's Shard6 on the card with K7's buffers: the payload (78N,),
     the Aij stash (El,6,6) and the Setup tensors, each written in place by
-    the launch that produces it. gn_setup and cg_step are one launch each;
-    gn_setup_staged and cg_step_staged are their staged sequences."""
+    the launch that produces it. stage_a, gn_setup and cg_step are one
+    launch each; the *_staged methods are their staged sequences."""
 
     T, P, NAME, PREFIX = 6, 12, "cg_step6", "cg6"
 

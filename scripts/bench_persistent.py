@@ -6,7 +6,7 @@ inside one process.
 Usage, from the root of a checkout:
 
   python3 scripts/bench_persistent.py [--parent DIR] [--rounds R]
-                                      [--parts replay,dist,k4,k2,k5,k6,k7]
+                                      [--parts replay,dist,k4,k2,k5,k6,k7,k7a,k8]
 
 Trees:
   this         this checkout's graphslam_tpu_torch
@@ -30,14 +30,35 @@ Trees:
                __noinline__), or passes their kernels' parameters as
                __grid_constant__ (the row functions then read them in
                place, not from a per-thread copy)
+  k7a-threads64, k7a-threads128, k7a-groups6, k7a-noinline-linearize,
+  k7a-inline-assemble, k7a-swapped-inline
+               copies likewise whose csrc/cg_step6.cu runs K7a on CTAs of
+               64 or 128 threads instead of 32 (kRowThreads6), or gives
+               each edge of its linearize stage a group of 6 threads (5
+               groups a warp, every thread of the group running the serial
+               linearize_edge, thread a then row a of the three 6x6
+               products and component a of the two 6-vectors, sum for sum
+               in m6Tmul's and m6Tvec's order) on 64-thread CTAs, or
+               compiles K7a's linearize row once as a __noinline__ body
+               that the staged and the persistent kernels call (in place
+               of inlining it; both rows then __noinline__), or inlines its
+               assemble row too (__forceinline__ in place of __noinline__;
+               both rows inlined), or does both (linearize __noinline__,
+               assemble inlined)
   k2-group16, k2-group32, k2-threads256, k2-threads512
                copies likewise whose csrc/icp_kernel.cu gives each source
                point a group of 16 or 32 threads instead of 8 (kGroup), or
                runs CTAs of 256 or 512 threads instead of 1024
                (kLoopThreads)
+  k8-g4-t128, ..., k8-g32-t1024
+               copies likewise whose csrc/icp_kernel.cu runs K8 with a
+               group of 4, 8, 16 or 32 threads a source point (kNnGroup)
+               on CTAs of 128, 256 or 1024 threads (kNnThreads): every
+               pair but 16 x 256, this tree's
 
 Each tree runs in a fresh process (`--child DIR`), in the order parent,
-this, the copies, then the reverse, R times. A process builds its tree's
+this, the copies (those --trees names, where given), then the reverse, R
+times. A process builds its tree's
 kernels (cached in the tree), warms up and prints one JSON line:
   replay  frames/s of the 278-scan closed-loop replay (chip_smoke.py's
           phase 8 configuration), median of 3, and a digest of the
@@ -78,8 +99,26 @@ kernels (cached in the tree), warms up and prints one JSON line:
           passes at sphere2500 with Huber (both ranks' outputs), through
           the tree's gn_setup / cg_step and, where it has them, through the
           staged sequences (equal digests across trees: bitwise equal K7)
-The other-shape tree runs k4, k6 and k7 only, the k2-* trees k2 only,
-the k6-* trees k6 only. The card's
+  k7a     us per call of K7a's C entry at sphere2500 and at garage (one
+          rank owning every loop edge), CUDA events over 200 calls, and of
+          cg6_stage_a_staged where the tree has it; the CTAs of the launch
+          (negative: a cooperative grid); a digest of two ranks' K7a
+          outputs (payloads and Aij, half the loop edges each, with and
+          without Huber) at both graphs, and one of the Aij stashes alone
+          (the linearize stage's), through stage_a and, where the tree has
+          it, stage_a_staged (equal digests: bitwise equal K7a)
+  k8      us of K8's C entries at P = Q = 1152 (the replay's scans 1
+          and 0, as k2): nn_search, and nn_search_serial where the tree
+          has it, in turns (each in order, then in reverse), a launch by
+          CUDA events around replays of a CUDA graph of 50 launches (the
+          device's time, without the host's work between launches) and a
+          call by CUDA events around 500 back-to-back calls (the host's
+          ctypes work included); the tree's group and CTA widths; a digest
+          of idx and d2 of each (equal digests: bitwise equal results)
+K2's part also prints a digest of icp_match's and icp_iteration's outputs
+(and of the staged entries' where the tree has them). The other-shape
+tree runs k4, k6 and k7 only, the k2-* trees k2 only, the k6-* trees k6
+only, the k7a-* trees k7a only, the k8-* trees k8 only. The card's
 name and power limit come first; the last line is a JSON summary of every
 process's numbers.
 """
@@ -126,10 +165,98 @@ K6_SHAPES = {
         ("cg_gn_setup_persistent(CgProblem p, Ws w,", "cg_gn_setup_persistent("
          "const __grid_constant__ CgProblem p, const __grid_constant__ Ws w,", 1)],
 }
+# K7a's CTA width and linearize stage (csrc/cg_step6.cu) and the copies
+# that take others: {tree: [(kept text, its replacement, occurrences), ...]}.
+K7A_GROUP_LANE = """// Edge e's linearization on thread a of its group of 6: the serial
+// linearize_edge, then row a of Aij, Aii, Ajj and component a of gi, gj,
+// sum for sum in m6Tmul's and m6Tvec's order.
+__device__ __noinline__ void linearize_lane6(const Cg6Problem& p, const Ws& w, int e, int a) {
+  Pose xi, xj, z;
+  M6 W;
+  float huber = -1.f;
+  float* aij;
+  if (e < p.c) {
+    xi = ld_pose(p.poses, e);
+    xj = ld_pose(p.poses, e + 1);
+    z = ld_pose(p.cz, e);
+    W = ld36(p.cW, e);
+    aij = w.cAij + 36LL * e;
+  } else {
+    const int l = e - p.c;
+    xi = ld_pose(p.poses, p.li[l]);
+    xj = ld_pose(p.poses, p.lj[l]);
+    z = ld_pose(p.lz, l);
+    W = ld36(p.lW, l);
+    huber = p.huber_delta;
+    aij = p.Aij + 36LL * l;
+  }
+  V6 rw;
+  M6 Jiw, Jjw;
+  linearize_edge(xi, xj, z, W, huber, rw, Jiw, Jjw);
+  float* out = w.blk + 84LL * e;
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) s0 += Jiw.m[6 * k + a] * Jjw.m[6 * k + c];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) s1 += Jiw.m[6 * k + a] * Jiw.m[6 * k + c];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) s2 += Jjw.m[6 * k + a] * Jjw.m[6 * k + c];
+    aij[6 * a + c] = s0;
+    out[6 * a + c] = s1;
+    out[36 + 6 * a + c] = s2;
+  }
+  float g0 = 0.f, g1 = 0.f;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) g0 += Jiw.m[6 * k + a] * rw.v[k];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) g1 += Jjw.m[6 * k + a] * rw.v[k];
+  out[72 + a] = g0;
+  out[78 + a] = g1;
+}
+
+constexpr int kRowThreads6 = 64;"""
+K7A_GROUP_LOOP = """  {  // a group of 6 threads an edge, 5 groups a warp
+    const int lane = threadIdx.x & 31;
+    const int slot = (threadIdx.x >> 5) * 5 + lane / 6;
+    const long long per = blockDim.x / 32 * 5, E = (long long)p.c + p.El;
+    for (long long e = blockIdx.x * per + slot; lane < 30 && e < E; e += gridDim.x * per)
+      linearize_lane6(p, w, (int)e, lane % 6);
+  }"""
+K7A_ROWS = ("__device__ __forceinline__ void linearize_row6(",
+            "__device__ __noinline__ void assemble_row6(")
+K7A_SHAPES = {
+    **{f"k7a-threads{t}": [("constexpr int kRowThreads6 = 32;",
+                            f"constexpr int kRowThreads6 = {t};", 1)] for t in (64, 128)},
+    "k7a-groups6": [
+        ("constexpr int kRowThreads6 = 32;", K7A_GROUP_LANE, 1),
+        ("  for_flat(p.c + p.El, [&](int e) { linearize_row6(p, w, e); });", K7A_GROUP_LOOP, 1),
+        ("return pass_shape(kernel, kRowThreads6, kRowThreads6, n, sh);",
+         "return pass_shape(kernel, kRowThreads6, kRowThreads6 / 32 * 5, n, sh);", 1)],
+    # the linearize row as one __noinline__ body that the staged and the
+    # persistent kernels call; the assemble row inlined into both
+    "k7a-noinline-linearize": [(K7A_ROWS[0], K7A_ROWS[0].replace("__forceinline__",
+                                                                 "__noinline__"), 1)],
+    "k7a-inline-assemble": [(K7A_ROWS[1], K7A_ROWS[1].replace("__noinline__",
+                                                              "__forceinline__"), 1)],
+    # the two rows swapped: linearize __noinline__, assemble inlined
+    "k7a-swapped-inline": [(K7A_ROWS[0], K7A_ROWS[0].replace("__forceinline__",
+                                                             "__noinline__"), 1),
+                           (K7A_ROWS[1], K7A_ROWS[1].replace("__noinline__",
+                                                             "__forceinline__"), 1)],
+}
+# K8's launch shape (csrc/icp_kernel.cu) and the copies that take another:
+# {tree: [(kept text, its replacement, occurrences), ...]}.
+K8_SHAPES = {
+    f"k8-g{g}-t{t}": [("constexpr int kNnGroup = 16;", f"constexpr int kNnGroup = {g};", 1),
+                      ("constexpr int kNnThreads = 256;", f"constexpr int kNnThreads = {t};", 1)]
+    for g in (4, 8, 16, 32) for t in (128, 256, 1024) if (g, t) != (16, 256)
+}
 # The kernel sources each part needs built.
 NEEDS = {"replay": ["gn_kernel", "icp_kernel"], "dist": ["gn_kernel", "cg_step", "cg_step6"],
          "k4": ["gn6_kernel"], "k2": ["icp_kernel"], "k5": ["gn6_kernel"], "k6": ["cg_step"],
-         "k7": ["cg_step6"]}
+         "k7": ["cg_step6"], "k7a": ["cg_step6"], "k8": ["icp_kernel"]}
 
 
 def _seconds(torch, fn, reps: int, chain: int) -> float:
@@ -280,10 +407,22 @@ def child_k2(torch):
     delta = init.clone()
     mprob.delta = delta.data_ptr()
 
-    def match():
+    def match(fn="icp_match"):
         delta.copy_(init)
-        lib.icp_match(ctypes.byref(mprob), 32, 1)
-    return {
+        getattr(lib, fn)(ctypes.byref(mprob), 32, 1)
+
+    def digest(match_fn, round_fn):
+        h = hashlib.sha256()
+        match(match_fn)
+        getattr(lib, round_fn)(ctypes.byref(rprob))
+        torch.cuda.synchronize()
+        for t in (delta, mkeep[9], mkeep[10], rkeep[9]):  # delta, out, ctrl; a round's out
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+    out = {"k2_digest": digest("icp_match", "icp_iteration")}
+    if hasattr(lib, "icp_match_staged"):
+        out["k2_staged_digest"] = digest("icp_match_staged", "icp_iteration_staged")
+    return {**out,
         "k2_round_us": _event_us(torch, lambda: lib.icp_iteration(ctypes.byref(rprob)), 500),
         "k2_match_us": _event_us(torch, match, 200),
         "k2_gicp_match_us": _event_us(torch, lambda: icp.gicp_match(
@@ -416,6 +555,132 @@ def child_k7(torch):
     return out
 
 
+def child_k7a(torch):
+    import ctypes
+
+    from graphslam_tpu_torch.factors import from_dataset
+    from graphslam_tpu_torch.io import datasets
+    from graphslam_tpu_torch.ops import gn6_kernel as g6
+    from graphslam_tpu_torch.ops.pcg_kernel import pcr_levels_for
+    from graphslam_tpu_torch.parallel import cg_step6 as cs6
+
+    dev = torch.device("cuda")
+    out = {}
+    for name in ("sphere2500", "garage"):
+        d = getattr(datasets, name)()
+        g, p0 = from_dataset(d, device=dev), torch.from_numpy(d["poses"]).to(dev)
+        N = p0.shape[0]
+        pk, K = g6.pack_graph6(g, N), pcr_levels_for(N, None)
+        kern = cs6.CgStep6Kernel(cs6.make_shard6(pk, 0, pk.El, K, 1.0, -1.0))
+        lib = kern.lib
+        staged = hasattr(lib, "cg6_stage_a_staged")  # a tree with the persistent K7a
+        fns = ("stage_a", "stage_a_staged") if staged else ("stage_a",)
+        for fn in fns:
+            h, h_aij = hashlib.sha256(), hashlib.sha256()
+            for huber in (-1.0, 1.0):
+                half = pk.El // 2
+                for sh in (cs6.make_shard6(pk, 0, half, K, 1.0, huber),
+                           cs6.make_shard6(pk, half, pk.El, K, 0.0, huber)):
+                    payload, Aij = getattr(cs6.CgStep6Kernel(sh), fn)(p0)
+                    h.update(payload.cpu().numpy().tobytes())
+                    h.update(Aij.cpu().numpy().tobytes())
+                    h_aij.update(Aij.cpu().numpy().tobytes())
+            tag = "staged_" if fn.endswith("staged") else ""
+            out[f"k7a_{name}_{tag}digest"] = h.hexdigest()[:16]
+            out[f"k7a_{name}_{tag}aij_digest"] = h_aij.hexdigest()[:16]
+        kern.prob.stream = torch.cuda.current_stream(dev).cuda_stream
+        kern.prob.poses = p0.data_ptr()
+        prob = ctypes.byref(kern.prob)
+        out[f"k7a_{name}_entry_us"] = _event_us(torch, lambda: lib.cg6_stage_a(prob), 200)
+        if staged:
+            out[f"k7a_{name}_staged_us"] = _event_us(torch, lambda: lib.cg6_stage_a_staged(prob),
+                                                     200)
+            lib.cg6_row_ctas.argtypes = [ctypes.c_longlong]
+            out[f"k7a_{name}_ctas"] = lib.cg6_row_ctas(max(N, pk.c + pk.El))  # < 0: a grid
+    return out
+
+
+def child_k8(torch):
+    import ctypes
+    import re
+
+    import numpy as np
+    from graphslam_tpu_torch.config import FrontendConfig
+    from graphslam_tpu_torch.frontend.projection import beam_angles, scan_to_points
+    from graphslam_tpu_torch.ops import icp_kernel as ik
+    from graphslam_tpu_torch.sim import simulate_trajectory
+
+    fc = FrontendConfig()
+    sim = simulate_trajectory(fc, step_len=0.25, seed=1)
+    dev = torch.device("cuda")
+    angles = beam_angles(fc.num_beams, fc.fov_rad, device=dev)
+    (sp, _), (tp, tm) = (scan_to_points(torch.from_numpy(sim["scans"][t]).to(dev), angles,
+                                        fc.min_range, fc.max_range, fc.max_points)
+                         for t in (1, 0))
+    init = torch.from_numpy(np.asarray(sim["odom_deltas"][0], np.float32)).to(dev)
+    src = ik._round_inputs(sp, init)[0].contiguous()
+    P, Q = src.shape[0], tp.shape[0]
+    lib = ik._lib()
+    entries = {"nn_search": "nn_search"}
+    out = {}
+    if hasattr(lib, "nn_search_serial"):  # a tree with the redesigned K8
+        entries["serial"] = "nn_search_serial"
+        text = (Path(ik.__file__).resolve().parent.parent / "csrc" / "icp_kernel.cu").read_text()
+        out["k8_shape"] = [int(re.search(rf"constexpr int {c} = (\d+);", text).group(1))
+                           for c in ("kNnGroup", "kNnThreads")]
+    bufs = {k: (torch.empty(P, dtype=torch.int32, device=dev),
+                torch.empty(P, dtype=torch.float32, device=dev)) for k in entries}
+
+    def call(key):
+        idx, d2 = bufs[key]
+        args = (src.data_ptr(), tp.data_ptr(), tm.data_ptr(), idx.data_ptr(), d2.data_ptr(), P, Q)
+        return lambda stream: getattr(lib, entries[key])(*args, ctypes.c_void_p(stream))
+    for key in entries:
+        if call(key)(torch.cuda.current_stream(dev).cuda_stream):
+            raise RuntimeError(f"K8 {key}: a CUDA error")
+    torch.cuda.synchronize()
+    for key, (idx, d2) in bufs.items():
+        h = hashlib.sha256(idx.cpu().numpy().tobytes())
+        h.update(d2.cpu().numpy().tobytes())
+        out[f"k8_{key}_digest"] = h.hexdigest()[:16]
+    times = {f"{k}_{how}": [] for k in entries for how in ("us", "call_us")}
+    for key in list(entries) + list(entries)[::-1]:
+        times[f"{key}_us"].append(_graph_us(torch, call(key)))
+        launch = call(key)
+        times[f"{key}_call_us"].append(_event_us(
+            torch, lambda: launch(torch.cuda.current_stream().cuda_stream), 500))
+    out.update({f"k8_{k}": min(v) for k, v in times.items()})
+    return out
+
+
+def _graph_us(torch, launch, launches: int = 50, replays: int = 20) -> float:
+    """Microseconds a launch, by CUDA events around `replays` replays of a
+    CUDA graph of `launches` calls of launch(stream): the device's time,
+    without the host's work between launches. launch(stream) enqueues on
+    the stream it is given."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            launch(side.cuda_stream)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(launches):
+            launch(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return 1e3 * a.elapsed_time(b) / (replays * launches)
+
+
 def child(tree: str, what: str) -> int:
     sys.path.insert(0, tree)
     import torch
@@ -430,7 +695,8 @@ def child(tree: str, what: str) -> int:
     out = {}
     for part in parts:
         out.update({"replay": child_replay, "dist": child_dist, "k4": child_k4, "k2": child_k2,
-                    "k5": child_k5, "k6": child_k6, "k7": child_k7}[part](torch))
+                    "k5": child_k5, "k6": child_k6, "k7": child_k7, "k7a": child_k7a,
+                    "k8": child_k8}[part](torch))
     print(json.dumps(out), flush=True)
     return 0
 
@@ -458,7 +724,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="root of another checkout to compare with")
     ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("--parts", default="replay,dist,k4,k2,k5,k6,k7")
+    ap.add_argument("--parts", default="replay,dist,k4,k2,k5,k6,k7,k7a,k8")
+    ap.add_argument("--trees", help="the copies to run besides this tree and the parent "
+                    "(comma-separated labels; default: every copy the parts take)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--what", default="replay,dist,k4", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -484,6 +752,19 @@ def main() -> int:
     if "k2" in parts:
         for label, edit in K2_SHAPES.items():
             trees[label] = (edited_tree(label, "icp_kernel.cu", edit), "k2")
+    if "k7a" in parts:
+        for label, edit in K7A_SHAPES.items():
+            trees[label] = (edited_tree(label, "cg_step6.cu", edit), "k7a")
+    if "k8" in parts:
+        for label, edit in K8_SHAPES.items():
+            trees[label] = (edited_tree(label, "icp_kernel.cu", edit), "k8")
+    if args.trees is not None:
+        keep = set(args.trees.split(",")) - {""}
+        unknown = keep - set(trees)
+        if unknown:
+            print(f"bench_persistent: no copy {sorted(unknown)} for these parts", file=sys.stderr)
+            return 2
+        trees = {k: v for k, v in trees.items() if k == "this" or k in keep}
     order = list(trees)
     if args.parent:
         trees["parent"] = (Path(args.parent).resolve(), args.parts)

@@ -6,7 +6,7 @@ Usage:  python scripts/emulate_gn_kernel.py [--poses N]
         python scripts/emulate_gn_kernel.py --dist [--poses N]
         python scripts/emulate_gn_kernel.py --dist6 [--rings R --per-ring P]
         python scripts/emulate_gn_kernel.py --persistent
-               [--kernels k3,k6c,k6ab,k1,k4,k5,k7b,k7c,k2]
+               [--kernels k3,k6c,k6ab,k1,k4,k5,k7a,k7b,k7c,k2,k8]
                [--poses N[,N...]] [--rings R[,R...] --per-ring P[,P...]]
                [--max-cluster C] [--unplaceable]
         python scripts/emulate_gn_kernel.py --vs-tree DIR [--poses N]
@@ -51,19 +51,27 @@ CPU tensors, each against its plain torch twin:
            rank, both ranks' payloads, Aij and Setups, K1 and K4
            (gn_solve_staged, gn_lm_solve_staged and their gn6 twins) in GN
            mode with warm start and a cg ramp and in LM mode with Huber, K5
-           (gn6_factor + gn6_cg) at lam 0 and at 1e-3 masked, K7b and K7c
+           (gn6_factor + gn6_cg) at lam 0 and at 1e-3 masked, K7a
+           (cg6_stage_a_staged) on two ranks without and with Huber,
+           masked and with a chain-only rank 0, both ranks' payloads and
+           Aij, K7b and K7c
            (cg6_gn_setup_staged, cg6_step_staged) on two ranks, with and
            without Huber, at lam 0 and 1e-3, masked and chain-only, the
            Setup and the whole carry after 1 and 26 passes, K2
            (icp_match_staged, icp_iteration_staged) bit for bit on a
-           simulated scan pair and random points (k2_persistent_checks).
+           simulated scan pair and random points (k2_persistent_checks),
+           K8 (nn_search against nn_search_serial) bit for bit on random
+           points, ties, duplicate targets, no valid target, 1700 targets,
+           NaN and infinite points (k8_persistent_checks).
            One build serves every size: lists of sizes give one JSON line
-           each (size i: manhattan(N_i), sphere(R_i, P_i)), K2 one line of
-           its own first. --max-cluster
+           each (size i: manhattan(N_i), sphere(R_i, P_i)), K2 and K8 one
+           line of their own first. --max-cluster
            C caps the cluster, and the emulated card's SMs, at C CTAs, so
            that a CTA walks several row blocks or passes; --unplaceable
-           makes the occupancy query place no cluster and checks that every
-           persistent entry raises while the staged sequences still run
+           makes the occupancy query place no cluster and checks that
+           every persistent entry raises while the staged sequences still
+           run (K8's plain grid needs no co-residency: a card that cannot
+           place its CTA fails the launch itself)
            (tests/test_torch_persistent_emu.py)
   --vs-tree DIR  gn_kernel.cu, cg_step.cu, gn6_kernel.cu and cg_step6.cu of
            this checkout against those of the checkout DIR (e.g. `git
@@ -459,7 +467,7 @@ def load_ops(libs, names=("gn_kernel", "pcg_kernel")):
         sys.modules[mod.__name__] = mod
         setattr(ops_pkg, name, mod)
         code = path.read_text().replace('.type != "cuda"', '.type == "never"')
-        if name == "icp_kernel":
+        if name in ("icp_kernel", "correspondence"):
             code = code.replace('.device.type == "cpu"', '.device.type == "never"')
         exec(compile(code, str(path), "exec"), mod.__dict__)
         mods.append(mod)
@@ -694,6 +702,47 @@ def k6ab_persistent_checks(out, cs, pk, p0, K):
         out[f"k6b_{name}_finite"] = bool(torch.isfinite(dinv).all()) and float(dinv.abs().max()) > 0
 
 
+def k7a_persistent_checks(out, cs6, g6, g, p0, lib6):
+    """K7a (stage_a, one launch of cg6_stage_a_persistent) against
+    stage_a_staged on two ranks' shards of the sphere g (the chain on rank
+    0), bitwise: both ranks' payloads and Aij stashes. Cases: half the loop
+    edges each without Huber and with Huber, masked loop slots clipped onto
+    node 0 (Huber), and a chain-only rank 0 (El = 0) beside a rank 1 with
+    every loop edge; and that chain-only rank 0 on sphere(6, 10) (60 rows,
+    a cluster where the cap allows it). Also each case's launch CTAs of
+    both ranks (< 0: a cooperative grid)."""
+    from graphslam_tpu_torch.factors import from_dataset
+    from graphslam_tpu_torch.io import datasets
+    from graphslam_tpu_torch.ops.pcg_kernel import pcr_levels_for
+
+    c = g.chain_prefix
+    mask, edges = g.edge_mask.clone(), g.edges.clone()
+    mask[c::2] = False
+    edges[c::2] = 0
+    small = datasets.sphere(n_rings=6, poses_per_ring=10, seed=1)
+    lib6.cg6_row_ctas.argtypes = [ctypes.c_longlong]
+    for name, graph, huber, half, poses in (
+            ("plain", g, -1.0, True, p0), ("huber", g, 1.0, True, p0),
+            ("masked", g.replace(edge_mask=mask, edges=edges), 1.0, True, p0),
+            ("chain_rank", g, 1.0, False, p0),
+            ("small_chain_rank", from_dataset(small, device="cpu"), 1.0, False,
+             torch.from_numpy(small["poses"]))):
+        n = poses.shape[0]
+        pk, K = g6.pack_graph6(graph, n), pcr_levels_for(n, None)
+        cut = pk.El // 2 if half else 0
+        shards = [cs6.make_shard6(pk, 0, cut, K, 1.0, huber),
+                  cs6.make_shard6(pk, cut, pk.El, K, 0.0, huber)]
+        runs = []
+        for staged in (False, True):
+            kerns = [cs6.CgStep6Kernel(sh) for sh in shards]
+            runs.append([t.clone() for k in kerns
+                         for t in (k.stage_a_staged if staged else k.stage_a)(poses)])
+        out[f"k7a_{name}_bitwise"] = all(torch.equal(a, b) for a, b in zip(*runs))
+        out[f"k7a_{name}_finite"] = all(bool(torch.isfinite(t).all()) for t in runs[0]) and \
+            float(runs[0][0].abs().max()) > 0
+        out[f"k7a_{name}_ctas"] = [lib6.cg6_row_ctas(max(sh.N, sh.c + sh.El)) for sh in shards]
+
+
 def k7_persistent_checks(out, cs6, g6, g, p0):
     """K7b (gn_setup) and K7c (cg_step), one launch each, against
     gn_setup_staged and cg_step_staged on two ranks' shards of the sphere
@@ -877,6 +926,50 @@ def k2_persistent_checks(out, ik):
     round_("k2_round_inf_points", inf_pts)
 
 
+def k8_persistent_checks(out, cc, ik):
+    """K8 (nearest_neighbors: k_nn, a group of threads a source point)
+    against nearest_neighbors_serial (one thread a point), bit for bit: idx,
+    and d2 with NaNs by their bits. Cases: random points (P = 300, not a
+    multiple of the groups a CTA), ties (coordinates on a half grid),
+    duplicate targets, no valid target, 1700 targets (above the 1536 a CTA stages at once; the
+    nearest in the last tile), NaN and infinite source points."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    f = np.float32
+    P, Q = 300, 256
+    src = torch.from_numpy(rng.normal(size=(P, 2)).astype(f))
+    tgt = torch.from_numpy(rng.normal(size=(Q, 2)).astype(f))
+    valid = torch.from_numpy(rng.random(Q) < 0.85)
+    ties_src, ties_tgt = torch.round(src * 2) / 2, torch.round(tgt * 2) / 2
+    dup = tgt.clone()
+    dup[1::3] = dup[0::3][: dup[1::3].shape[0]]
+    Qt = 1700
+    tile_tgt = torch.from_numpy(rng.normal(size=(Qt, 2)).astype(f))
+    tile_tgt[Qt - 40:] = src[:40] + 0.01
+    tile_valid = torch.from_numpy(rng.random(Qt) < 0.9)
+    nan_src, inf_src = src.clone(), src.clone()
+    nan_src[::7] = float("nan")
+    nan_src[3::7, 1] = float("nan")
+    inf_src[::11] = float("inf")
+    inf_src[5::11, 0] = float("-inf")
+    cases = {"random": (src, tgt, valid), "ties": (ties_src, ties_tgt, valid),
+             "duplicates": (src, dup, valid),
+             "no_valid": (src, tgt, torch.zeros(Q, dtype=torch.bool)),
+             "tiles": (src, tile_tgt, tile_valid), "nan_points": (nan_src, tgt, valid),
+             "inf_points": (inf_src, tgt, valid)}
+    for name, args in cases.items():
+        a = cc.nearest_neighbors(*args)
+        b = cc.nearest_neighbors_serial(*args)
+        out[f"k8_{name}_bitwise"] = all(bits_equal(x, y) for x, y in zip(a, b))
+    ridx, _ = cc.nearest_neighbors_reference(*cases["ties"])
+    out["k8_ties_twin_idx"] = bool(torch.equal(cc.nearest_neighbors(*cases["ties"])[0], ridx))
+    idx, d2 = cc.nearest_neighbors(*cases["no_valid"])
+    out["k8_no_valid_inf_at_0"] = bool((idx == 0).all() and torch.isinf(d2).all())
+    out["k8_tiles_q"] = Qt
+    out["k8_points"] = P
+
+
 LM_ARGS = (1e-5, 10.0, 1e-10, 1e7, 1e-9, 1e-6)  # lam0, factor, min, max, abs_tol, rel_tol
 
 
@@ -1004,16 +1097,19 @@ def k5_refusal_checks(out, p6, g, p0):
 
 
 def k7_refusal_checks(out, cs6, g6, g, p0):
-    """Where the card cannot place the cluster or the grid, K7b's gn_setup
-    and K7c's cg_step raise; their staged sequences still run."""
+    """Where the card cannot place the cluster or the grid, K7a's stage_a,
+    K7b's gn_setup and K7c's cg_step raise; their staged sequences still
+    run."""
     from graphslam_tpu_torch.ops.pcg_kernel import pcr_levels_for
 
     n = p0.shape[0]
     pk = g6.pack_graph6(g, n)
     kern = cs6.CgStep6Kernel(cs6.make_shard6(pk, 0, pk.El, pcr_levels_for(n, None), 1.0, -1.0))
-    pay, Aij = kern.stage_a(p0)
+    pay, Aij = kern.stage_a_staged(p0)
     lam = torch.zeros(1)
-    calls = (("k7b", lambda: kern.gn_setup(pay, p0, lam)),
+    calls = (("k7a", lambda: kern.stage_a(p0)),
+             ("k7a_staged", lambda: kern.stage_a_staged(p0)),
+             ("k7b", lambda: kern.gn_setup(pay, p0, lam)),
              ("k7b_staged", lambda: kern.gn_setup_staged(pay, p0, lam)),
              ("k7c", lambda: kern.cg_step(Aij, carry)),
              ("k7c_staged", lambda: kern.cg_step_staged(Aij, carry)))
@@ -1026,7 +1122,7 @@ def k7_refusal_checks(out, cs6, g6, g, p0):
             out[f"{name}_raised"] = str(e)
 
 
-KERNELS = ("k3", "k6c", "k6ab", "k1", "k4", "k5", "k7b", "k7c", "k2")
+KERNELS = ("k3", "k6c", "k6ab", "k1", "k4", "k5", "k7a", "k7b", "k7c", "k2", "k8")
 
 
 def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool = False,
@@ -1041,22 +1137,26 @@ def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool 
     sequences run."""
     need = {"k3": "gn_kernel", "k1": "gn_kernel", "k6c": "cg_step", "k6ab": "cg_step",
             "k4": "gn6_kernel",
-            "k5": "gn6_kernel", "k7b": "cg_step6", "k7c": "cg_step6", "k2": "icp_kernel"}
+            "k5": "gn6_kernel", "k7a": "cg_step6", "k7b": "cg_step6", "k7c": "cg_step6",
+            "k2": "icp_kernel", "k8": "icp_kernel"}
     libs = build_all({name: (name, build_dir, ROOT) for name in sorted({need[k] for k in kernels})},
                      max_cluster, unplaceable)
     mods = load_ops(libs, ("gn_kernel", "pcg_kernel", "gn6_kernel", "pcg6_kernel",
-                           "icp_kernel"))
-    gk, pk, g6, p6, ik = mods
+                           "icp_kernel", "correspondence"))
+    gk, pk, g6, p6, ik, cc = mods
     cs, cs6 = load_cg_step({k: libs[k] for k in ("cg_step", "cg_step6") if k in libs})[:2]
     from graphslam_tpu_torch.factors import from_dataset
     from graphslam_tpu_torch.io import datasets
 
-    if "k2" in kernels and not unplaceable:
-        # K2 has one size of its own: one JSON line before the others
+    if {"k2", "k8"} & set(kernels) and not unplaceable:
+        # K2 and K8 have sizes of their own: one JSON line before the others
         out = {}
-        k2_persistent_checks(out, ik)
+        if "k2" in kernels:
+            k2_persistent_checks(out, ik)
+        if "k8" in kernels:
+            k8_persistent_checks(out, cc, ik)
         print(json.dumps(out), flush=True)
-        kernels = [k for k in kernels if k != "k2"]
+        kernels = [k for k in kernels if k not in ("k2", "k8")]
         if not kernels:
             return
     for i in range(max(len(ns), len(spheres))):
@@ -1073,7 +1173,7 @@ def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool 
             lib_cg.cg_row_ctas.argtypes = [ctypes.c_longlong]
             out.update(k6a_ctas=lib_cg.cg_row_ctas(max(n, g.num_edges)),
                        k6b_ctas=lib_cg.cg_row_ctas(n))
-        k7 = {"k7b", "k7c"} & set(kernels)
+        k7 = {"k7a", "k7b", "k7c"} & set(kernels)
         if {"k4", "k5"} & set(kernels) or k7:
             d6 = datasets.sphere(n_rings=rings, poses_per_ring=per_ring, seed=1)
             g_6 = from_dataset(d6, device="cpu")
@@ -1085,7 +1185,8 @@ def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool 
                 ctas = lib6.gn6_wide_ctas(n6)  # negative: a cooperative grid
                 out.update(slots6=lib6.gn6_wide_slots(), ctas6=abs(ctas), grid6=ctas < 0)
             if k7:
-                ctas = ctypes.CDLL(str(libs["cg_step6"])).cg6_wide_ctas(n6)
+                lib_cg6 = ctypes.CDLL(str(libs["cg_step6"]))
+                ctas = lib_cg6.cg6_wide_ctas(n6)
                 out.update(ctas7=abs(ctas), grid7=ctas < 0)
         if unplaceable:
             if {"k3", "k6c", "k6ab"} <= set(kernels):
@@ -1118,18 +1219,20 @@ def main_persistent(ns, spheres, build_dir, max_cluster: int, unplaceable: bool 
                                     pose_max)
         if "k5" in kernels:
             k5_persistent_checks(out, p6, g_6, p_6)
-        if k7:
+        if "k7a" in kernels:
+            k7a_persistent_checks(out, cs6, g6, g_6, p_6, lib_cg6)
+        if {"k7b", "k7c"} & set(kernels):
             k7_persistent_checks(out, cs6, g6, g_6, p_6)
         print(json.dumps(out), flush=True)
 
 
 class _StagedAliases:
-    """A build from before the persistent K1/K4 (K6a/K6b, K7b/K7c), whose
+    """A build from before the persistent K1/K4 (K6a/K6b, K7a-c), whose
     entries are the staged sequences: `<p>_solve_staged` and
     `<p>_lm_solve_staged` resolve to its `<p>_solve` and `<p>_lm_solve`
     (`cg_stage_a_staged` and `cg_gn_setup_staged` to `cg_stage_a` and
-    `cg_gn_setup`; `cg6_gn_setup_staged` and `cg6_step_staged` to
-    `cg6_gn_setup` and `cg6_step`)."""
+    `cg_gn_setup`; `cg6_stage_a_staged`, `cg6_gn_setup_staged` and
+    `cg6_step_staged` to `cg6_stage_a`, `cg6_gn_setup` and `cg6_step`)."""
 
     def __init__(self, lib):
         self._lib = lib
@@ -1172,8 +1275,8 @@ def main_vs_tree(tree: Path, n: int, rings: int, per_ring: int, build_dir) -> No
     emulation: on manhattan(n) K1's GN (warm, cg ramp) and LM solves, K3
     and K6a-c (two ranks, 26 K6c passes, Huber; also as this checkout's
     staged sequences); on sphere(rings, per_ring) K4's GN and LM solves,
-    K5 and K7a-c likewise (K7b and K7c also as this checkout's staged
-    sequences); every output held to torch.equal. K1 and K4 run both as
+    K5 and K7a-c likewise (also as this checkout's staged sequences);
+    every output held to torch.equal. K1 and K4 run both as
     this checkout's persistent entries and as its staged ones (an older
     tree's entries that this one redesigned are staged: _StagedAliases). Checks that a change of a shared header
     or of a launch shape leaves the outputs as they were."""
@@ -1227,7 +1330,7 @@ def main_vs_tree(tree: Path, n: int, rings: int, per_ring: int, build_dir) -> No
         args = p6._chain_and_loops(sys6, torch.tensor(1e-3), True, g_6.chain_prefix, T=6)
         kern5 = p6.Pcg6Kernel(*args, 25)
         res["k5"] = [kern5.solve().clone(), kern5.staged().clone()]
-        for key, staged in (("k7", ()), ("k7_staged", ("gn_setup", "cg_step"))):
+        for key, staged in (("k7", ()), ("k7_staged", ("stage_a", "gn_setup", "cg_step"))):
             res[key] = _two_rank_k67(cs6, cs6.make_shard6, cs6.CgStep6Kernel,
                                      g6.pack_graph6(g_6, n6), pcr_levels_for(n6, None), p_6,
                                      staged)

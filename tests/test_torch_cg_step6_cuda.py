@@ -228,3 +228,48 @@ def test_gn_setup6_and_cg_step6_are_one_launch(graph):
         assert calls == {"cudaLaunchKernelExC": 3}, (name, calls)
         launches = {e.key: e.count for e in events if "Cg6Problem" in e.key}
         assert all(name in k for k in launches) and sum(launches.values()) <= 3, launches
+
+
+@pytest.fixture(scope="module", params=["sphere2500", "garage"])
+def full_graph(dev, request):
+    data = getattr(datasets, request.param)()
+    return from_dataset(data, device=dev), torch.from_numpy(data["poses"]).to(dev)
+
+
+@pytest.mark.parametrize("huber", [-1.0, 1.0])
+def test_stage_a6_one_launch_equals_staged_bitwise(full_graph, huber):
+    # K7a (one launch of cg6_stage_a_persistent) against cg6_stage_a_staged
+    # on two ranks' fresh shards: both ranks' payloads and Aij stashes, and
+    # a second call alike
+    g, p0 = full_graph
+    runs = []
+    for staged in (False, True, False):
+        kerns = [sh.kernel() for sh in _ranks(g, p0, huber)]
+        runs.append([t.clone() for k in kerns
+                     for t in (k.stage_a_staged if staged else k.stage_a)(p0)])
+    torch.cuda.synchronize()
+    assert torch.isfinite(runs[0][0]).all() and runs[0][0].abs().max() > 0
+    for x, y, z in zip(*runs):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_stage_a6_is_one_launch(full_graph):
+    from torch.profiler import ProfilerActivity, profile
+
+    g, p0 = full_graph
+    sh = _ranks(g, p0)[0]
+    kern = sh.kernel()
+    N, rows = sh.N, max(sh.N, sh.c + sh.El)
+    kern.lib.cg6_row_ctas.argtypes = [ctypes.c_longlong]
+    assert kern.lib.cg6_row_ctas(rows) != 0
+    for fn, want in ((lambda: cs6.stage_a6(sh, p0), {"cudaLaunchKernelExC": 3}),
+                     (lambda: kern.stage_a_staged(p0), {"cudaLaunchKernel": 6})):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        calls = {e.key: e.count for e in prof.key_averages()
+                 if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC")}
+        assert calls == want, (N, calls)

@@ -118,6 +118,42 @@ def test_nearest_neighbors_matches_twin(dev, case):
     torch.testing.assert_close(d2, rd2, rtol=1e-6, atol=0.0)
 
 
+@pytest.mark.parametrize("case", ["full_width", "unaligned", "ties", "no_valid", "long_Q",
+                                  "nan_points", "inf_points"])
+def test_nearest_neighbors_equals_serial_bitwise(dev, case):
+    # K8 (a group of threads a point) against nn_search_serial (one thread
+    # a point) bit for bit,
+    # NaN distances by their bits; the index also the twin's where no
+    # source point is NaN (argmin takes a NaN as the smallest)
+    rng = np.random.default_rng(7)
+    P, Q = {"full_width": (1152, 1152), "long_Q": (300, 5000)}.get(case, (200, 300))
+    src = rng.normal(size=(P, 2)).astype(np.float32)
+    tgt = rng.normal(size=(Q, 2)).astype(np.float32)
+    valid = rng.random(Q) < 0.8
+    if case == "ties":
+        src, tgt = np.round(src * 2) / 2, np.round(tgt * 2) / 2
+    if case == "no_valid":
+        valid[:] = False
+    if case == "nan_points":
+        src[::7] = np.nan
+    if case == "inf_points":
+        src[::11] = np.inf
+    s, t, v = (torch.from_numpy(a).to(dev) for a in (src, tgt, valid))
+    idx, d2 = correspondence.nearest_neighbors(s, t, v)
+    sidx, sd2 = correspondence.nearest_neighbors_serial(s, t, v)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, sidx) and torch.equal(_bits(d2), _bits(sd2))
+    if case != "nan_points":
+        assert torch.equal(idx, correspondence.nearest_neighbors_reference(s, t, v)[0])
+
+
+def test_nearest_neighbors_is_one_launch(dev):
+    args = full_width_inputs(dev)
+    src, tgt, valid = args[0], args[3], args[4]
+    assert _host_launches(lambda: correspondence.nearest_neighbors(src, tgt, valid)) == {
+        "cudaLaunchKernel": 1}
+
+
 @pytest.mark.parametrize("early_exit", [True, False], ids=["early_exit", "fixed_length"])
 def test_gicp_match_kernel_matches_plain(dev, early_exit):
     args, init = scan_pair(dev)

@@ -3,14 +3,16 @@
 K3 (`gn_pcg`) and K6a-c (`cg_stage_a`, `cg_gn_setup`, `cg_step`), the
 whole solves of K1 (`gn_solve`,
 `gn_lm_solve`, csrc/gn_kernel.cu) and K4 (`gn6_solve`, `gn6_lm_solve`,
-csrc/gn6_kernel.cu), K5 (`gn6_pcg`), K7b and K7c (`cg6_gn_setup`,
+csrc/gn6_kernel.cu), K5 (`gn6_pcg`), K7a-c (`cg6_stage_a`, `cg6_gn_setup`,
 `cg6_step`, csrc/cg_step6.cu) and K2's IRLS loop and round (`icp_match`,
 `icp_iteration`, csrc/icp_kernel.cu), each run as one launch of a
 persistent kernel on a thread-block cluster (or a cooperative grid), with
 a barrier where the staged sequences (`gn_factor` + `gn_cg`,
 `cg_stage_a_staged`, `cg_gn_setup_staged`, `cg_step_staged`, `gn_solve_staged`, `gn_lm_solve_staged` and their gn6
-twins, `gn6_factor` + `gn6_cg`, `cg6_gn_setup_staged`, `cg6_step_staged`,
-`icp_match_staged`, `icp_iteration_staged`) have a kernel boundary. Without a card, the sources are built with g++ under the
+twins, `gn6_factor` + `gn6_cg`, `cg6_stage_a_staged`, `cg6_gn_setup_staged`, `cg6_step_staged`,
+`icp_match_staged`, `icp_iteration_staged`) have a kernel boundary; and K8
+(`nn_search`, a group of threads a source point on a plain grid) against
+the one-thread-a-point `nn_search_serial`. Without a card, the sources are built with g++ under the
 emulation of scripts/emulate_gn_kernel.py: a cluster launch runs every
 thread of every CTA at once, `cluster.sync()` is a barrier over all of
 them, `__syncthreads` one per CTA, `__syncwarp` and the shuffles one per
@@ -22,8 +24,9 @@ rows takes at most the cap, else a cooperative grid with a grid barrier:
 sphere(10, 10) (100 poses) runs on a cluster of 2 CTAs, and sphere(9, 60)
 (540 poses: three 256-row blocks, so that the block partials' order
 shows) on a grid of 2 CTAs that walk five passes; K5, K7b and K7c (K4's
-wide stages, the same shape) ride in the same run (one build of
-gn6_kernel.cu and one of cg_step6.cu). Each case holds the persistent
+wide stages, the same shape) and K7a (one thread a row on narrow CTAs)
+ride in the same run (one build of gn6_kernel.cu and one of
+cg_step6.cu). Each case holds the persistent
 kernels to
 their staged sequences with torch.equal (K3 at lam 0 and 1e-3, with
 masked loop slots and on the chain alone, K5 at lam 0 and at 1e-3 with
@@ -35,7 +38,9 @@ Setups (one thread a row on narrow CTAs: at 600 poses a cooperative grid
 of 2 CTAs walking passes); K7b and K7c
 on two ranks (half the loop edges each, the chain on rank 0) without Huber
 at lam 0, with Huber at lam 1e-3, with masked loop slots and on the chain
-alone, both ranks' Setups and whole carries after 1 and 26 passes; K1 and K4
+alone, both ranks' Setups and whole carries after 1 and 26 passes; K7a on
+two ranks without and with Huber, masked and with a chain-only rank 0,
+both ranks' payloads and Aij stashes; K1 and K4
 in GN mode with warm start and a cg ramp, poses and x, and in LM mode with
 Huber, poses and stats). K2 runs once, on a simulated scan pair of 320
 points (2 CTAs of 160, 128 a pass: 2 passes), bit for bit: the loop's
@@ -45,10 +50,14 @@ after some rounds) and without (every round), the source scan on itself
 source points with invalid and duplicate targets (ties), and 1700 random
 targets (above the 1536 a CTA holds in shared memory: a tile at a time);
 a round on random points, on targets above one tile, with no valid
-target, with NaN points and with infinite points. Where the card cannot
-place the cluster (the emulated occupancy query places none, and a
-cooperative grid finds no room), every persistent entry raises, and
-nothing falls back to the staged sequences.
+target, with NaN points and with infinite points. K8 rides in K2's run:
+idx and d2 bit for bit (NaNs by their bits) on random points (P = 300),
+ties, duplicate targets, no valid target, 1700 targets, NaN and infinite
+source points. Where the card cannot place the cluster (the emulated
+occupancy query places none, and a cooperative grid finds no room), every
+persistent entry raises, and nothing falls back to the staged sequences
+(K8's plain grid needs no co-residency; on a card that cannot place its
+CTA the launch itself fails and the wrapper raises).
 
 The emulation runs in a subprocess with a timeout, so that a barrier that
 not every thread reaches fails the test instead of hanging it. One build
@@ -115,9 +124,9 @@ def se2_runs(gxx, tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def se3_runs(gxx, tmp_path_factory):
-    # K5 rides in K4's run (one build of gn6_kernel.cu), K7b and K7c too
+    # K5 rides in K4's run (one build of gn6_kernel.cu), K7a-c too
     # (cg_step6.cu built beside it)
-    return _family(tmp_path_factory, "se3", "--kernels", "k4,k5,k7b,k7c",
+    return _family(tmp_path_factory, "se3", "--kernels", "k4,k5,k7a,k7b,k7c",
                    "--rings", ",".join(str(r) for r, _ in SE3_SPHERES.values()),
                    "--per-ring", ",".join(str(p) for _, p in SE3_SPHERES.values()))
 
@@ -172,15 +181,33 @@ def test_k7_setup_and_cg_pass_equal_their_staged_sequences(se3_runs, case):
     # sphere(10, 10), a grid of 2 CTAs walking five passes at sphere(9, 60)
     out = se3_runs[case]
     assert (out["ctas7"], out["grid7"]) == (out["ctas6"], out["grid6"]), out
-    checks = {k: v for k, v in out.items() if k.startswith("k7")}
+    checks = {k: v for k, v in out.items() if k.startswith(("k7b", "k7c"))}
     want = {f"k7{s}_{c}_{t}" for c in K7_CASES
             for s, t in (("b", "bitwise"), ("c", "bitwise"), ("c", "finite"))}
     assert set(checks) == want and all(checks.values()), checks
 
 
+K7A_CASES = ("plain", "huber", "masked", "chain_rank", "small_chain_rank")
+
+
+@pytest.mark.parametrize("case", list(SE3_SPHERES))
+def test_k7a_stage_equals_its_staged_sequence(se3_runs, case):
+    # K7a takes one thread a row on narrow CTAs, one pass over max(N, c +
+    # El) rows where the cap allows it (the chain-only rank 0 of
+    # sphere(6, 10): a cluster), else a cooperative grid of the 2 CTAs the
+    # emulated card holds, walking passes (every rank of the case's sphere)
+    out = se3_runs[case]
+    for c in K7A_CASES:
+        assert out[f"k7a_{c}_bitwise"] and out[f"k7a_{c}_finite"], (c, out)
+    ctas = [n for c in K7A_CASES[:-1] for n in out[f"k7a_{c}_ctas"]]
+    assert all(n == -MAX_CLUSTER for n in ctas), out
+    assert 0 < out["k7a_small_chain_rank_ctas"][0] <= MAX_CLUSTER, out
+
+
 @pytest.fixture(scope="module")
 def k2_run(gxx, tmp_path_factory):
-    return _family(tmp_path_factory, "k2", "--kernels", "k2")["k2"]
+    # K8 rides in K2's run (one build of icp_kernel.cu)
+    return _family(tmp_path_factory, "k2", "--kernels", "k2,k8")["k2"]
 
 
 @pytest.mark.parametrize("case", K2_CASES)
@@ -207,13 +234,29 @@ def test_icp_round_equals_its_staged_sequence(k2_run):
     assert out["k2_round_nan_points_nan"], out
 
 
+K8_CASES = ("random", "ties", "duplicates", "no_valid", "tiles", "nan_points", "inf_points")
+
+
+@pytest.mark.parametrize("case", K8_CASES)
+def test_nn_search_equals_its_serial_shape(k2_run, case):
+    # idx and d2 (NaNs by their bits) of nn_search those of
+    # nn_search_serial; P = 300 is no multiple of a CTA's groups
+    out = k2_run
+    assert out[f"k8_{case}_bitwise"], out
+    assert out["k8_points"] % 32 and out["k8_tiles_q"] > out["k2_tile"], out
+    if case == "ties":
+        assert out["k8_ties_twin_idx"], out
+    if case == "no_valid":
+        assert out["k8_no_valid_inf_at_0"], out
+
+
 def test_unplaceable_cluster_raises_without_fallback(gxx, tmp_path):
     # K4 at 180 poses with 2 CTAs at most takes the cooperative grid, for
     # which the emulated card holds no CTA (gn6_wide_ctas: 0, an error)
     (out,) = _emulate(tmp_path, "--poses", "300", "--rings", "6", "--per-ring", "30",
                       "--max-cluster", str(MAX_CLUSTER), "--unplaceable")
     assert out["ctas6"] == 0, out
-    for name in ("k3", "k6a", "k6b", "k6c", "k1", "k1_lm", "k4", "k4_lm", "k5", "k7b", "k7c",
-                 "k2", "k2_round"):
+    for name in ("k3", "k6a", "k6b", "k6c", "k1", "k1_lm", "k4", "k4_lm", "k5", "k7a", "k7b",
+                 "k7c", "k2", "k2_round"):
         assert out[f"{name}_raised"] and "failed: CUDA error" in out[f"{name}_raised"], out
         assert out[f"{name}_staged_raised"] is None, out
