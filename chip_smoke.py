@@ -8,8 +8,9 @@ csrc/cg_step.cu and csrc/cg_step6.cu with nvcc (in parallel), holds every
 kernel against its plain torch twin, drives the slices of the port (SE(2)
 GN, the online pipeline, LM, SE(3), the distributed SE(2) and SE(3)
 solvers) through the entry points a user calls, and times the kernel paths
-and the plain paths on the card. Phases, each failing with a traceback and
-a nonzero exit:
+and the plain paths on the card, then drives the modules around them that
+hold no kernel (the Schur solvers, the marginals, the twist replay).
+Phases, each failing with a traceback and a nonzero exit:
 
   1. device info: card name and power limit (nvidia-smi), CUDA, nvcc,
      triton; float32 matmuls at "highest" precision, TF32 off
@@ -208,6 +209,39 @@ a nonzero exit:
      launches per GN iteration by source and the idle share (profiler),
      and the cg_step6.cu launches an iteration from the wrappers' counts
      times their launches a call (1 + 1 + 26 = 28)
+ 23. the partitioned Schur solves (solver/schur.py, parallel/dist_schur.py;
+     no kernel) at sphere2500 and m3500 in 8 blocks, on the linearization at
+     the initial poses, lam 1e-6: the separator Q equal to the JAX plan's
+     (700, 1859); schur_solve against the float64 dense solve of the same
+     damped system within 10 times the JAX package's own error on the CPU
+     (float32 at a separator of condition 2.3e8), and in float64
+     within 1e-5 (the method); dist_schur_solve at world size 1 over NCCL
+     bitwise schur_solve; two calls of each bitwise; ms a call (events)
+ 24. the config-5 main path: dist_schur_gn_solve, 10 GN iterations, 8
+     blocks, world size 1 over NCCL, at sphere2500 and m3500, gated on the
+     JAX package's CPU runs (scripts/schur_gate_jax.py): ATE within 0.02 m,
+     chi2 within 1% (SE(3): 2%); two runs bitwise; GN it/s (median of 3
+     solves), no host synchronization inside an iteration (CUDA sync
+     debug mode), ms an iteration by stage (events at the iteration's marks:
+     assembly, block Cholesky and triangular solves, separator products,
+     separator Cholesky, the 3 all-reduces, retraction), the idle share
+     (profiler) and peak memory; two gloo ranks on the one card against
+     one rank, on manhattan(160, loop_prob 0.25) within 1e-4 (the JAX mesh
+     test's) and on manhattan(1000) within twice the JAX package's own
+     one-vs-two-device difference
+ 25. marginals at m3500's ground truth: marginal_covariances_all against
+     the float64 dense marginals, its error at most twice JAX's on the same
+     input (scripts/schur_gate_jax.py);
+     marginal_covariance_cg for poses 0, 1749 and 3499 against the dense
+     blocks likewise; times and peak memory of each
+ 26. the config-3 path: run_slam_from_twists over phase 7's tour, fed the
+     twists odom_deltas / 0.1, gated on the JAX package's CPU run
+     (scripts/replay_gate_jax.py --twists 0.1: keyframes within 3, loops
+     at least 2 fewer, ATE at most 0.02 m above); K1 and K2 launched; two
+     runs bitwise; frames/s beside phase 8's; the tour through save_log and
+     load_log bitwise; raycast_grid on the default world at 0.04 m and 1081
+     beams against raycast at 9 poses (median error < 0.05 m, 97th
+     percentile < 0.3 m, tests/test_grid.py's bounds) and its time a scan
 
 Before the last line it prints one JSON object describing the kernels
 (max_abs_err: gn_kernel the larger of its m3500 and replay-solve pose
@@ -328,6 +362,52 @@ JAX_DIST6 = {
     "garage_lm": {"chi2": 1477.664306640625, "ate": 0.13682299852371216, "steps": 20},
     "garage_lm_hs3": {"chi2": 1477.659423828125, "ate": 0.13640356063842773, "steps": 20},
 }
+# The JAX package's partitioned Schur GN on one CPU device
+# (scripts/schur_gate_jax.py: dist_schur_gn_solve, 10 iterations at lam 1e-6,
+# 8 blocks; jax 0.9.0), with the separator Q of its plan and solve_err, its
+# schur_solve's error at the initial linearization (the script's solve_*);
+# ate_tpu is RESULTS.md:247-248's TPU run, a cross-check only.
+JAX_SCHUR = {
+    "gn_sphere2500": {"Q": 700, "chi2": 14512.38671875, "ate": 0.08867432922124863,
+                      "ate_tpu": 0.133, "solve_err": 0.001629358449981407},
+    "gn_m3500": {"Q": 1859, "chi2": 5720.83740234375, "ate": 0.15117621421813965,
+                 "ate_tpu": 0.151, "solve_err": 0.00309087577366693},
+}
+# The same script's marginals at m3500's ground truth: the largest error of
+# marginal_covariances_all over the largest entry of a float64 inverse of
+# the same float32 Hessian (the float32 Woodbury subtraction cancels on the
+# 3500-pose chain), and of marginal_covariance_cg (250 CG iterations) for
+# poses 0, 1749 and 3499 over the largest entry of each float64 block.
+JAX_MARGINALS = {"all_err": 11.598440054091332,
+                 "cg_err": {"0": 0.9214115615787863, "1749": 0.9819154506906291,
+                            "3499": 0.9742551682361066}}
+SCHUR_BLOCKS = 8          # scripts/bench_all.py:302-312: max(8, devices)
+SCHUR_ITERS = 10          # scripts/bench_all.py:304-305
+SCHUR_TWO_RANK_ITERS = 5
+TOL_SCHUR_MESH = 1e-4     # mesh-size invariance of dist_schur (tests/test_schur.py:101)
+# The JAX package's own dist_schur GN, 5 iterations, 8 blocks, one device
+# against two (scripts/schur_gate_jax.py, mesh_*): the wrapped largest
+# difference; the separator solve amplifies the order of the ranks' sums.
+# manhattan(1000) is held to SCHUR_MESH_K times it: the card read 3.8e-4
+# there against the JAX test's 1e-4, which is its graph's (manhattan(160)).
+JAX_SCHUR_MESH = {"manhattan160": 1.6689300537109375e-06, "manhattan1000": 0.00031280517578125}
+SCHUR_MESH_K = 2
+# schur_solve against the float64 dense solve, over the largest |dx|, is
+# held to SCHUR_SOLVE_K times the JAX package's own error on the CPU
+# (JAX_SCHUR's solve_err). Float32 at a separator of condition 2.3e8
+# (m3500's initial linearization, measured on the card): the card read
+# 2.28e-2 at m3500 (7.4x JAX's 3.1e-3) and 3.3e-3 at sphere2500 (2.0x),
+# against a first bound of 1e-2 (JAX's Schur-vs-dense test's rtol, on small
+# graphs); the factor 10 was set after those readings. The separator
+# Cholesky alone in float64 gives 5e-4, and the method itself is held in
+# float64 within TOL_SCHUR64_REL of the dense solve (1.6e-6 measured).
+SCHUR_SOLVE_K = 10
+TOL_SCHUR64_REL = 1e-5
+TWIST_DT = 0.1            # seconds between scans of the twist replay
+# The JAX package's run_slam_from_twists over phase 7's tour and config, fed
+# odom_deltas / TWIST_DT (scripts/replay_gate_jax.py --twists 0.1, jax 0.9.0).
+JAX_TWISTS = {"keyframes": 110, "loops": 29, "ate": 0.060558050870895386,
+              "ate_dead_reckoned": 0.5801027417182922}
 TOL_KERNEL_PATH = 2e-4    # the JAX kernel path vs its XLA loop (tests/test_dist_fused.py:170)
 # K6a/K6b against their twins on the card: float32 with FMAs against float32
 # without. Under Huber at m3500 the floor-based angle wrap alone, rounded once
@@ -2971,6 +3051,413 @@ def phase_dist6_timing(torch, card, graphs, mesh):
     return out, sh
 
 
+def _schur_problems(torch, datasets, from_dataset):
+    """sphere2500 and m3500 on the card: {name: (graph, poses0, gt, plan)},
+    8 blocks (scripts/bench_all.py:302-312: max(8, devices) blocks)."""
+    from graphslam_tpu_torch.solver.schur import schur_plan
+
+    dev = torch.device("cuda")
+    out = {}
+    for name, data in (("sphere2500", datasets.sphere2500()), ("m3500", datasets.m3500())):
+        g = from_dataset(data, device=dev)
+        p0 = torch.from_numpy(data["poses"]).to(dev)
+        gt = torch.from_numpy(data["gt"]).to(dev)
+        out[name] = (g, p0, gt, schur_plan(g.edges.cpu().numpy(), p0.shape[0], SCHUR_BLOCKS))
+    return out
+
+
+def _dense_solve64(torch, sys, lam):
+    """dx of the same damped system assembled and Cholesky-solved in float64."""
+    from graphslam_tpu_torch.solver.normal_eq import BlockSystem, assemble_dense
+
+    s64 = BlockSystem(*(x.double() if x.is_floating_point() else x for x in sys))
+    N, T = sys.g.shape
+    L = torch.linalg.cholesky(assemble_dense(s64, lam.double()))
+    return torch.cholesky_solve(-s64.g.reshape(N * T, 1), L).reshape(N, T)
+
+
+def phase_schur_solves(torch, problems, mesh):
+    log(f"== phase 23: Schur solves at sphere2500 and m3500, {SCHUR_BLOCKS} blocks")
+    from graphslam_tpu_torch.factors import linearize
+    from graphslam_tpu_torch.parallel.dist_schur import dist_schur_solve
+    from graphslam_tpu_torch.solver import build_blocks
+    from graphslam_tpu_torch.solver.schur import schur_solve
+
+    out = {}
+    for name, (g, p0, _, plan) in problems.items():
+        N = p0.shape[0]
+        ref = JAX_SCHUR[f"gn_{name}"]
+        log(f"  {name}: {N} poses, {plan.B} blocks of {plan.S} interior slots, separator Q "
+            f"{plan.Q} (the JAX plan's {ref['Q']}, scripts/schur_gate_jax.py)")
+        if plan.Q != ref["Q"]:
+            fail(f"{name}: separator {plan.Q} poses, the JAX plan {ref['Q']}")
+        sys = build_blocks(linearize(p0, g), g, N)
+        lam = torch.tensor(1e-6, device=p0.device)
+        dx = schur_solve(plan, sys, lam)
+        dx2 = schur_solve(plan, sys, lam)
+        dd = dist_schur_solve(plan, sys, lam, mesh)
+        dd2 = dist_schur_solve(plan, sys, lam, mesh)
+        torch.cuda.synchronize()
+        if not torch.isfinite(dx).all():
+            fail(f"{name}: schur_solve dx is not finite")
+        x64 = _dense_solve64(torch, sys, lam)
+        err = float((dx.double() - x64).abs().max() / x64.abs().max())
+        _check(f"{name} schur_solve vs the float64 dense solve of the same damped system "
+               f"(lam 1e-6), max |d| over max |dx| (JAX on the CPU {ref['solve_err']:.2e})",
+               err, SCHUR_SOLVE_K * ref["solve_err"])
+        s64 = sys._replace(**{f: getattr(sys, f).double() for f in ("Aii", "Aij", "Ajj", "diag",
+                                                                   "g")})
+        err64 = float((schur_solve(plan, s64, lam.double()) - x64).abs().max() / x64.abs().max())
+        _check(f"{name} schur_solve in float64 vs the float64 dense solve (the method)", err64,
+               TOL_SCHUR64_REL)
+        for a, b, what in ((dx, dx2, "schur_solve, two calls"),
+                           (dd, dd2, "dist_schur_solve, two calls"),
+                           (dd, dx, "dist_schur_solve at world size 1 vs schur_solve")):
+            if not torch.equal(a, b):
+                fail(f"{name}: {what} differ: max {float((a - b).abs().max())}")
+            log(f"  {name}: {what}: bitwise equal")
+        ms = _event_us(torch, lambda: schur_solve(plan, sys, lam), reps=5) / 1e3
+        ms_d = _event_us(torch, lambda: dist_schur_solve(plan, sys, lam, mesh), reps=5) / 1e3
+        log(f"  {name}: schur_solve {ms:.3f} ms a call, dist_schur_solve {ms_d:.3f} ms (CUDA "
+            "events, 5 calls)")
+        out[name] = {"Q": plan.Q, "err": err, "err64": err64, "ms": ms, "dist_ms": ms_d}
+    return out
+
+
+_SCHUR_STAGES = ("assemble_partials", "all_reduce_partials", "assemble", "block_cholesky",
+                 "separator_products", "all_reduce_separator", "separator_cholesky",
+                 "back_substitution", "all_reduce_dx", "retract")
+
+
+def _schur_stage_ms(torch, g, p0, plan, mesh, iters: int = 10):
+    """Device ms of each stage of dist_schur's GN iteration at this rank, by
+    CUDA events recorded at the iteration's marks, averaged over `iters`
+    iterations (after one to warm up)."""
+    from graphslam_tpu_torch.parallel.dist_schur import gn_iteration, prepare_rank
+
+    sh = prepare_rank(g, plan, mesh)
+    lam = torch.tensor(1e-6, device=p0.device)
+    gn_iteration(p0, sh, mesh, lam)
+    totals = dict.fromkeys(_SCHUR_STAGES, 0.0)
+    p = p0
+    for _ in range(iters):
+        events = []
+
+        def mark(stage):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events.append((stage, e))
+
+        mark("start")
+        p = gn_iteration(p, sh, mesh, lam, mark=mark)
+        torch.cuda.synchronize()
+        for (_, a), (stage, b) in zip(events, events[1:]):
+            totals[stage] += a.elapsed_time(b)
+    return {k: v / iters for k, v in totals.items()}
+
+
+def _schur_syncs(torch, g, p0, plan, mesh):
+    """The host synchronizations of one dist_schur GN iteration at this
+    rank (CUDA sync debug mode, after one iteration to warm up), as
+    [file:line] of each."""
+    import warnings
+
+    from graphslam_tpu_torch.parallel.dist_schur import gn_iteration, prepare_rank
+
+    sh = prepare_rank(g, plan, mesh)
+    lam = torch.tensor(1e-6, device=p0.device)
+    p = gn_iteration(p0, sh, mesh, lam)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            gn_iteration(p, sh, mesh, lam)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [f"{w.filename}:{w.lineno}" for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+# the two-rank check's graphs: tests/test_schur.py:82-101's and
+# scripts/bench_all.py's quick dist_schur case
+SCHUR_TWO_RANK_GRAPHS = {"manhattan160": dict(n_poses=160, seed=26, loop_prob=0.25),
+                         "manhattan1000": dict(n_poses=1000, seed=5)}
+
+
+def _two_rank_schur_worker(rank: int, port: int, out_path: str, root: str) -> None:
+    """One of two gloo ranks on the one card: dist_schur_gn_solve on each
+    graph of _two_rank_schur_problems; rank 0 saves the poses."""
+    sys.path.insert(0, root)
+    import torch
+
+    from graphslam_tpu_torch.factors import from_dataset
+    from graphslam_tpu_torch.io import datasets
+    from graphslam_tpu_torch.parallel import multihost
+    from graphslam_tpu_torch.parallel.dist_schur import dist_schur_gn_solve
+
+    multihost.initialize(f"127.0.0.1:{port}", 2, rank, device="cuda", backend="gloo")
+    mesh = multihost.global_mesh(device="cuda")
+    out = {name: dist_schur_gn_solve(p0, g, plan, mesh, iterations=SCHUR_TWO_RANK_ITERS).cpu()
+           for name, (g, p0, plan) in _two_rank_schur_problems(torch, datasets, from_dataset,
+                                                              mesh.device).items()}
+    torch.cuda.synchronize()
+    if multihost.is_coordinator():
+        torch.save(out, out_path)
+    torch.distributed.destroy_process_group()
+
+
+def _two_rank_schur_problems(torch, datasets, from_dataset, dev):
+    """SCHUR_TWO_RANK_GRAPHS in 8 blocks each: 4 on each rank, the
+    separator edges round-robin. {name: (graph, poses0, plan)}."""
+    from graphslam_tpu_torch.solver.schur import schur_plan
+
+    out = {}
+    for name, kw in SCHUR_TWO_RANK_GRAPHS.items():
+        data = datasets.manhattan(**kw)
+        g = from_dataset(data, device=dev)
+        p0 = torch.from_numpy(data["poses"]).to(dev)
+        out[name] = (g, p0, schur_plan(g.edges.cpu().numpy(), p0.shape[0], SCHUR_BLOCKS))
+    return out
+
+
+def phase_schur_gn(torch, problems, chi2, metrics, mesh):
+    log(f"== phase 24: the config-5 main path: dist_schur_gn_solve, {SCHUR_ITERS} GN iterations, "
+        f"{SCHUR_BLOCKS} blocks, world size 1 over NCCL")
+    import socket
+    import tempfile
+
+    from graphslam_tpu_torch.parallel.dist_schur import dist_schur_gn_solve
+
+    out = {}
+    for name, (g, p0, gt, plan) in problems.items():
+        ref = JAX_SCHUR[f"gn_{name}"]
+
+        def solve(p):
+            return dist_schur_gn_solve(p, g, plan, mesh, iterations=SCHUR_ITERS)
+
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = solve(p0)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        res2 = solve(p0)
+        torch.cuda.synchronize()
+        if not torch.isfinite(res).all():
+            fail(f"{name}: dist_schur GN poses are not finite")
+        ate0, ate, err = float(metrics.ate(p0, gt)), float(metrics.ate(res, gt)), float(chi2(res, g))
+        tol = SE3_CHI2_REL if name == "sphere2500" else TOL_CHI2_REL
+        log(f"  {name}: chi2 {err:.2f} (JAX {ref['chi2']:.2f}), ATE {ate0:.4f} -> {ate:.4f} (JAX "
+            f"{ref['ate']:.4f}; RESULTS.md's TPU run {ref['ate_tpu']:.3f}, a cross-check only)")
+        if not (abs(ate - ref["ate"]) <= LM_ATE_BAND_M and abs(err - ref["chi2"]) <= tol * ref["chi2"]):
+            fail(f"{name}: dist_schur GN gate failed (ATE {ate}, chi2 {err})")
+        if not torch.equal(res, res2):
+            fail(f"{name}: two dist_schur GN runs differ: max {float((res - res2).abs().max())}")
+        log(f"  {name}: two runs bitwise equal; peak device memory above the inputs {peak:.3f} GiB")
+        syncs = _schur_syncs(torch, g, p0, plan, mesh)
+        log(f"  {name}: host synchronizations in one GN iteration (sync debug mode): "
+            f"{len(syncs)} {syncs}")
+        if syncs:
+            fail(f"{name}: a dist_schur GN iteration synchronizes with the host at {syncs}")
+        secs = _time_solves(torch, solve, p0, 3, 1)
+        stages = _schur_stage_ms(torch, g, p0, plan, mesh)
+        total = sum(stages.values())
+        log(f"  {name}: {SCHUR_ITERS / secs:.2f} GN it/s ({1e3 * secs / SCHUR_ITERS:.3f} ms an "
+            f"iteration, median of 3 solves); by stage (CUDA events, ms an iteration, "
+            f"{total:.3f} in all):")
+        for k, v in stages.items():
+            log(f"    {k:22s} {v:9.3f}")
+        groups, span = _profile_launches(torch, lambda: solve(p0))
+        idle = _log_profile(f"{name} dist_schur GN solve ({SCHUR_ITERS} iterations)", groups, span,
+                            SCHUR_ITERS)
+        out[name] = {"ate": ate, "chi2": err, "it_s": SCHUR_ITERS / secs, "stages": stages,
+                     "syncs": len(syncs),
+                     "idle_share": idle, "peak_gib": peak}
+
+    log("  two gloo ranks on the one card (CUDA tensors) vs world size 1, "
+        f"{SCHUR_BLOCKS} blocks, {SCHUR_TWO_RANK_ITERS} iterations")
+    from graphslam_tpu_torch.factors import from_dataset
+    from graphslam_tpu_torch.io import datasets
+
+    cases = _two_rank_schur_problems(torch, datasets, from_dataset, mesh.device)
+    one = {name: dist_schur_gn_solve(p0, g, plan, mesh, iterations=SCHUR_TWO_RANK_ITERS)
+           for name, (g, p0, plan) in cases.items()}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "two_ranks_schur.pt")
+        procs = [ctx.Process(target=_two_rank_schur_worker, args=(r, port, path, str(ROOT)))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if any(p.exitcode != 0 for p in procs):
+            fail(f"two-rank dist_schur run failed: exit codes {[p.exitcode for p in procs]}")
+        two = torch.load(path)
+    out["two_rank_err"] = {}
+    for name, (g, p0, plan) in cases.items():
+        err = wrapped_max(two[name].to(one[name].device), one[name])
+        # the JAX test's tolerance on its graph; elsewhere twice the JAX
+        # package's own one-vs-two-device difference
+        tol = TOL_SCHUR_MESH if name == "manhattan160" else SCHUR_MESH_K * JAX_SCHUR_MESH[name]
+        _check(f"{name} (Q {plan.Q} of {p0.shape[0]} poses; JAX one vs two devices "
+               f"{JAX_SCHUR_MESH[name]:.3e}): two ranks vs one rank, wrapped max", err, tol)
+        out["two_rank_err"][name] = err
+    return out
+
+
+def phase_marginals(torch, datasets, from_dataset):
+    log("== phase 25: marginals at m3500 (ground-truth poses)")
+    from graphslam_tpu_torch.solver.marginals import (
+        marginal_covariance_cg, marginal_covariances_all, marginal_covariances_dense)
+
+    dev = torch.device("cuda")
+    data = datasets.m3500()
+    g = from_dataset(data, device=dev)
+    gt = torch.from_numpy(data["gt"]).to(dev)
+    N, L = gt.shape[0], g.num_edges - g.chain_prefix
+    out = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, 1e3 * (time.perf_counter() - t0), (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    allc, ms_all, gib_all = timed(lambda: marginal_covariances_all(gt, g))
+    dense, ms_dense, gib_dense = timed(lambda: marginal_covariances_dense(gt, g))
+    if not torch.isfinite(allc).all():
+        fail("marginal_covariances_all is not finite")
+    ref = JAX_MARGINALS
+    scale = float(dense.abs().max())
+    out["all_err"] = float((allc - dense).abs().max()) / scale
+    log(f"  marginal_covariances_all ({N} poses, {L} loops: a {3 * L} x {3 * L} capacitance): "
+        f"{ms_all:.1f} ms, peak {gib_all:.3f} GiB; the float64 dense marginals "
+        f"{ms_dense:.1f} ms, peak {gib_dense:.3f} GiB")
+    _check(f"marginal_covariances_all vs the float64 dense, max |d| over the largest entry (at "
+           f"most 2x JAX's {ref['all_err']:.3e}, scripts/schur_gate_jax.py)", out["all_err"],
+           2 * ref["all_err"])
+    out.update(all_ms=ms_all, all_gib=gib_all, dense_ms=ms_dense, dense_gib=gib_dense)
+    out["cg"] = {}
+    for k in (0, N // 2 - 1, N - 1):
+        c, ms, gib = timed(lambda: marginal_covariance_cg(gt, g, k))
+        e = float((c - dense[k]).abs().max() / dense[k].abs().max())
+        _check(f"marginal_covariance_cg pose {k} vs the float64 dense block, max |d| over its "
+               f"largest entry ({ms:.1f} ms, peak {gib:.3f} GiB; at most 2x JAX's "
+               f"{ref['cg_err'][str(k)]:.3e})", e, 2 * ref["cg_err"][str(k)])
+        out["cg"][k] = {"err": e, "ms": ms, "gib": gib}
+    return out
+
+
+def phase_twist_replay(torch, metrics, tour, fps_replay):
+    dt = TWIST_DT
+    log(f"== phase 26: the config-3 path: run_slam_from_twists over phase 7's tour "
+        f"({tour['n']} scans, twists odom_deltas / {dt})")
+    import tempfile
+
+    import numpy as np
+    from graphslam_tpu_torch.frontend.projection import beam_angles
+    from graphslam_tpu_torch.geometry import se2
+    from graphslam_tpu_torch.io.logs import load_log, save_log
+    from graphslam_tpu_torch.ops import correspondence as cc
+    from graphslam_tpu_torch.ops import gn_kernel as gk
+    from graphslam_tpu_torch.ops import icp_kernel as ik
+    from graphslam_tpu_torch.sim import default_world, rasterize_world, raycast, raycast_grid
+    from graphslam_tpu_torch.slam.pipeline import run_slam_from_twists
+
+    cfg, n = tour["cfg"], tour["n"]
+    scans = tour["scans"].cpu().numpy()
+    odom_deltas = tour["odom_np"][1:]
+    twists = (odom_deltas / np.float32(dt)).astype(np.float32)
+
+    def run():
+        return run_slam_from_twists(scans, twists, dt, cfg, device="cuda")
+
+    _zero_counts(gk, ik, cc)
+    t0 = time.perf_counter()
+    state, infos = run()
+    torch.cuda.synchronize()
+    secs1 = time.perf_counter() - t0
+    launches = {"gn_kernel": gk.fused_gn_solve.launches, "icp_kernel": ik.fused_icp_loop.launches}
+    log(f"  launches: fused_gn_solve {launches['gn_kernel']}, fused_icp_loop "
+        f"{launches['icp_kernel']}")
+    if min(launches.values()) <= 0:
+        fail("the twist replay did not launch K1 and K2")
+    nkf, nloops = int(state.num_kf), int(state.num_loops)
+    steps = torch.nonzero(infos.is_keyframe).flatten().cpu()
+    if steps.numel() != nkf or not torch.isfinite(state.kf_poses[:nkf]).all():
+        fail("twist replay: keyframe steps or poses are wrong")
+    gt = torch.from_numpy(tour["gt"])
+    ate = float(metrics.ate(state.kf_poses[:nkf].cpu(), gt[steps]))
+    dead = _dead_reckoned(torch, se2, tour["gt"][0], odom_deltas)
+    ate_dead = float(metrics.ate(dead[steps], gt[steps]))
+    ref = JAX_TWISTS
+    log(f"  {nkf} keyframes, {nloops} loop closures; ATE {ate:.4f} m, dead-reckoned "
+        f"{ate_dead:.4f} m; JAX package on the CPU: {ref['keyframes']} keyframes, "
+        f"{ref['loops']} loops, ATE {ref['ate']:.4f} m")
+    if not (abs(nkf - ref["keyframes"]) <= 3 and nloops >= ref["loops"] - 2
+            and ate <= ref["ate"] + 0.02):
+        fail(f"twist replay gate failed: {nkf} keyframes, {nloops} loops, ATE {ate}")
+    t0 = time.perf_counter()
+    state2, infos2 = run()
+    torch.cuda.synchronize()
+    secs2 = time.perf_counter() - t0
+    for f in dataclasses.fields(state):
+        if not torch.equal(getattr(state, f.name), getattr(state2, f.name)):
+            fail(f"two twist replays differ in {f.name}")
+    for a, b in zip(infos, infos2):
+        if not torch.equal(a, b):
+            fail("two twist replays differ in their step infos")
+    fps = n / min(secs1, secs2)
+    log(f"  two twist replays bitwise equal; {fps:.2f} frames/s (the faster of the two, buffer "
+        f"and queries included) beside phase 8's replay {fps_replay:.2f} frames/s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "tour.npz")
+        save_log(path, scans, odom_deltas, tour["gt"], cfg.frontend)
+        z = load_log(path)
+    for key, a in (("scans", scans), ("odom_deltas", odom_deltas), ("gt_poses", tour["gt"])):
+        if not np.array_equal(z[key], np.asarray(a, np.float32)):
+            fail(f"save_log / load_log changed {key}")
+    log("  the tour through save_log and load_log: scans, odometry and ground truth bitwise")
+
+    fc = cfg.frontend
+    world = default_world()
+    gw = rasterize_world(world, 0.04)
+    angles = beam_angles(fc.num_beams, fc.fov_rad, device=world.segments.device)
+    poses = [torch.tensor(p, device=angles.device) for p in
+             ((-7.0, -5.0, 0.2), (0.5, 0.0, -1.0))] + \
+        [torch.from_numpy(tour["gt"][k]).to(angles.device) for k in range(0, n, 40)]
+    meds, q97s = [], []
+    for pose in poses:
+        exact = raycast(world, pose, angles, fc.max_range)
+        grid = raycast_grid(gw, pose, angles, fc.max_range)
+        valid = exact <= fc.max_range
+        e = (grid[valid] - exact[valid]).abs().double().cpu().numpy()
+        meds.append(float(np.median(e)))
+        q97s.append(float(np.quantile(e, 0.97)))
+    us = _event_us(torch, lambda: raycast_grid(gw, poses[0], angles, fc.max_range), reps=50)
+    log(f"  raycast_grid ({gw.occ.shape[0]} x {gw.occ.shape[1]} cells of 0.04 m, "
+        f"{fc.num_beams} beams) vs raycast at {len(poses)} poses: median error up to "
+        f"{max(meds):.4f} m (bound 0.05), 97th percentile up to {max(q97s):.4f} m (bound 0.3); "
+        f"{us:.2f} us a scan (CUDA events, 50 scans)")
+    if not (max(meds) < 0.05 and max(q97s) < 0.3):
+        fail("raycast_grid is outside tests/test_grid.py's bounds")
+    return {"fps": fps, "launches": launches, "ate": ate, "keyframes": nkf, "loops": nloops,
+            "grid_us": us}
+
+
 def make_tour(torch):
     """The replay's scans, made on the card with the port's raycaster."""
     from graphslam_tpu_torch.config import SLAMConfig, SolverConfig
@@ -3051,6 +3538,12 @@ def main() -> int:
     d6 = phase_dist6_main(torch, se3_graphs, chi2, metrics, dm["mesh"])
     two_rank6_err = phase_two_ranks6(torch, datasets, from_dataset, dm["mesh"])
     t6, sh6 = phase_dist6_timing(torch, card, se3_graphs, dm["mesh"])
+    schur_problems = _schur_problems(torch, datasets, from_dataset)
+    sc = phase_schur_solves(torch, schur_problems, dm["mesh"])
+    sg = phase_schur_gn(torch, schur_problems, chi2, metrics, dm["mesh"])
+    del schur_problems
+    mg = phase_marginals(torch, datasets, from_dataset)
+    tw = phase_twist_replay(torch, metrics, tour, t["fps"])
     if "jax" in sys.modules:
         fail("the port imported jax")
 
@@ -3101,6 +3594,19 @@ def main() -> int:
         f"K1-LM: one launch a solve); replay {t['fps']:.2f} frames/s; sphere2500 GN "
         f"{20e3 / st['sphere2500_ms']:.1f} it/s, garage GN {20e3 / st['garage_ms']:.1f} it/s, "
         f"garage LM {20e3 / st['lm_ms']:.1f} it/s (K4, K4-LM: one launch a solve); {card}")
+    log("== the slice's figures of phases 23-26 again")
+    for name in ("sphere2500", "m3500"):
+        beside = (f"K4 {20e3 / st['sphere2500_ms']:.1f}" if name == "sphere2500"
+                  else f"K1 {50e3 / ms_k:.1f}")
+        log(f"  dist_schur GN {name}: {sg[name]['it_s']:.2f} it/s (Q {sc[name]['Q']}; {beside} "
+            f"GN it/s), ATE {sg[name]['ate']:.4f}, idle share {sg[name]['idle_share']}, peak "
+            f"{sg[name]['peak_gib']:.3f} GiB; schur_solve {sc[name]['ms']:.3f} ms, rel err vs "
+            f"float64 {sc[name]['err']:.3e}")
+    log(f"  m3500 marginals: all {mg['all_ms']:.1f} ms, peak {mg['all_gib']:.3f} GiB, error "
+        f"{mg['all_err']:.3e} of the largest entry (JAX {JAX_MARGINALS['all_err']:.3e}); dense "
+        f"float64 {mg['dense_ms']:.1f} ms; cg {[round(v['ms'], 1) for v in mg['cg'].values()]} ms")
+    log(f"  twist replay {tw['fps']:.2f} frames/s (replay {t['fps']:.2f}); raycast_grid "
+        f"{tw['grid_us']:.2f} us a scan; {card}")
 
     def redesign(red, idle):
         """The kernels line's fields of a row redesigned as one launch a solve."""

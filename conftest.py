@@ -11,7 +11,7 @@ use. jax is not imported here, so processes that never import it are untouched.
 
 Under pytest-xdist the collection is also reordered: the few slowest
 tests start at once on workers of their own, the quick ones follow and the
-other slow ones run last, shortest first (see _SLOW and slow_last_order);
+other slow ones run last, longest first (see _SLOW and slow_last_order);
 and each worker's torch, OpenBLAS and XLA take its share of the cores.
 """
 
@@ -71,68 +71,66 @@ def pytest_runtest_teardown(item, nextitem):
 
 # Seconds of the tests that take half a minute or more on one worker of a
 # whole tier-1 run (six xdist workers, `--dist load`, 8 cores shared with
-# other work; 10262 worker-seconds in all, PR 9). A key ending in ".py"
-# names a module whose tests run together, so that one worker computes its
-# module fixtures (tests/test_torch_pipeline.py's tour; the emulation runs
-# that tests/test_torch_persistent_emu.py's cases share).
+# other work): the mean of two runs of 7532 and 7590 worker-seconds, which
+# took 1378 and 1304 s. A key ending in ".py" names a module whose tests
+# run together, so that one worker computes its module fixtures
+# (tests/test_torch_pipeline.py's tour; the emulation runs that
+# tests/test_torch_persistent_emu.py's cases share). Compare orderings on
+# a run's junit XML with scripts/tier1_order_sim.py.
 _SLOW = {
-    "tests/test_dist_fused6.py::test_dist_fused6_gn_matches_mega_kernel_and_mesh_sizes": 942,
-    "tests/test_gn6_kernel.py::test_fused_gn6_page_windowed_matches_plain": 689,
-    "tests/test_dist_fused6.py::test_dist_fused6_lm_matches_mega_kernel": 571,
-    "tests/test_gn6_kernel.py::test_fused_gn6_warm_start_and_ramp": 528,
-    "tests/test_gn6_kernel.py::test_fused_lm6_matches_xla_lm": 446,
-    "tests/test_gn6_kernel.py::test_lm_solve_dispatches_gn_fused_se3": 401,
-    "tests/test_gn6_kernel.py::test_fused_gn6_chain_only": 374,
-    "tests/test_gn6_kernel.py::test_fused_gn6_matches_xla_gn_trajectory": 372,
-    "tests/test_gn6_kernel.py::test_fused_gn6_masked_edges": 339,
-    "tests/test_torch_dist_fused6.py::test_plain_gn_matches_jax": 337,
-    "tests/test_torch_dist_fused6.py::test_plain_lm_matches_jax": 251,
-    "tests/test_torch_gn6_kernel.py::test_twin_matches_jax_kernel_interpret": 219,
-    "tests/test_gn_kernel.py::test_bucketize_edge_cases": 197,
-    "tests/test_gn_kernel.py::test_fused_gn_warm_start_and_ramp": 187,
-    "tests/test_gn_kernel.py::test_warm_start_at_optimum_stays_finite": 169,
-    "tests/test_torch_pipeline.py": 150,
-    "tests/test_torch_persistent_emu.py": 165,
-    "tests/test_dist_fused.py::test_dist_fused_cg_kernel_lm_and_mesh_invariance": 148,
-    "tests/test_gn_kernel.py::test_fused_gn_page_windowed_matches_plain": 134,
-    "tests/test_pipeline.py::TestWarmStartedSolves::test_warm_bucketed_solve_in_pipeline": 120,
-    "tests/test_dist_fused.py::test_dist_fused_gn_mesh_size_invariant": 111,
-    "tests/test_gn_kernel.py::test_fused_lm_page_windowed_matches_plain": 110,
-    "tests/test_dist_fused.py::test_dist_fused_gn_matches_mega_kernel_8dev": 101,
-    "tests/test_dist_fused.py::test_dist_fused_lm_matches_mega_kernel": 95,
-    "tests/test_dist_fused.py::test_dist_fused_gn_page_windowed_matches_plain": 88,
-    "tests/test_dist_fused.py::test_dist_fused_gn_truncated_pcr_and_masks": 81,
-    "tests/test_gn_kernel.py::test_fused_gn_huber_matches_xla_irls": 76,
-    "tests/test_gn_kernel.py::test_fused_gn_matches_xla_gn_trajectory": 68,
-    "tests/test_schur.py::test_dist_schur_gn_converges_sphere": 67,
-    "tests/test_dist_fused.py::test_dist_fused_slab_pcr_mesh_invariant": 67,
-    "tests/test_dist_fused.py::test_dist_fused_cg_kernel_matches_xla_loop": 67,
-    "tests/test_torch_lm.py::test_fused_lm_twin_matches_jax_kernel_interpret": 64,
-    "tests/test_gn_kernel.py::test_fused_gn_chain_only": 59,
-    "tests/test_torch_dist.py::test_four_ranks_match_jax_four_devices": 56,
-    "tests/test_pcg6_kernel.py::test_fused_pcg6_chain_only_matches_dense": 56,
-    "tests/test_gn_kernel.py::test_fused_lm_matches_xla_lm": 55,
-    "tests/test_torch_pcg6_kernel.py::test_twin_matches_jax_kernel_interpret": 54,
-    "tests/test_gn_kernel.py::test_gn_fused_mode_via_gn_loop": 52,
-    "tests/test_torch_gn_kernel.py::test_twin_matches_jax_kernel_interpret[pcr_exact]": 52,
-    "tests/test_gn_kernel.py::test_fused_gn_masked_edges": 50,
-    "tests/test_factors.py::TestSE2Jacobians::test_se3_between_jacobians_match_jacfwd": 48,
-    "tests/test_pcg_kernel.py::test_fused_pcg_tracks_xla_pcg_residuals": 46,
-    "tests/test_torch_dist_fused.py::test_gloo_ranks_match_one_rank_and_jax": 46,
-    "tests/test_pcg6_kernel.py::test_fused_pcg6_converges_to_dense": 44,
-    "tests/test_pipeline.py::TestClosedLoop::test_slam_on_simulated_run": 42,
-    "tests/test_torch_gn6_kernel.py::test_gn_loop_and_lm_solve_gn_fused_match_xla": 42,
-    "tests/test_pcg_kernel.py::test_fused_pcg_chain_only_one_iteration": 37,
-    "tests/test_distributed.py::TestDistributed::test_dist_lm_converges_se3": 36,
-    "tests/test_schur.py::test_schur_matches_dense_se2[4]": 36,
-    "tests/test_torch_cg_step.py::test_gn_setup_twin_matches_jax_kernel[0.0]": 34,
-    "tests/test_pipeline.py::TestClosedLoop::test_online_keyframe_covariances_match_dense_marginals": 32,
-    "tests/test_schur.py::test_schur_matches_dense_se3": 31,
-    "tests/test_pipeline.py::TestClosedLoop::test_enabled_solve_beats_reference_disabled_solve": 30,
+    "tests/test_dist_fused6.py::test_dist_fused6_gn_matches_mega_kernel_and_mesh_sizes": 682,
+    "tests/test_gn6_kernel.py::test_fused_gn6_page_windowed_matches_plain": 500,
+    "tests/test_dist_fused6.py::test_dist_fused6_lm_matches_mega_kernel": 412,
+    "tests/test_gn6_kernel.py::test_fused_gn6_warm_start_and_ramp": 302,
+    "tests/test_gn6_kernel.py::test_fused_gn6_matches_xla_gn_trajectory": 273,
+    "tests/test_gn6_kernel.py::test_fused_lm6_matches_xla_lm": 267,
+    "tests/test_gn6_kernel.py::test_fused_gn6_chain_only": 259,
+    "tests/test_gn6_kernel.py::test_fused_gn6_masked_edges": 258,
+    "tests/test_gn6_kernel.py::test_lm_solve_dispatches_gn_fused_se3": 234,
+    "tests/test_torch_dist_fused6.py::test_plain_gn_matches_jax": 212,
+    "tests/test_torch_dist_fused6.py::test_plain_lm_matches_jax": 188,
+    "tests/test_torch_persistent_emu.py": 150,
+    "tests/test_torch_gn6_kernel.py::test_twin_matches_jax_kernel_interpret": 149,
+    "tests/test_torch_pipeline.py": 142,
+    "tests/test_gn_kernel.py::test_fused_gn_warm_start_and_ramp": 137,
+    "tests/test_dist_fused.py::test_dist_fused_cg_kernel_lm_and_mesh_invariance": 126,
+    "tests/test_dist_fused.py::test_dist_fused_gn_page_windowed_matches_plain": 111,
+    "tests/test_gn_kernel.py::test_bucketize_edge_cases": 105,
+    "tests/test_dist_fused.py::test_dist_fused_gn_matches_mega_kernel_8dev": 103,
+    "tests/test_gn_kernel.py::test_fused_lm_page_windowed_matches_plain": 99,
+    "tests/test_dist_fused.py::test_dist_fused_gn_mesh_size_invariant": 90,
+    "tests/test_dist_fused.py::test_dist_fused_lm_matches_mega_kernel": 87,
+    "tests/test_gn_kernel.py::test_fused_gn_page_windowed_matches_plain": 80,
+    "tests/test_pipeline.py::TestWarmStartedSolves::test_warm_bucketed_solve_in_pipeline": 74,
+    "tests/test_gn_kernel.py::test_warm_start_at_optimum_stays_finite": 66,
+    "tests/test_gn_kernel.py::test_fused_gn_matches_xla_gn_trajectory": 62,
+    "tests/test_gn_kernel.py::test_fused_gn_huber_matches_xla_irls": 59,
+    "tests/test_pcg6_kernel.py::test_fused_pcg6_chain_only_matches_dense": 59,
+    "tests/test_dist_fused.py::test_dist_fused_cg_kernel_matches_xla_loop": 58,
+    "tests/test_torch_lm.py::test_fused_lm_twin_matches_jax_kernel_interpret": 53,
+    "tests/test_pcg6_kernel.py::test_fused_pcg6_converges_to_dense": 52,
+    "tests/test_schur.py::test_dist_schur_gn_converges_sphere": 49,
+    "tests/test_torch_dist.py::test_four_ranks_match_jax_four_devices": 49,
+    "tests/test_dist_fused.py::test_dist_fused_slab_pcr_mesh_invariant": 45,
+    "tests/test_factors.py::TestSE2Jacobians::test_se3_between_jacobians_match_jacfwd": 45,
+    "tests/test_gn_kernel.py::test_gn_fused_mode_via_gn_loop": 45,
+    "tests/test_distributed.py::TestDistributed::test_dist_lm_converges_se3": 44,
+    "tests/test_dist_fused.py::test_dist_fused_gn_truncated_pcr_and_masks": 41,
+    "tests/test_gn_kernel.py::test_fused_lm_matches_xla_lm": 40,
+    "tests/test_schur.py::test_schur_matches_dense_se3": 40,
+    "tests/test_gn_kernel.py::test_fused_gn_chain_only": 38,
+    "tests/test_pcg_kernel.py::test_fused_pcg_tracks_xla_pcg_residuals": 38,
+    "tests/test_gn_kernel.py::test_fused_gn_masked_edges": 37,
+    "tests/test_pipeline.py::TestClosedLoop::test_enabled_solve_beats_reference_disabled_solve": 36,
+    "tests/test_tridiag.py::test_cr_matches_dense[129]": 34,
+    "tests/test_pipeline.py::TestClosedLoop::test_online_keyframe_covariances_match_dense_marginals": 33,
+    "tests/test_torch_gn_kernel.py::test_twin_matches_jax_kernel_interpret[pcr_exact]": 33,
+    "tests/test_schur.py::test_schur_matches_dense_se2[4]": 32,
+    "tests/test_torch_pcg6_kernel.py::test_twin_matches_jax_kernel_interpret": 31,
 }
 
 
-_LEAD_S = 300  # a test this slow starts at once, on a worker of its own
+_LEAD_S = 200  # a test this slow starts at once, on a worker of its own
 
 
 def slow_last_order(items, workers: int):
@@ -143,11 +141,13 @@ def slow_last_order(items, workers: int):
     seconds lead the first chunks of distinct workers, one a worker (a
     module's tests together, so that one worker computes its module
     fixture); the modules left over and then the quick tests follow in
-    collection order; the other slow tests come last, shortest first, so
-    that a run cut by its time limit loses the fewest tests. In collection
+    collection order; the other slow tests come last, longest first: by
+    then xdist hands out two items at a time, so each long test starts on
+    the next free worker while the quick and shorter ones fill the others,
+    and the workers finish together (shortest first left the longest of
+    them to start near the end and run past the others). In collection
     order the slow tests sat next to each other in a few modules: one
-    worker drew several of them and ran on long after the others, and a
-    run cut by its time limit lost quick tests behind them."""
+    worker drew several of them and ran on long after the others."""
     lead, quick, tail = {}, [], []
     for it in items:
         module = it.nodeid.split("::")[0]
@@ -172,7 +172,7 @@ def slow_last_order(items, workers: int):
         fill = chunk - len(head)
         order += head + quick[:fill]
         quick = quick[fill:]
-    tail.sort(key=lambda it: _SLOW[it.nodeid])
+    tail.sort(key=lambda it: -_SLOW[it.nodeid])
     return order + quick + tail
 
 

@@ -4,18 +4,23 @@ The JAX package (`graphslam_tpu/`) is the reference; this package mirrors
 its module paths and public names so each counterpart is found at once:
 
   config.py            SolverConfig and the other dataclasses, same defaults
-  io/                  numpy-only g2o reader and synthetic generators
+  io/                  numpy-only g2o reader, synthetic generators, replay
+                       logs
   geometry/            batched SO(2)/SE(2) and SO(3)/SE(3) ops on torch tensors
   factors/             FactorGraph dataclass of tensors, SE(2) and SE(3)
                        linearization
   solver/              normal equations, cyclic reduction, GN and LM
-                       loops, chordal init, dense marginals
-  sim/                 segment-world raycaster and scripted tours
+                       loops, chordal init, the partitioned Schur solve,
+                       marginals (dense, per-pose CG, all-pose)
+  sim/                 segment-world raycaster, occupancy grids and
+                       scripted tours
   frontend/            scan projection, keyframe gates, GICP matching
-  slam/                the online pipeline's state, step and replays
+  slam/                the online pipeline's state, step and replays, and
+                       the odometry buffer of the twist-driven replay
   ops/                 hand-written CUDA kernels with their plain twins
   parallel/            the distributed solvers on torch.distributed, with
-                       the kernels of a distributed GN iteration
+                       the kernels of a distributed GN iteration, and the
+                       rank-sharded Schur GN
   metrics.py, utils.py ATE/RPE, device sync, card info, profiler trace
 
 As in the JAX package, `geometry` is imported with the package and

@@ -5,7 +5,8 @@ all chips becomes a process group with one process per rank
 (parallel/dist.py::Mesh): factors sharded across ranks, poses replicated,
 and each `psum` of the JAX code one all-reduce (NCCL between GPUs, gloo
 between CPU processes). The fused families run SE(2) (dist_fused) and SE(3)
-(dist_fused6) graphs; the Schur solver (dist_schur) is not ported yet.
+(dist_fused6) graphs. The rank-sharded Schur solver (dist_schur) is
+imported from its module, as in the JAX package.
 """
 
 from graphslam_tpu_torch.parallel.dist import (  # noqa: F401

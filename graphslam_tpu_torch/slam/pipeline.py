@@ -4,8 +4,9 @@ graphslam_tpu/slam/pipeline.py.
 One call covers the reference dataflow for a scan: projection, GICP against
 the last keyframe, the loop probe, keyframe and factor commits, and the
 periodic solve over the smallest power-of-two pose window covering the live
-keyframes (the occupancy bucket), with the dense covariance refresh on loop
-commits.
+keyframes (the occupancy bucket), with the covariance refresh on loop
+commits (dense marginals up to 2048 poses, the selected inverse + Woodbury
+path above).
 
 The JAX step is one jitted function whose branches are lax.cond and
 lax.switch. Here the commits are masked writes on the device, exactly as
@@ -185,11 +186,6 @@ def make_slam_step(cfg: SLAMConfig, use_kernels: Optional[bool] = None):
         scfg = dataclasses.replace(scfg, cg_warm_start=True)
     buckets = _solve_buckets(cfg.max_keyframes, cfg.solve_bucket_min)
     Fc = min(cfg.cov_loop_window, cfg.max_factors)
-    if cfg.cov_every and buckets[-1] > _DENSE_COV_MAX:
-        raise NotImplementedError(
-            f"covariances for a {buckets[-1]}-keyframe window need "
-            "marginal_covariances_all, not ported yet (ROADMAP.md Queue 1, item 10)"
-        )
     consts = {}  # per device: beam angles and the first keyframe's covariance
 
     def match(s, sm, t, tm, init):
@@ -329,10 +325,18 @@ def make_slam_step(cfg: SLAMConfig, use_kernels: Optional[bool] = None):
             B = buckets[b]
             state.kf_poses[:B] = solve(state.kf_poses[:B], graph_view(state, cfg, B))
             if cfg.cov_every and cov_now:
-                from graphslam_tpu_torch.solver.marginals import marginal_covariances_dense
+                from graphslam_tpu_torch.solver.marginals import (
+                    marginal_covariances_all,
+                    marginal_covariances_dense,
+                )
 
+                # dense up to _DENSE_COV_MAX poses: the selected inverse +
+                # Woodbury path cancels in float32 on long online chains
+                # (the JAX with_cov); it is the large-window path
+                marginals = (marginal_covariances_dense if B <= _DENSE_COV_MAX
+                             else marginal_covariances_all)
                 gcov = graph_view(state, cfg, B, loop_size=Fc)
-                state.kf_covs[:B] = marginal_covariances_dense(state.kf_poses[:B], gcov)
+                state.kf_covs[:B] = marginals(state.kf_poses[:B], gcov)
 
         info = StepInfo(
             is_keyframe=is_kf,
@@ -401,6 +405,43 @@ def run_slam_scan(scans: np.ndarray, odom_deltas: Optional[np.ndarray], cfg: SLA
         state, torch.from_numpy(np.asarray(scans, np.float32)).to(device),
         torch.from_numpy(odom).to(device),
     )
+
+
+def run_slam_from_twists(scans: np.ndarray, twists: np.ndarray, dt: float, cfg: SLAMConfig,
+                         device="cuda"):
+    """Replay driver fed by body twists (the /cmd_vel path) on `device`.
+
+    `integrate_twist` builds the odometry ring buffer over the T-1 twists
+    (the dead odometry node's intended 100 Hz loop, odometry.cpp:139-206),
+    seeded with the t=0 entry (origin, zero covariance); `query_interval`
+    (the OdometryBuffer.srv rebuild, odometry.cpp:84-116) answers every
+    consecutive pair of scan stamps at once with the per-tick deltas AND
+    transported covariances, and the replay consumes both: the step
+    accumulates them with the interval adjoint, so the factor noise at each
+    keyframe commit equals query_interval(last_kf_stamp, kf_stamp) (the
+    adjoint transport is a homomorphism).
+
+    Returns (final_state, stacked StepInfo)."""
+    from graphslam_tpu_torch.slam.odometry import init_buffer, integrate_twist, query_interval
+
+    T = int(scans.shape[0])
+    state = init_state(cfg, device=device)
+    dtype = state.kf_poses.dtype
+    fdt = float(dt)
+    buf = init_buffer(depth=T, dtype=dtype, device=device)
+    buf.times[0] = 0.0
+    buf.valid[0] = True
+    buf = buf.replace(head=torch.ones((), dtype=torch.int32, device=device))
+    times = torch.arange(1, T, dtype=dtype, device=device) * fdt
+    tw = torch.from_numpy(np.asarray(twists, np.float32)).to(device=device, dtype=dtype)
+    for k in range(T - 1):
+        buf = integrate_twist(buf, tw[k], fdt, times[k], cfg.frontend)
+    t_prev = torch.arange(0, T - 1, dtype=dtype, device=device) * fdt
+    deltas, Qs = query_interval(buf, t_prev, t_prev + fdt, cfg.frontend)
+    odom = torch.cat([torch.zeros((1, 3), dtype=dtype, device=device), deltas])
+    covs = torch.cat([torch.zeros((1, 3, 3), dtype=dtype, device=device), Qs])
+    ranges = torch.from_numpy(np.asarray(scans, np.float32)).to(device=device, dtype=dtype)
+    return make_slam_replay(cfg, T)(state, ranges, odom, covs)
 
 
 def run_slam(scans: np.ndarray, odom_deltas: Optional[np.ndarray], cfg: SLAMConfig,

@@ -9,4 +9,9 @@ from graphslam_tpu_torch.solver.normal_eq import (  # noqa: F401
     pcg_solve,
     BlockSystem,
 )
+from graphslam_tpu_torch.solver.schur import schur_plan, schur_solve  # noqa: F401
+from graphslam_tpu_torch.solver.marginals import (  # noqa: F401
+    marginal_covariances_dense,
+    marginal_covariance_cg,
+)
 from graphslam_tpu_torch.solver.tridiag import cr_factor, cr_solve  # noqa: F401

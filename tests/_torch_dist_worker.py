@@ -23,6 +23,10 @@ package and against one-rank runs.
           twins (GN 3 iterations, LM + Huber 3 steps) and the plain path
           (GN), and the kernel path's twins with every third loop edge
           masked at pcr_levels 3
+  schur   parallel/dist_schur.py on manhattan(160, seed 26, loop_prob
+          0.25) in 8 blocks (each rank holds blocks and separator edges):
+          dist_schur_solve at lam 1e-4 and dist_schur_gn_solve, 5
+          iterations
 """
 
 import os
@@ -124,7 +128,20 @@ def run_fused6(mesh):
     return out
 
 
-SCENARIOS = {"dist": run_dist, "fused": run_fused, "fused6": run_fused6}
+def run_schur(mesh):
+    from graphslam_tpu_torch.factors import linearize
+    from graphslam_tpu_torch.parallel.dist_schur import dist_schur_gn_solve, dist_schur_solve
+    from graphslam_tpu_torch.solver import build_blocks
+    from graphslam_tpu_torch.solver.schur import schur_plan
+
+    g, p0 = problem(n_poses=160, seed=26, loop_prob=0.25)
+    plan = schur_plan(g.edges.numpy(), 160, 8)
+    sys_ = build_blocks(linearize(p0, g), g, 160)
+    return {"solve": dist_schur_solve(plan, sys_, torch.tensor(1e-4), mesh),
+            "gn": dist_schur_gn_solve(p0, g, plan, mesh, iterations=5)}
+
+
+SCENARIOS = {"dist": run_dist, "fused": run_fused, "fused6": run_fused6, "schur": run_schur}
 
 
 def main() -> None:

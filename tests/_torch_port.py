@@ -16,6 +16,28 @@ def carry(jgraph) -> FactorGraph:
                       jgraph.chain_prefix, device="cpu")
 
 
+def carry_buffer(jbuf):
+    """The port's OdometryBuffer holding a JAX OdometryBuffer's arrays."""
+    import dataclasses
+
+    import torch
+
+    from graphslam_tpu_torch.slam.odometry import OdometryBuffer
+
+    return OdometryBuffer(**{f.name: torch.from_numpy(np.array(getattr(jbuf, f.name)))
+                             for f in dataclasses.fields(OdometryBuffer)})
+
+
+def carry_grid(jgw):
+    """The port's GridWorld holding a JAX GridWorld's arrays."""
+    import torch
+
+    from graphslam_tpu_torch.sim.grid import GridWorld
+
+    return GridWorld(occ=torch.from_numpy(np.array(jgw.occ)), resolution=jgw.resolution,
+                     origin=torch.from_numpy(np.array(jgw.origin)))
+
+
 def wrapped_max(a, b) -> float:
     """Max |a - b| over (N, 3) poses, the angle column taken modulo 2*pi."""
     d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
