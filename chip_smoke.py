@@ -9,7 +9,9 @@ kernel against its plain torch twin, drives the slices of the port (SE(2)
 GN, the online pipeline, LM, SE(3), the distributed SE(2) and SE(3)
 solvers) through the entry points a user calls, and times the kernel paths
 and the plain paths on the card, then drives the modules around them that
-hold no kernel (the Schur solvers, the marginals, the twist replay).
+hold no kernel (the Schur solvers, the marginals, the twist replay), and
+the entry points around them (checkpoints, the native g2o parser, the
+solve, demo and teleop scripts, the dry run).
 Phases, each failing with a traceback and a nonzero exit:
 
   1. device info: card name and power limit (nvidia-smi), CUDA, nvcc,
@@ -28,8 +30,9 @@ Phases, each failing with a traceback and a nonzero exit:
      5 iterations within wrapped atol 2e-3 of the plain twin; gn_solve
      bitwise equal to gn_solve_staged at m3500 (50 iterations) and at
      city10000 (16 CTAs walking 40 row blocks)
-  5. m3500 GN it/s for the kernel path and the plain path on the card,
-     median of 3 reps of back-to-back solves; gn_solve's C entry in turns
+  5. m3500 GN it/s for the kernel path (median of 3 reps of 10
+     back-to-back solves) and the plain path on the card (one solve before
+     and one after, the faster); gn_solve's C entry in turns
      with gn_solve_staged (CUDA events), host launch calls a solve
      (profiler: 1), ptxas registers and spills, the idle share of a solve
      through fused_gn_solve (profiler)
@@ -70,9 +73,9 @@ Phases, each failing with a traceback and a nonzero exit:
      entries; K8's C entry in turns with nn_search_serial (a call by CUDA
      events, and a launch from CUDA graph replays), against its twin and
      torch.cdist, host launch calls a call (profiler: 1), ptxas registers
-     and spills; and one
-     profiled replay (device busy share, kernels and host synchronizations
-     per scan)
+     and spills; host synchronizations per scan (sync debug mode) and one
+     profiled replay (device busy share, kernels a scan), both over the
+     first 60 scans
   9. LM kernels against their twins on manhattan(260): K1's LM mode, 5
      Huber iterations at pcr_levels 4 and exact (poses wrapped atol 3e-3,
      chi2 within 1%, accepted steps and converged equal; its cost pass
@@ -95,7 +98,8 @@ Phases, each failing with a traceback and a nonzero exit:
      gn_lm_solve bitwise equal to gn_lm_solve_staged at m3500 (50 Huber
      steps) and city10000 (5)
  11. LM timing: m3500 LM it/s through K1-LM, in turns with its twin on
-     the card and with K1's GN mode; _lm_loop(pcg_fused) it/s; K3 per call
+     the card (one solve before and one after) and with K1's GN mode;
+     _lm_loop(pcg_fused) it/s; K3 per call
      (its C entry on a prepared problem, in turns with the staged gn_factor
      + gn_cg, and the whole wrapper) against its twin (CUDA events), and
      its launches a call (profiler: 1); gn_lm_solve's C entry in turns
@@ -126,8 +130,9 @@ Phases, each failing with a traceback and a nonzero exit:
      kernel vs twin <= 5e-3; gn6_solve bitwise equal to gn6_solve_staged
      at sphere2500 and garage (20 iterations), gn6_lm_solve to
      gn6_lm_solve_staged at garage (20 Huber steps)
- 14. SE(3) timing: sphere2500 and garage GN it/s through K4 in turns with
-     the twin on the card (median of 3 reps of back-to-back solves); garage
+ 14. SE(3) timing: sphere2500 and garage GN it/s through K4 (median of 3
+     reps of back-to-back solves) in turns with the twin on the card (one
+     solve before and one after, the faster); garage
      LM it/s through K4-LM (in turns with its twin) and through
      _lm_loop(pcg_fused); K5 per call at garage (its C entry on a prepared
      problem, and the whole wrapper, each in turns with the staged
@@ -242,6 +247,34 @@ Phases, each failing with a traceback and a nonzero exit:
      load_log bitwise; raycast_grid on the default world at 0.04 m and 1081
      beams against raycast at 9 poses (median error < 0.05 m, 97th
      percentile < 0.3 m, tests/test_grid.py's bounds) and its time a scan
+ 27. checkpoints (io/checkpoint.py): phase 7's final replay SLAMState
+     (1024 keyframes x 1152 points) and the m3500 FactorGraph through
+     save_state and load_slam_state / load_factor_graph on the card, every
+     field bitwise equal, chain_prefix recovered as 3499; K1 (phase 4's
+     config) on the reloaded graph bitwise equal to the unsaved one's, K1
+     launched; file sizes, save and load times
+ 28. the native g2o parser (io/native_g2o.py), built with g++ into
+     graphslam_tpu_torch/build/ (nothing under native/), against the
+     Python parser on m3500 and sphere2500 written by save_g2o (within
+     1e-10, tests/test_io.py's bound); both parse times, the host's
+ 29. scripts/solve_torch.py as a subprocess, m3500 and sphere2500 with
+     --mode gn_fused --iters 50 --cg-iters 25 --huber --out --plot: the
+     written graph byte for byte the one lm_solve gives in process with
+     the same SolverConfig (K1-LM and K4-LM launched there), ATE below
+     phase 4's gate (0.35 m) and phase 13's (0.2 m) and below half the
+     initial, the plot written
+ 30. scripts/demo_torch.py (scripts/demo.py's closed loop, run_slam on the
+     card): gated on the JAX package's CPU run (scripts/demo_gate_jax.py)
+     with phase 7's margins (keyframes within 3, loops within 2, ATE at
+     most 0.02 m above); K2 launched; both figures written; frames/s
+ 31. scripts/teleop_torch.py's drive on a scripted 60-key string (the
+     default SLAMConfig): every tick prints, keyframes > 1, K2 launched,
+     the map written
+ 32. the dry run (graphslam_tpu_torch/dryrun.py): entry()'s GN step on the
+     card, and dryrun_multichip(1) over NCCL in a process of its own
+     (every distributed solver once, K6a-c and K7a-c launched); phases
+     27-32 timed and counted with utils.Stopwatch and utils.Counters,
+     whose summary is printed before the kernels line
 
 Before the last line it prints one JSON object describing the kernels
 (max_abs_err: gn_kernel the larger of its m3500 and replay-solve pose
@@ -408,6 +441,11 @@ TWIST_DT = 0.1            # seconds between scans of the twist replay
 # odom_deltas / TWIST_DT (scripts/replay_gate_jax.py --twists 0.1, jax 0.9.0).
 JAX_TWISTS = {"keyframes": 110, "loops": 29, "ate": 0.060558050870895386,
               "ate_dead_reckoned": 0.5801027417182922}
+# The JAX package's closed-loop demo on the CPU (scripts/demo_gate_jax.py:
+# scripts/demo.py's config, 541 beams, simulate_trajectory(step_len=0.3,
+# seed=7); jax 0.9.0). Phase 30 holds scripts/demo_torch.py to it with phase
+# 7's margins (keyframes within 3, loops within 2, ATE at most 0.02 m above).
+JAX_DEMO = {"scans": 231, "keyframes": 123, "loops": 31, "ate": 0.1336497962474823}
 TOL_KERNEL_PATH = 2e-4    # the JAX kernel path vs its XLA loop (tests/test_dist_fused.py:170)
 # K6a/K6b against their twins on the card: float32 with FMAs against float32
 # without. Under Huber at m3500 the floor-based angle wrap alone, rounded once
@@ -425,7 +463,14 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
+    """print, flushed; a phase's header ("== ...") gets the seconds since
+    the start."""
+    if a and isinstance(a[0], str) and a[0].startswith("== "):
+        a = (f"{a[0]} [{time.perf_counter() - _T0:.1f} s]",) + a[1:]
     print(*a, flush=True)
 
 
@@ -713,10 +758,12 @@ def phase_timing(torch, gk, cfg, card, p0, g):
                                            cg_iters=cfg.cg_max_iterations,
                                            pcr_levels=cfg.pcr_levels)
 
-    chain_k, chain_p = 10, 2
-    t_plain_a = _time_solves(torch, plain, p0, 3, chain_p)
+    # the plain twin (~1.7 s a solve) once before and once after, the kernel
+    # path a median of 3 reps of 10 solves
+    chain_k, chain_p = 10, 1
+    t_plain_a = _time_solves(torch, plain, p0, 1, chain_p)
     t_kern = _time_solves(torch, kernel, p0, 3, chain_k)
-    t_plain_b = _time_solves(torch, plain, p0, 3, chain_p)
+    t_plain_b = _time_solves(torch, plain, p0, 1, chain_p)
     t_plain = min(t_plain_a, t_plain_b)
     ms_k = 1e3 * t_kern / chain_k
     ms_p = 1e3 * t_plain / chain_p
@@ -1296,13 +1343,15 @@ def phase_timing_frontend(torch, tour, k2_full):
     log(f"  host synchronizations over the first {n60} scans ({out['keyframes_60']} keyframes): "
         f"{syncs}, {out['syncs_per_scan']:.2f} per scan")
 
-    # One profiled replay: device busy share and launches per scan.
+    # One profiled replay of the first n60 scans: device busy share and
+    # launches per scan. (The whole tour's ~2 million profiler events took
+    # ~2.5 minutes of the profiler's own processing.)
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        kern_full(init_state(cfg), tour["scans"], tour["odom"])
+        kern_60(init_state(cfg), s60, o60)
         torch.cuda.synchronize()
         span = time.perf_counter() - t0
     by_name, busy_us, kernels = {}, 0.0, 0
@@ -1318,9 +1367,10 @@ def phase_timing_frontend(torch, tour, k2_full):
     if busy_us > 0:
         out["busy_ms"] = busy_us / 1e3
         out["idle_share"] = 1.0 - busy_us / 1e6 / span
-        out["kernels_per_scan"] = kernels / n
+        out["kernels_per_scan"] = kernels / n60
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-        log(f"  profiled replay: {span * 1e3:.1f} ms span, device busy {busy_us / 1e3:.1f} ms, "
+        log(f"  profiled replay of the first {n60} scans: {span * 1e3:.1f} ms span, device busy "
+            f"{busy_us / 1e3:.1f} ms, "
             f"idle share {out['idle_share']:.3f}, {kernels} kernel launches "
             f"({out['kernels_per_scan']:.1f} per scan)")
         for name, (count, dev_us) in top:
@@ -1333,7 +1383,7 @@ def phase_timing_frontend(torch, tour, k2_full):
             c0, d0 = groups.get(g, (0, 0.0))
             groups[g] = (c0 + count, d0 + dev_us)
         for g, (count, dev_us) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-            log(f"    by source: {g:14s} {count / n:7.1f} launches a scan, "
+            log(f"    by source: {g:14s} {count / n60:7.1f} launches a scan, "
                 f"{dev_us / 1e3:9.3f} device ms")
     else:
         log("  profiled replay: the profiler saw no device time; busy share not measured")
@@ -1617,13 +1667,14 @@ def phase_lm_timing(torch, lm, gk, card, p0, g, sysm, main):
     def gn(p):
         return gk.fused_gn_solve(p, g, iterations=iters, cg_iters=25, pcr_levels=4)
 
-    # in turns: plain, LM, GN, GN, LM, plain (the host's speed varies)
-    chain_k, chain_p = 10, 2
-    t_plain_a = _time_solves(torch, plain, p0, 3, chain_p)
+    # in turns: plain, LM, GN, GN, LM, plain (the host's speed varies); the
+    # plain twin (~3 s a solve) one solve each time
+    chain_k, chain_p = 10, 1
+    t_plain_a = _time_solves(torch, plain, p0, 1, chain_p)
     t_lm_a = _time_solves(torch, kernel, p0, 3, chain_k)
     t_gn = min(_time_solves(torch, gn, p0, 3, chain_k) for _ in range(2))
     t_lm_b = _time_solves(torch, kernel, p0, 3, chain_k)
-    t_plain_b = _time_solves(torch, plain, p0, 3, chain_p)
+    t_plain_b = _time_solves(torch, plain, p0, 1, chain_p)
     out["lm_ms"] = 1e3 * min(t_lm_a, t_lm_b) / chain_k
     out["gn_ms"] = 1e3 * t_gn / chain_k
     out["lm_plain_ms"] = 1e3 * min(t_plain_a, t_plain_b) / chain_p
@@ -1947,12 +1998,13 @@ def phase_se3_timing(torch, card, graphs, lm):
         def plain(p):
             return g6.fused_gn6_solve_reference(p, g, iterations=iters, cg_iters=25)
 
-        # in turns: plain, kernel, kernel, plain (the host's speed varies)
+        # in turns: plain, kernel, kernel, plain (the host's speed varies);
+        # the plain twin (~2 s a solve) one solve each time
         chain_k, chain_p = 5, 1
-        t_pa = _time_solves(torch, plain, p0, 3, chain_p)
+        t_pa = _time_solves(torch, plain, p0, 1, chain_p)
         t_ka = _time_solves(torch, kernel, p0, 3, chain_k)
         t_kb = _time_solves(torch, kernel, p0, 3, chain_k)
-        t_pb = _time_solves(torch, plain, p0, 3, chain_p)
+        t_pb = _time_solves(torch, plain, p0, 1, chain_p)
         ms_k = 1e3 * min(t_ka, t_kb) / chain_k
         ms_p = 1e3 * min(t_pa, t_pb) / chain_p
         out[f"{name}_ms"], out[f"{name}_plain_ms"] = ms_k, ms_p
@@ -1971,10 +2023,10 @@ def phase_se3_timing(torch, card, graphs, lm):
     def lm_plain(p):
         return g6.fused_lm6_solve_reference(p, g, **kw)[0]
 
-    t_pa = _time_solves(torch, lm_plain, p0, 3, 1)
+    t_pa = _time_solves(torch, lm_plain, p0, 1, 1)
     t_ka = _time_solves(torch, lm_kernel, p0, 3, 5)
     t_kb = _time_solves(torch, lm_kernel, p0, 3, 5)
-    t_pb = _time_solves(torch, lm_plain, p0, 3, 1)
+    t_pb = _time_solves(torch, lm_plain, p0, 1, 1)
     out["lm_ms"], out["lm_plain_ms"] = 1e3 * min(t_ka, t_kb) / 5, 1e3 * min(t_pa, t_pb)
     log(f"  garage K4-LM ({iters} steps, cg 25, Huber): {out['lm_ms']:.3f} ms per solve "
         f"({1e3 * t_ka / 5:.3f} and {1e3 * t_kb / 5:.3f} in turns), "
@@ -3458,6 +3510,309 @@ def phase_twist_replay(torch, metrics, tour, fps_replay):
             "grid_us": us}
 
 
+# ---------------------------------------------------------------------------
+# The modules and entry points around the kernels: checkpoints, the native
+# g2o parser, the scripts and the dry run (phases 27-32)
+# ---------------------------------------------------------------------------
+
+
+def _load_script(name: str):
+    """scripts/<name>.py as a module (the scripts are not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _png(path) -> tuple:
+    """(width, height) of a written PNG; fails when it is missing or not one."""
+    from PIL import Image
+
+    p = Path(path)
+    if not p.is_file() or p.stat().st_size < 1000:
+        fail(f"figure {p} was not written")
+    with Image.open(p) as im:
+        if im.format != "PNG":
+            fail(f"{p} is a {im.format}, not a PNG")
+        return im.size
+
+
+def phase_checkpoints(torch, state, p0, g, cfg, lm, gk, sw, counters, card):
+    log("== phase 27: checkpoints (io/checkpoint.py): the replay's final SLAMState and the "
+        "m3500 FactorGraph through save_state and load_*")
+    import tempfile
+
+    from graphslam_tpu_torch.io import checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sp, gp = str(Path(tmp) / "state.npz"), str(Path(tmp) / "m3500.npz")
+        with sw.time("ckpt save_state(SLAMState)"):
+            checkpoint.save_state(sp, state)
+        with sw.time("ckpt load_slam_state"):
+            back = checkpoint.load_slam_state(sp)
+            torch.cuda.synchronize()
+        with sw.time("ckpt save_state(FactorGraph)"):
+            checkpoint.save_state(gp, g)
+        with sw.time("ckpt load_factor_graph"):
+            gl = checkpoint.load_factor_graph(gp)
+            torch.cuda.synchronize()
+        sizes = (Path(sp).stat().st_size, Path(gp).stat().st_size)
+        counters.bump("checkpoint_files", 2)
+        counters.bump("checkpoint_bytes", sum(sizes))
+    for f in dataclasses.fields(state):
+        a, b = getattr(state, f.name), getattr(back, f.name)
+        if b.device.type != "cuda" or a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"the SLAMState's {f.name} changed through the checkpoint")
+    for f in dataclasses.fields(g):
+        a, b = getattr(g, f.name), getattr(gl, f.name)
+        if isinstance(a, torch.Tensor):
+            if b.device.type != "cuda" or a.dtype != b.dtype or not torch.equal(a, b):
+                fail(f"the graph's {f.name} changed through the checkpoint")
+    if gl.chain_prefix != g.chain_prefix or gl.chain_prefix != 3499:
+        fail(f"reloaded chain_prefix {gl.chain_prefix}, from_dataset gave {g.chain_prefix}")
+    s = sw.summary()
+    log(f"  SLAMState ({tuple(state.kf_points.shape)} points): every field bitwise equal on the "
+        f"card; {sizes[0]} bytes, save {s['ckpt save_state(SLAMState)']['mean_ms']:.1f} ms, "
+        f"load {s['ckpt load_slam_state']['mean_ms']:.1f} ms")
+    log(f"  m3500 FactorGraph: every tensor bitwise equal, chain_prefix {gl.chain_prefix} "
+        f"recovered (the JAX package reloads 0); {sizes[1]} bytes, save "
+        f"{s['ckpt save_state(FactorGraph)']['mean_ms']:.1f} ms, load "
+        f"{s['ckpt load_factor_graph']['mean_ms']:.1f} ms; {card}")
+    ref = lm._gn_loop(p0, g, cfg, "gn_fused", 50)
+    gk.fused_gn_solve.launches = 0
+    out = lm._gn_loop(p0, gl, cfg, "gn_fused", 50)
+    torch.cuda.synchronize()
+    launches = gk.fused_gn_solve.launches
+    if launches <= 0:
+        fail("the reloaded graph's solve did not launch K1")
+    if not torch.equal(out, ref):
+        fail(f"K1 on the reloaded graph differs: max {float((out - ref).abs().max())}")
+    log(f"  K1 (gn_fused, phase 4's config, 50 iterations) on the reloaded graph: {launches} "
+        "launch, poses bitwise equal to the unsaved graph's")
+    return {"state_bytes": sizes[0], "graph_bytes": sizes[1], "k1_launches": launches}
+
+
+PARSE_REPS = 5
+
+
+def phase_native_g2o(torch, datasets, sw, counters, card):
+    log("== phase 28: the native g2o parser (io/native_g2o.py) against the Python parser")
+    import tempfile
+
+    import numpy as np
+    from graphslam_tpu_torch.io import g2o, native_g2o
+
+    native_dir = ROOT / "native"
+    before = sorted(p.name for p in native_dir.iterdir())
+    with sw.time("native build (g++)"):
+        lib = native_g2o.build()
+    native_g2o._lib()
+    if lib.parent != ROOT / "graphslam_tpu_torch" / "build":
+        fail(f"the native parser was built into {lib.parent}")
+    if sorted(p.name for p in native_dir.iterdir()) != before:
+        fail("the build wrote under native/")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("m3500", "sphere2500"):
+            path = str(Path(tmp) / f"{name}.g2o")
+            g2o.save_g2o(path, datasets.load(name))
+            times, got = {"native": [], "python": []}, {}
+            for _ in range(PARSE_REPS):
+                for kind, parse in (("native", native_g2o.parse), ("python", g2o._python_parse)):
+                    t0 = time.perf_counter()
+                    with sw.time(f"{kind} parse {name}"):
+                        got[kind] = parse(path)
+                    times[kind].append(1e3 * (time.perf_counter() - t0))
+            raw, ref = got["native"], got["python"]
+            counters.bump("g2o_parses", 2 * PARSE_REPS)
+            if raw.keys() != ref.keys():
+                fail(f"{name}: keys {sorted(raw)} against {sorted(ref)}")
+            err = max(float(np.abs(np.asarray(raw[k], np.float64) - np.asarray(ref[k],
+                                                                            np.float64)).max())
+                      for k in ref if k != "dim")
+            a, b = g2o.load_g2o(path, use_native=True), g2o.load_g2o(path, use_native=False)
+            err = max(err, *(float(np.abs(a[k].astype(np.float64) - b[k]).max())
+                             for k in ("poses", "edges", "measurements", "information")))
+            if not (raw["dim"] == ref["dim"] and err <= 1e-10):
+                fail(f"{name}: the native parser differs from the Python parser by {err}")
+            nat, py = statistics.median(times["native"]), statistics.median(times["python"])
+            out[name] = {"native_ms": nat, "python_ms": py, "err": err}
+            log(f"  {name} ({Path(path).stat().st_size} bytes): native {nat:.2f} ms, Python "
+                f"{py:.2f} ms, medians of {PARSE_REPS} in turns ({py / nat:.1f}x; the host's CPU, "
+                f"not the card's; native {min(times['native']):.2f}-{max(times['native']):.2f}, "
+                f"Python {min(times['python']):.2f}-{max(times['python']):.2f}), largest "
+                f"difference {err:.1e} (tol 1e-10); {card}")
+    log(f"  built {lib.relative_to(ROOT)} in {sw.summary()['native build (g++)']['mean_ms']:.0f} "
+        "ms (0 when up to date); nothing written under native/")
+    return out
+
+
+def _check_cli(name, res, argv):
+    if res.returncode != 0:
+        fail(f"solve_torch.py {' '.join(argv)} exited {res.returncode}:\n{res.stderr[-3000:]}")
+    for line in res.stderr.strip().splitlines():
+        log(f"  | {line}")
+
+
+def phase_solve_cli(torch, datasets, from_dataset, metrics, lm, sw, counters, card):
+    log("== phase 29: scripts/solve_torch.py (subprocess) against lm_solve in process, "
+        "m3500 and sphere2500, mode gn_fused (K1-LM, K4-LM)")
+    import tempfile
+
+    from graphslam_tpu_torch.io import load_g2o, save_g2o
+    from graphslam_tpu_torch.ops import gn6_kernel as g6
+    from graphslam_tpu_torch.ops import gn_kernel as gk
+
+    solve = _load_script("solve_torch")
+    out_dir = ROOT / "chiprun_out" / "solve_torch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    results = {}
+    for name, wrapper, gate in (("m3500", gk.fused_lm_solve, ATE_GATE_M),
+                                ("sphere2500", g6.fused_lm6_solve, SE3_ATE_GATE_M)):
+        out, plot = str(out_dir / f"{name}.g2o"), str(out_dir / f"{name}.png")
+        argv = [name, "--mode", "gn_fused", "--iters", "50", "--cg-iters", "25", "--huber",
+                "--out", out, "--plot", plot]
+        with sw.time(f"solve_torch.py {name} (process)"):
+            res = subprocess.run([sys.executable, str(ROOT / "scripts" / "solve_torch.py"),
+                                  *argv], capture_output=True, text=True, timeout=600, cwd=ROOT)
+        counters.bump("cli_solves")
+        _check_cli(name, res, argv)
+        data = datasets.load(name)
+        g = from_dataset(data)
+        p0 = torch.from_numpy(data["poses"]).cuda()
+        wrapper.launches = 0
+        with sw.time(f"lm_solve {name} (in process)"):
+            mine = lm.lm_solve(p0, g, solve.solver_config(solve.parse_args(argv)))
+            torch.cuda.synchronize()
+        launches = wrapper.launches
+        if launches <= 0:
+            fail(f"{name}: lm_solve did not launch {wrapper.__name__}")
+        U = g.sqrt_info
+        with tempfile.TemporaryDirectory() as tmp:
+            ref = str(Path(tmp) / "ref.g2o")
+            save_g2o(ref, {"dim": data["dim"], "poses": mine.poses.cpu().numpy(),
+                           "edges": g.edges.cpu().numpy(),
+                           "measurements": g.measurements.cpu().numpy(),
+                           "information": torch.einsum("eba,ebc->eac", U, U).cpu().numpy()})
+            if Path(out).read_bytes() != Path(ref).read_bytes():
+                fail(f"{name}: the CLI's written graph differs from lm_solve's in process")
+        if data["dim"] == 2 and not (load_g2o(out)["poses"] == mine.poses.cpu().numpy()).all():
+            fail(f"{name}: the CLI's poses differ from lm_solve's in process")
+        gt = torch.from_numpy(data["gt"]).cuda()
+        ate0, ate = float(metrics.ate(p0, gt)), float(metrics.ate(mine.poses, gt))
+        size = _png(plot)
+        s = sw.summary()
+        log(f"  {name}: the written graph equals lm_solve's in process byte for byte"
+            f"{' (poses bitwise)' if data['dim'] == 2 else ''}; {wrapper.__name__} {launches} "
+            f"launch; ATE {ate0:.4f} -> {ate:.4f} m (gate < {gate} and < half the initial); "
+            f"plot {size[0]}x{size[1]}; the CLI process "
+            f"{s[f'solve_torch.py {name} (process)']['total_s']:.2f} s, lm_solve in process "
+            f"{s[f'lm_solve {name} (in process)']['mean_ms']:.1f} ms; {card}")
+        if not (ate < gate and ate < 0.5 * ate0):
+            fail(f"{name}: CLI ATE gate failed: {ate0} -> {ate}")
+        results[name] = {"ate": ate, "launches": launches}
+    return results
+
+
+def phase_demo(torch, sw, counters, card):
+    log("== phase 30: scripts/demo_torch.py (scripts/demo.py's closed loop: 541 beams, "
+        "simulate_trajectory(step_len=0.3, seed=7), mode pcg at cg 50)")
+    from graphslam_tpu_torch.ops import icp_kernel as ik
+
+    demo = _load_script("demo_torch")
+    out = ROOT / "chiprun_out" / "demo_torch"
+    ik.fused_icp_loop.launches = 0
+    with sw.time("demo_torch.py"):
+        res = demo.main(["--out", str(out)])
+        torch.cuda.synchronize()
+    k2 = ik.fused_icp_loop.launches
+    counters.bump("demo_scans", res["scans"])
+    counters.bump("demo_keyframes", res["keyframes"])
+    counters.bump("demo_loops", res["loops"])
+    ref = JAX_DEMO
+    sizes = [_png(p) for p in res["figures"]]
+    log(f"  {res['scans']} scans: {res['keyframes']} keyframes, {res['loops']} loop closures, "
+        f"ATE {res['ate']:.4f} m; JAX package on the CPU: {ref['keyframes']} keyframes, "
+        f"{ref['loops']} loops, ATE {ref['ate']:.4f} m")
+    log(f"  K2 (fused_icp_loop) launches {k2}; {res['scans'] / res['seconds']:.2f} frames/s "
+        f"(run_slam, a host read of each step's info); figures {sizes}; {card}")
+    if k2 <= 0:
+        fail("the demo did not launch K2")
+    if not (res["scans"] == ref["scans"] and abs(res["keyframes"] - ref["keyframes"]) <= 3
+            and abs(res["loops"] - ref["loops"]) <= 2 and res["ate"] <= ref["ate"] + 0.02):
+        fail(f"demo gate failed: {res}")
+    return {"k2_launches": k2, "fps": res["scans"] / res["seconds"], **res}
+
+
+TELEOP_KEYS = "qqqqq" + "i" * 8 + "u" * 40 + "i" * 6 + "k"  # speed up, then a loop
+
+
+def phase_teleop(torch, sw, counters, card):
+    log(f"== phase 31: scripts/teleop_torch.py's drive on a scripted {len(TELEOP_KEYS)}-key "
+        "string (default SLAMConfig: 1081 beams)")
+    import contextlib
+    import io
+
+    from graphslam_tpu_torch.ops import icp_kernel as ik
+
+    teleop = _load_script("teleop_torch")
+    out = ROOT / "chiprun_out" / "teleop_torch_map.png"
+    sess, state, pose = teleop.session()
+    buf = io.StringIO()
+    ik.fused_icp_loop.launches = 0
+    with sw.time("teleop drive"), contextlib.redirect_stdout(buf):
+        d = teleop.drive(TELEOP_KEYS, state, pose, sess, str(out))
+        torch.cuda.synchronize()
+    k2 = ik.fused_icp_loop.launches
+    lines = buf.getvalue().splitlines()
+    moves = sum(k in teleop.MOVE for k in TELEOP_KEYS)
+    ticks = [l for l in lines if l.startswith("t=")]
+    counters.bump("teleop_ticks", d.tick)
+    counters.bump("teleop_keyframes", int(d.state.num_kf))
+    for l in lines[:6] + ["..."] + lines[-3:]:
+        log(f"  | {l}")
+    if not (d.tick == moves and [l.split()[0] for l in ticks] ==
+            [f"t={t}" for t in range(1, moves + 1)]):
+        fail(f"teleop: {d.tick} ticks and {len(ticks)} tick lines for {moves} move keys")
+    nkf, loops = int(d.state.num_kf), int(d.state.num_loops)
+    size = _png(out)
+    secs = sw.summary()["teleop drive"]["total_s"]
+    log(f"  {d.tick} ticks, {nkf} keyframes, {loops} loop closures, K2 launches {k2}, map "
+        f"{size[0]}x{size[1]}; {d.tick / secs:.2f} ticks/s (map written at every keyframe); "
+        f"{card}")
+    if nkf <= 1 or k2 <= 0:
+        fail(f"teleop: {nkf} keyframes, {k2} K2 launches")
+    return {"ticks": d.tick, "keyframes": nkf, "loops": loops, "k2_launches": k2}
+
+
+def phase_dryrun(torch, chi2, sw, counters, card):
+    log("== phase 32: the dry run (graphslam_tpu_torch/dryrun.py): entry()'s GN step on the "
+        "card, dryrun_multichip(1) over NCCL in a process of its own")
+    from graphslam_tpu_torch import dryrun
+
+    fn, (poses, graph) = dryrun.entry()
+    with sw.time("dryrun entry step"):
+        out = fn(poses, graph)
+        torch.cuda.synchronize()
+    e0, e1 = float(chi2(poses, graph)), float(chi2(out, graph))
+    if out.shape != poses.shape or not torch.isfinite(out).all() or not e1 < 0.5 * e0:
+        fail(f"dryrun.entry: shape {tuple(out.shape)}, chi2 {e0} -> {e1}")
+    with sw.time("dryrun_multichip(1)"):
+        rep = dryrun.dryrun_multichip(1)
+    counters.bump("dryrun_ranks", rep["world"])
+    s = sw.summary()
+    log(f"  entry: manhattan(512) GN step, chi2 {e0:.1f} -> {e1:.1f}, "
+        f"{s['dryrun entry step']['mean_ms']:.1f} ms")
+    log(f"  dryrun_multichip(1): backend {rep['backend']}, shapes {rep['shapes']}; kernel "
+        f"launches {rep['launches']}; {s['dryrun_multichip(1)']['total_s']:.2f} s with the "
+        f"process's start; {card}")
+    if rep["backend"] != "nccl" or len(rep["shapes"]) != 6 or min(rep["launches"].values()) <= 0:
+        fail(f"dryrun_multichip(1): {rep}")
+    return rep
+
+
 def make_tour(torch):
     """The replay's scans, made on the card with the port's raycaster."""
     from graphslam_tpu_torch.config import SLAMConfig, SolverConfig
@@ -3544,6 +3899,19 @@ def main() -> int:
     del schur_problems
     mg = phase_marginals(torch, datasets, from_dataset)
     tw = phase_twist_replay(torch, metrics, tour, t["fps"])
+    sw, counters = utils.Stopwatch(), utils.Counters()
+    with sw.time("phase 27"):
+        ck = phase_checkpoints(torch, replay_state, p0, g, cfg, lm, gk, sw, counters, card)
+    with sw.time("phase 28"):
+        ng = phase_native_g2o(torch, datasets, sw, counters, card)
+    with sw.time("phase 29"):
+        cli = phase_solve_cli(torch, datasets, from_dataset, metrics, lm, sw, counters, card)
+    with sw.time("phase 30"):
+        demo = phase_demo(torch, sw, counters, card)
+    with sw.time("phase 31"):
+        tele = phase_teleop(torch, sw, counters, card)
+    with sw.time("phase 32"):
+        dry = phase_dryrun(torch, chi2, sw, counters, card)
     if "jax" in sys.modules:
         fail("the port imported jax")
 
@@ -3607,6 +3975,17 @@ def main() -> int:
         f"float64 {mg['dense_ms']:.1f} ms; cg {[round(v['ms'], 1) for v in mg['cg'].values()]} ms")
     log(f"  twist replay {tw['fps']:.2f} frames/s (replay {t['fps']:.2f}); raycast_grid "
         f"{tw['grid_us']:.2f} us a scan; {card}")
+    log("== phases 27-32 again: utils.Stopwatch's summary (ms a call, seconds in all) and "
+        "utils.Counters")
+    for k, v in sw.summary().items():
+        log(f"  {k:34s} {v['count']:3d} x {v['mean_ms']:10.2f} ms = {v['total_s']:8.3f} s")
+    log(f"  counters {json.dumps(counters.as_dict())}")
+    log(f"  checkpoints {ck['state_bytes']} + {ck['graph_bytes']} bytes; native parse m3500 "
+        f"{ng['m3500']['native_ms']:.2f} ms against Python {ng['m3500']['python_ms']:.2f} ms "
+        f"(host); CLI ATE m3500 {cli['m3500']['ate']:.4f}, sphere2500 "
+        f"{cli['sphere2500']['ate']:.4f}; demo {demo['keyframes']} keyframes, {demo['loops']} "
+        f"loops, ATE {demo['ate']:.4f}, {demo['fps']:.2f} frames/s; teleop {tele['ticks']} "
+        f"ticks, {tele['keyframes']} keyframes; dry run {dry['backend']}; {card}")
 
     def redesign(red, idle):
         """The kernels line's fields of a row redesigned as one launch a solve."""

@@ -4,8 +4,8 @@ The JAX package (`graphslam_tpu/`) is the reference; this package mirrors
 its module paths and public names so each counterpart is found at once:
 
   config.py            SolverConfig and the other dataclasses, same defaults
-  io/                  numpy-only g2o reader, synthetic generators, replay
-                       logs
+  io/                  g2o reader (native C++ parser, numpy fallback),
+                       synthetic generators, replay logs, checkpoints
   geometry/            batched SO(2)/SE(2) and SO(3)/SE(3) ops on torch tensors
   factors/             FactorGraph dataclass of tensors, SE(2) and SE(3)
                        linearization
@@ -21,7 +21,12 @@ its module paths and public names so each counterpart is found at once:
   parallel/            the distributed solvers on torch.distributed, with
                        the kernels of a distributed GN iteration, and the
                        rank-sharded Schur GN
-  metrics.py, utils.py ATE/RPE, device sync, card info, profiler trace
+  metrics.py, utils.py ATE/RPE, timers and counters, device sync, card
+                       info, profiler trace
+  viz.py               trajectory and map figures (matplotlib, or PIL
+                       where matplotlib is missing)
+  dryrun.py            the dry-run entry points: one GN step, and every
+                       distributed solver over a process group
 
 As in the JAX package, `geometry` is imported with the package and
 `from_dataset`, `lm_solve`, `gn_solve`, `run_slam`, `load` and `ate` are

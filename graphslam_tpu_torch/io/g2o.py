@@ -8,14 +8,15 @@ Produces the struct-of-arrays factor-graph layout the solver consumes
   VERTEX_SE3:QUAT id x y z qx qy qz qw
   EDGE_SE3:QUAT i j  x y z qx qy qz qw  21 upper-tri info entries
 
-A copy of graphslam_tpu/io/g2o.py that needs no JAX. It parses in pure
-numpy only: the native C++ parser (native/g2o_parser.cc) is not wired in
-yet (ROADMAP.md, module queue).
+A copy of graphslam_tpu/io/g2o.py that needs no JAX. A fast C++ parser
+(native/g2o_parser.cc, built at first use and loaded via ctypes by
+io/native_g2o.py) handles large files; `load_g2o` falls back to the pure
+numpy parser when that library cannot be built or loaded.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -64,7 +65,18 @@ def _upper_tri_to_full(vals: np.ndarray, d: int) -> np.ndarray:
     return out
 
 
-def load_g2o(path: str) -> Dict[str, np.ndarray]:
+def _try_native_parse(path: str) -> Optional[Dict[str, np.ndarray]]:
+    """The native parser's result, or None where it cannot build, load or
+    read the file (the Python parser then reports what is wrong)."""
+    from graphslam_tpu_torch.io import native_g2o
+
+    try:
+        return native_g2o.parse(path)
+    except (OSError, RuntimeError, AttributeError, ValueError):
+        return None
+
+
+def load_g2o(path: str, use_native: bool = True) -> Dict[str, np.ndarray]:
     """Load a g2o file into the solver's struct-of-arrays layout.
 
     Returns a dict with:
@@ -74,7 +86,10 @@ def load_g2o(path: str) -> Dict[str, np.ndarray]:
       measurements: (E, 3) or (E, 12) relative pose z_ij
       information:  (E, 3, 3) or (E, 6, 6) information matrices
     """
-    return _finalize(_python_parse(path))
+    parsed = _try_native_parse(path) if use_native else None
+    if parsed is None:
+        parsed = _python_parse(path)
+    return _finalize(parsed)
 
 
 def _python_parse(path: str) -> Dict[str, np.ndarray]:
